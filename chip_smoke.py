@@ -1,0 +1,415 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc, at first
+use), holds each kernel against its plain PyTorch version on the card at the
+shapes of the main path, then drives the main path — ``repro_torch.dp.solve``
+and ``dp.batch_solve`` on ``device="cuda"`` — at the paper's sizes:
+
+  * S-DP (paper Table I): n = 2^20, offsets range(2k, k, -1) with k = 2^10,
+    op="min", with and without reconstruction;
+  * MCM (paper §IV): n = 1024 with reconstruction, and a batch of 8 at
+    n = 512;
+  * the other six zoo problems with reconstruction, at sizes that finish in
+    seconds.
+
+Each answer is checked against the numpy oracle (or, where that is too slow,
+against the plain route on the card), its decoded solution is recomputed to
+the optimum, and the kernels' launch counters must show that the main path
+ran through both kernels. Any failed check exits non-zero. The last two
+lines of standard output are the kernels' JSON record and the device record.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from repro_torch import dp  # noqa: E402
+from repro_torch.core import mcm as core_mcm  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import mcm_pipeline as k2  # noqa: E402
+from repro_torch.kernels import sdp_pipeline as k1  # noqa: E402
+
+SEED = 0
+SDP_N, SDP_K = 2 ** 20, 2 ** 10
+MCM_N, MCM_BATCH_N, MCM_BATCH = 1024, 512, 8
+#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s
+HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+#: float32 tables (sums along chains of up to ~2k cells) against float64
+#: oracles and recomputations of a decoded solution
+RTOL = 1e-4
+
+_failures: list = []
+
+
+def require(ok: bool, what: str) -> None:
+    print(("ok      " if ok else "FAILED  ") + what, flush=True)
+    if not ok:
+        _failures.append(what)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn()`` over ``reps`` calls after one warm-up,
+    by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(nbytes: float, ops: float) -> tuple:
+    """Least time for the work: the larger of bytes over the HBM rate and
+    float32 operations over the peak rate."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def reset_launches() -> None:
+    for counts in (k1.LAUNCHES, k2.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+
+
+def launches() -> dict:
+    return {**k1.LAUNCHES, **k2.LAUNCHES}
+
+
+# ---------------------------------------------------------------------------
+# Instances (numpy, from the seed)
+# ---------------------------------------------------------------------------
+def sdp_instance(rng) -> dict:
+    offsets = tuple(range(2 * SDP_K, SDP_K, -1))       # benchmarks/table1_sdp.py:32
+    return {"init": rng.normal(size=offsets[0]).astype(np.float32),
+            "offsets": offsets, "op": "min", "n": SDP_N}
+
+
+def mcm_dims(rng, n: int) -> np.ndarray:
+    return rng.integers(1, 61, size=n + 1).astype(np.float64)
+
+
+def other_instances(rng) -> dict:
+    S, T, M = 64, 2048, 16
+    lognorm = lambda x, axis: np.log(x / x.sum(axis=axis, keepdims=True))  # noqa: E731
+    return {
+        "edit_distance": {"x": rng.integers(0, 4, 512), "y": rng.integers(0, 4, 512)},
+        "lcs": {"x": rng.integers(0, 4, 512), "y": rng.integers(0, 4, 512)},
+        "viterbi": {"log_a": lognorm(rng.random((S, S)) + 0.05, 1),
+                    "log_b": lognorm(rng.random((S, M)) + 0.05, 1),
+                    "log_pi": lognorm(rng.random(S) + 0.05, 0),
+                    "obs": rng.integers(0, M, T)},
+        "unbounded_knapsack": {"item_weights": rng.integers(1, 33, 12),
+                               "item_values": np.round(rng.random(12) * 10 + 0.5, 3),
+                               "capacity": 4096},
+        "optimal_bst": {"freq": rng.random(512) + 0.01},
+        "polygon_triangulation": {"vertices": rng.integers(1, 20, 512).astype(np.float64)},
+    }
+
+
+# ---------------------------------------------------------------------------
+# Recomputing decoded solutions to their optimum (float64)
+# ---------------------------------------------------------------------------
+def close(a, b) -> bool:
+    return bool(np.isclose(float(a), float(b), rtol=RTOL, atol=1e-6))
+
+
+def mcm_tree_cost(tree, dims) -> tuple:
+    """(cost, first, last) of a parenthesization tree over matrices."""
+    if isinstance(tree, int):
+        return 0.0, tree, tree
+    lc, i, s = mcm_tree_cost(tree[0], dims)
+    rc, _, j = mcm_tree_cost(tree[1], dims)
+    return lc + rc + dims[i] * dims[s + 1] * dims[j + 1], i, j
+
+
+def bst_cost(tree, freq, depth=1) -> float:
+    if tree is None:
+        return 0.0
+    root, left, right = tree
+    return (freq[root] * depth + bst_cost(left, freq, depth + 1)
+            + bst_cost(right, freq, depth + 1))
+
+
+def check_decoded(name: str, inst: dict, ans) -> bool:
+    sol = ans.solution
+    if name == "sdp":
+        cells, offs = sol["cells"], sol["offsets_taken"]
+        chain = all(c - o == nxt for c, o, nxt in
+                    zip(cells, offs, cells[1:] + [sol["terminal"]]))
+        return chain and ans.table[-1] == inst["init"][sol["terminal"]]
+    if name == "edit_distance":
+        x, y = list(inst["x"]), list(inst["y"])
+        out, i, cost = [], 0, 0
+        for op in sol["ops"]:
+            if op[0] in ("match", "sub"):
+                out.append(y[op[2]] if op[0] == "sub" else x[op[1]])
+                cost += op[0] == "sub"
+                i += 1
+            elif op[0] == "del":
+                i, cost = i + 1, cost + 1
+            else:
+                out.append(y[op[1]])
+                cost += 1
+        return out == y and i == len(x) and cost == ans.value
+    if name == "lcs":
+        pairs = sol["pairs"]
+        ok = all(inst["x"][i] == inst["y"][j] for i, j in pairs)
+        inc = all(a[0] < b[0] and a[1] < b[1] for a, b in zip(pairs, pairs[1:]))
+        return ok and inc and len(pairs) == ans.value
+    if name == "viterbi":
+        s, o = sol["states"], inst["obs"]
+        lp = inst["log_pi"][s[0]] + inst["log_b"][s[0], o[0]]
+        for t in range(1, len(s)):
+            lp += inst["log_a"][s[t - 1], s[t]] + inst["log_b"][s[t], o[t]]
+        return close(lp, ans.value)
+    if name == "unbounded_knapsack":
+        items = list(zip(inst["item_weights"].tolist(), inst["item_values"].tolist()))
+        real = all(any(w == iw and close(v, iv) for iw, iv in items)
+                   for w, v in sol["items"])
+        return (real and sol["total_weight"] <= inst["capacity"]
+                and close(sol["total_value"], ans.value))
+    if name == "mcm":
+        return close(mcm_tree_cost(sol["tree"], inst["dims"])[0], ans.value)
+    if name == "optimal_bst":
+        return close(bst_cost(sol["tree"], inst["freq"]), ans.value)
+    if name == "polygon_triangulation":
+        v = inst["vertices"]
+        cost = sum(v[a] * v[b] * v[c] for a, b, c in sol["triangles"])
+        return len(sol["triangles"]) == len(v) - 2 and close(cost, ans.value)
+    raise KeyError(name)
+
+
+# ---------------------------------------------------------------------------
+# Phases
+# ---------------------------------------------------------------------------
+def phase_build() -> None:
+    t0 = time.perf_counter()
+    _build.build_all()
+    print(f"build: {time.perf_counter() - t0:.2f} s wall for {len(_build.SOURCES)} "
+          "sources built in parallel")
+    for name in _build.SOURCES:
+        info = _build.BUILD_INFO.get(name)
+        if info is None:
+            print(f"build {name}: library already present")
+            continue
+        print(f"build {name}: nvcc {info['seconds']:.2f} s")
+        for line in info["log"].splitlines():
+            if "Used" in line or "spill" in line or "Compiling entry" in line:
+                print("  " + line.strip())
+
+
+def phase_kernels(rng, cuda) -> tuple:
+    """Each kernel against its plain version on the same CUDA tensors at the
+    main path's shapes; returns (records, sdp instance, mcm dims)."""
+    records = []
+
+    def record(name, source, replaces, err, ms, plain_ms, nbytes, ops):
+        b, by = bound_ms(nbytes, ops)
+        records.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": 0,
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": b, "bound_by": by, "library_ms": None})
+        print(f"{name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{b:.4f} ms ({by}), max_abs_err {err}")
+
+    def err(a, b) -> float:
+        return float((a.double() - b.double()).abs().max())
+
+    # K1 at the S-DP main-path shape (unweighted, min)
+    sdp = sdp_instance(rng)
+    offsets, n = sdp["offsets"], sdp["n"]
+    a1, k = offsets[0], len(offsets)
+    init = torch.from_numpy(sdp["init"]).to(cuda)[None]
+    for with_args in (False, True):
+        name = "sdp_pipeline_with_args" if with_args else "sdp_pipeline"
+        fn = k1.sdp_pipeline_with_args if with_args else k1.sdp_pipeline
+        got = fn(init, offsets, "min", n)
+        want = k1.sdp_pipeline_plain(init, offsets, "min", n, with_args=with_args)
+        if with_args:
+            require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                    f"{name} n={n} k={k}: table and args bit-equal to plain")
+            got, want = got[0], want[0]
+        else:
+            require(torch.equal(got, want), f"{name} n={n} k={k}: table bit-equal to plain")
+        ms = cuda_ms(lambda: fn(init, offsets, "min", n), reps=5)
+        plain = cuda_ms(lambda: k1.sdp_pipeline_plain(init, offsets, "min", n,
+                                                      with_args=with_args), reps=2)
+        nbytes = 4 * a1 + 4 * k + 4 * n * (2 if with_args else 1)
+        record(name, "src/repro_torch/csrc/sdp_pipeline.cu",
+               "src/repro/kernels/sdp_pipeline.py:" + ("130" if with_args else "110"),
+               err(got, want), ms, plain, nbytes, (n - a1) * (k - 1))
+
+    # K1 weighted, at the knapsack main-path shape (max, with args)
+    ks = dp.get_problem("unbounded_knapsack").encode(**other_instances(
+        np.random.default_rng(SEED))["unbounded_knapsack"])
+    kinit = torch.from_numpy(ks.init).to(cuda)
+    kw = torch.from_numpy(ks.weights).to(cuda)
+    got = k1.sdp_pipeline_with_args(kinit, ks.offsets, "max", ks.n, weights=kw)
+    want = k1.sdp_pipeline_plain(kinit, ks.offsets, "max", ks.n, weights=kw,
+                                 with_args=True)
+    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+            f"sdp_pipeline_with_args weighted (knapsack n={ks.n}): bit-equal to plain")
+
+    # K2 at the MCM main-path shapes: n = 1024, and a batch of 8 at n = 512
+    dims = mcm_dims(rng, MCM_N)
+    wtab = torch.from_numpy(dp.get_problem("mcm").encode(dims=dims).weights
+                            .astype(np.float32)).to(cuda)
+    bdims = [mcm_dims(rng, MCM_BATCH_N) for _ in range(MCM_BATCH)]
+    bw = torch.from_numpy(np.stack([dp.get_problem("mcm").encode(dims=d).weights
+                                    .astype(np.float32) for d in bdims])).to(cuda)
+    for w, nn in ((bw, MCM_BATCH_N), (wtab, MCM_N)):
+        gt, ga = k2.mcm_pipeline_with_args(w, nn)
+        wt, wa = k2.mcm_pipeline_plain(w, nn, with_args=True)
+        require(torch.equal(gt, wt) and torch.equal(ga, wa),
+                f"mcm_pipeline_with_args n={nn} batch={w.shape[0] if w.dim() == 3 else 1}: "
+                "table and args bit-equal to plain")
+        require(torch.equal(k2.mcm_pipeline(w, nn), wt),
+                f"mcm_pipeline n={nn}: table bit-equal to plain")
+    cells, needed = core_mcm.num_cells(MCM_N), sum((MCM_N - d) * d for d in range(1, MCM_N))
+    for with_args in (False, True):
+        name = "mcm_pipeline_with_args" if with_args else "mcm_pipeline"
+        fn = k2.mcm_pipeline_with_args if with_args else k2.mcm_pipeline
+        got = fn(wtab, MCM_N)
+        want = k2.mcm_pipeline_plain(wtab, MCM_N, with_args=with_args)
+        e = err(got[0], want[0]) if with_args else err(got, want)
+        ms = cuda_ms(lambda: fn(wtab, MCM_N), reps=3)
+        plain = cuda_ms(lambda: k2.mcm_pipeline_plain(wtab, MCM_N, with_args=with_args),
+                        reps=2)
+        # bytes: the weights the recurrence reads (e < d) once, the table out
+        nbytes = 4 * needed + 4 * cells * (2 if with_args else 1)
+        record(name, "src/repro_torch/csrc/mcm_pipeline.cu",
+               "src/repro/kernels/mcm_pipeline.py:" + ("120" if with_args else "105"),
+               e, ms, plain, nbytes, 3 * needed)
+    del wtab, bw
+    torch.cuda.empty_cache()
+    return records, sdp, dims
+
+
+def phase_main_path(rng, cuda, sdp: dict, dims: np.ndarray) -> None:
+    """The main path through the public entry points on the card."""
+    t_all = time.perf_counter()
+    # dispatch names the kernel routes for the paper's shapes
+    sdp_spec = dp.get_problem("sdp").encode(**sdp)
+    require(dp.dispatch(sdp_spec, device=cuda).name == "kernel_blocked",
+            f"dispatch(sdp n={SDP_N}) -> kernel_blocked")
+    require(dp.dispatch(sdp_spec, reconstruct=True, device=cuda).name == "kernel_blocked",
+            f"dispatch(sdp n={SDP_N}, reconstruct) -> kernel_blocked")
+
+    t0 = time.perf_counter()
+    table = dp.solve("sdp", device=cuda, **sdp)
+    print(f"solve sdp n={SDP_N} k={SDP_K}: {time.perf_counter() - t0:.2f} s")
+    plain = dp.solve_spec(sdp_spec, backend="blocked", device=cuda)
+    require(np.array_equal(table, plain), "sdp table bit-equal to the plain "
+            "blocked route on the card")
+    t0 = time.perf_counter()
+    ans = dp.solve("sdp", reconstruct=True, device=cuda, **sdp)
+    print(f"solve sdp reconstruct: {time.perf_counter() - t0:.2f} s")
+    require(np.array_equal(ans.table, table) and np.isfinite(table).all(),
+            "sdp reconstruct table equals the plain solve, finite")
+    require(check_decoded("sdp", sdp, ans), "sdp witness chain ends in the "
+            "preset that holds the optimum")
+
+    mcm_spec = dp.get_problem("mcm").encode(dims=dims)
+    require(dp.dispatch(mcm_spec, reconstruct=True, device=cuda).name == "kernel_wavefront",
+            f"dispatch(mcm n={MCM_N}, reconstruct) -> kernel_wavefront")
+    t0 = time.perf_counter()
+    ans = dp.solve("mcm", dims=dims, reconstruct=True, device=cuda)
+    print(f"solve mcm n={MCM_N} reconstruct: {time.perf_counter() - t0:.2f} s "
+          f"(encode included), value {ans.value}")
+    ref = dp.solve_spec(mcm_spec, backend="wavefront", device=cuda)
+    require(np.array_equal(ans.table, ref), f"mcm n={MCM_N} table bit-equal to "
+            "the plain wavefront route on the card")
+    require(check_decoded("mcm", {"dims": dims}, ans), f"mcm n={MCM_N} tree "
+            "recomputes to the optimum")
+    del mcm_spec
+
+    insts = [{"dims": mcm_dims(rng, MCM_BATCH_N)} for _ in range(MCM_BATCH)]
+    t0 = time.perf_counter()
+    answers = dp.batch_solve("mcm", insts, reconstruct=True, device=cuda)
+    print(f"batch_solve mcm {MCM_BATCH} x n={MCM_BATCH_N} reconstruct: "
+          f"{time.perf_counter() - t0:.2f} s (encode included)")
+    refs = dp.batch_solve_specs([dp.get_problem("mcm").encode(**i) for i in insts],
+                                backend="wavefront", device=cuda)
+    require(all(np.array_equal(a.table, r) for a, r in zip(answers, refs)),
+            "mcm batch tables bit-equal to the plain wavefront route")
+    require(all(check_decoded("mcm", i, a) for i, a in zip(insts, answers)),
+            "mcm batch trees recompute to their optima")
+
+    for name, inst in other_instances(np.random.default_rng(SEED)).items():
+        prob = dp.get_problem(name)
+        spec = prob.encode(**inst)
+        t0 = time.perf_counter()
+        ans = dp.solve(name, reconstruct=True, device=cuda, **inst)
+        took = time.perf_counter() - t0
+        route = dp.dispatch(spec, reconstruct=True, device=cuda).name
+        if name in ("optimal_bst", "polygon_triangulation"):   # O(n^3) oracles
+            ref = prob.extract(dp.solve_spec(spec, backend="wavefront", device=cuda), spec)
+            what = "the plain wavefront route on the card"
+        else:
+            ref = prob.extract(prob.oracle(**inst), spec)
+            what = "the numpy oracle"
+        print(f"solve {name} (n={spec.n}) via {route}: {took:.2f} s, value {ans.value}")
+        require(close(ans.value, ref), f"{name} value matches {what}")
+        require(check_decoded(name, inst, ans), f"{name} decoded solution "
+                "recomputes to the optimum")
+    poly = other_instances(np.random.default_rng(SEED))["polygon_triangulation"]
+    value = dp.solve("polygon_triangulation", device=cuda, **poly)
+    require(close(value, dp.solve("polygon_triangulation", reconstruct=True,
+                                  device=cuda, **poly).value),
+            "polygon_triangulation value without reconstruction matches")
+    print(f"main path: {time.perf_counter() - t_all:.2f} s")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    cuda = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    print(smi.stdout.strip() or f"nvidia-smi failed: {smi.stderr.strip()}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    phase_build()
+    rng = np.random.default_rng(SEED)
+    records, sdp, dims = phase_kernels(rng, cuda)
+
+    torch.cuda.reset_peak_memory_stats(cuda)
+    reset_launches()
+    phase_main_path(rng, cuda, sdp, dims)
+    counts = launches()
+    print(f"launches on the main path: {counts}")
+    for rec in records:
+        rec["launches"] = counts[rec["name"]]
+        require(rec["launches"] > 0, f"{rec['name']} launched on the main path")
+    print(f"peak device memory on the main path: "
+          f"{torch.cuda.max_memory_allocated(cuda) / 2 ** 30:.3f} GiB")
+
+    if _failures:
+        print(f"chip_smoke: {len(_failures)} check(s) failed", file=sys.stderr)
+        return 1
+    print(json.dumps({"kernels": records}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

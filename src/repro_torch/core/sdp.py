@@ -1,0 +1,313 @@
+"""Solvers for the paper's Simplified DP problem (Definition 1).
+
+``ST[i] = ⊗_{1≤j≤k} ST[i - a_j]`` with offsets ``a_1 > a_2 > … > a_k > 0``
+and preset initial values ``ST[0..a_1-1]``. Every solver accepts an optional
+``(n, k)`` ``weights`` array: with ``(⊕, ⊙)`` the semiring whose ``add``
+matches ``op``, the recurrence becomes ``ST[i] = ⊕_j (ST[i - a_j] ⊙ w[i, j])``.
+
+The tensor solvers take a leading batch axis — ``init`` of shape
+``(a_1,)`` or ``(batch, a_1)``, ``weights`` of shape ``(n, k)`` or
+``(batch, n, k)`` — and run on the device of ``init``:
+
+  * :func:`sdp_reference`    — numpy sequential oracle (paper Fig. 1).
+  * :func:`solve_sequential` — the same loop on tensors.
+  * :func:`solve_tournament` — per element, gather k values and tree-reduce
+                               (the ``O(n log k)`` baseline of §II-B).
+  * :func:`solve_pipeline`   — the paper's pipeline (Fig. 2), one
+                               gather/⊗/scatter per outer step.
+  * :func:`solve_blocked`    — ``B = min(a_k, block)`` outputs per step as a
+                               (k×B) gather + tree reduce.
+
+Each builds its table in place, one step at a time.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.semiring import SEMIGROUP_TO_SEMIRING, SEMIGROUPS
+
+__all__ = [
+    "sdp_reference",
+    "solve_sequential",
+    "solve_tournament",
+    "solve_pipeline",
+    "solve_blocked",
+    "solve_tournament_with_args",
+    "solve_blocked_with_args",
+    "linear_traceback_steps",
+    "linear_args_np",
+    "linear_traceback_np",
+]
+
+
+def _check_offsets(offsets: Sequence[int]) -> np.ndarray:
+    a = np.asarray(offsets, dtype=np.int64)
+    if a.ndim != 1 or a.size == 0:
+        raise ValueError("offsets must be a non-empty 1-D sequence")
+    if not (np.all(np.diff(a) < 0) and a[-1] > 0):
+        raise ValueError(f"offsets must satisfy a_1 > … > a_k > 0, got {offsets}")
+    return a
+
+
+def _mul_for(op: str):
+    """The semiring ``⊙`` paired with semigroup ``op``."""
+    return SEMIGROUP_TO_SEMIRING[op].mul
+
+
+def _batched(init: torch.Tensor, weights):
+    """Lift unbatched inputs to a batch of one; returns (init, weights,
+    squeeze)."""
+    if init.dim() == 1:
+        return init[None], (None if weights is None else weights[None]), True
+    return init, weights, False
+
+
+def _init_table(init: torch.Tensor, a1: int, n: int) -> torch.Tensor:
+    """The ``(batch, n)`` preset table every solver starts from. Preset-only
+    tables (``n ≤ a_1``) clamp the presets; the loops then run no live
+    step."""
+    if n <= a1:
+        return init[:, :n].clone()
+    st = torch.zeros((init.shape[0], n), dtype=init.dtype, device=init.device)
+    st[:, :a1] = init
+    return st
+
+
+def _out(t: torch.Tensor, squeeze: bool) -> torch.Tensor:
+    return t[0] if squeeze else t
+
+
+def _argbest_for(op: str):
+    if op == "min":
+        return torch.argmin
+    if op == "max":
+        return torch.argmax
+    raise ValueError(f"argument tracking is undefined for op={op!r} "
+                     "(every lane contributes to the reduction)")
+
+
+# ---------------------------------------------------------------------------
+# Oracle (paper Fig. 1, numpy)
+# ---------------------------------------------------------------------------
+def sdp_reference(init: np.ndarray, offsets: Sequence[int], op: str, n: int,
+                  weights: np.ndarray | None = None) -> np.ndarray:
+    a = _check_offsets(offsets)
+    sg = SEMIGROUPS[op]
+    a1 = int(a[0])
+    if len(init) != a1:
+        raise ValueError(f"need a_1={a1} initial values, got {len(init)}")
+    if weights is not None:
+        weights = np.asarray(weights)
+        if weights.shape != (n, len(a)):
+            raise ValueError(f"weights must be (n, k)=({n}, {len(a)}), "
+                             f"got {weights.shape}")
+    np_mul = SEMIGROUP_TO_SEMIRING[op].np_mul
+    if n <= a1:  # preset-only table: clamp, like the tensor solvers
+        return np.asarray(init)[:n].copy()
+    st = np.empty(n, dtype=np.asarray(init).dtype)
+    st[:a1] = init
+    for i in range(a1, n):
+        if weights is None:
+            terms = [st[i - aj] for aj in a]
+        else:
+            terms = [np_mul(st[i - aj], weights[i, j]) for j, aj in enumerate(a)]
+        v = terms[0]
+        for t in terms[1:]:
+            v = sg.np_op(v, t)
+        st[i] = v
+    return st
+
+
+# ---------------------------------------------------------------------------
+# Sequential: the oracle's loop on tensors (lanes folded in ascending j)
+# ---------------------------------------------------------------------------
+def solve_sequential(init, offsets, op: str, n: int, weights=None):
+    a = _check_offsets(offsets)
+    sg, mul = SEMIGROUPS[op], _mul_for(op)
+    init, weights, squeeze = _batched(init, weights)
+    a1 = int(a[0])
+    st = _init_table(init, a1, n)
+    for i in range(a1, n):
+        v = None
+        for j, aj in enumerate(a.tolist()):
+            t = st[:, i - aj]
+            if weights is not None:
+                t = mul(t, weights[:, i, j])
+            v = t if v is None else sg.op(v, t)
+        st[:, i] = v
+    return _out(st, squeeze)
+
+
+# ---------------------------------------------------------------------------
+# Tournament baseline (§II-B): per element, gather k values, tree-reduce
+# ---------------------------------------------------------------------------
+def _tournament(init, offsets, op, n, weights, with_args):
+    a = _check_offsets(offsets)
+    sg, mul = SEMIGROUPS[op], _mul_for(op)
+    argbest = _argbest_for(op) if with_args else None
+    init, weights, squeeze = _batched(init, weights)
+    a1 = int(a[0])
+    offs = torch.as_tensor(a, device=init.device)
+    st = _init_table(init, a1, n)
+    ar = torch.full(st.shape, -1, dtype=torch.int32, device=st.device)
+    for i in range(a1, n):
+        vals = st[:, i - offs]                            # (batch, k)
+        if weights is not None:
+            vals = mul(vals, weights[:, i])
+        st[:, i] = sg.reduce(vals, dim=1)
+        if with_args:
+            ar[:, i] = argbest(vals, dim=1).to(torch.int32)
+    return (_out(st, squeeze), _out(ar, squeeze)) if with_args else _out(st, squeeze)
+
+
+def solve_tournament(init, offsets, op: str, n: int, weights=None):
+    return _tournament(init, offsets, op, n, weights, with_args=False)
+
+
+def solve_tournament_with_args(init, offsets, op: str, n: int, weights=None):
+    """``solve_tournament`` + per-cell winning-lane index (first occurrence
+    on ties; preset cells carry -1). Returns ``(st, args)``."""
+    return _tournament(init, offsets, op, n, weights, with_args=True)
+
+
+# ---------------------------------------------------------------------------
+# The paper's pipeline (Fig. 2), vectorized over the k stages. At outer step
+# i, stage j serves element idx = i - j and applies its j-th offset term; the
+# write addresses {i - j} are consecutive, hence distinct (Theorem 1).
+# ---------------------------------------------------------------------------
+def solve_pipeline(init, offsets, op: str, n: int, weights=None):
+    a = _check_offsets(offsets)
+    sg, mul = SEMIGROUPS[op], _mul_for(op)
+    init, weights, squeeze = _batched(init, weights)
+    k, a1 = len(a), int(a[0])
+    dev = init.device
+    offs = torch.as_tensor(a, device=dev)
+    js = torch.arange(k, device=dev)
+    st = _init_table(init, a1, n)
+    for i in range(a1, n + k - 1):
+        idx = i - js                                   # element served by stage j
+        active = (idx >= a1) & (idx < n)
+        cidx = idx.clamp(0, n - 1)
+        src = (idx - offs).clamp(0, n - 1)
+        vals = st[:, src]                              # k distinct reads
+        if weights is not None:
+            vals = mul(vals, weights[:, cidx, js])
+        new = torch.where(js == 0, vals, sg.op(st[:, cidx], vals))
+        st[:, idx[active]] = new[:, active]
+    return _out(st, squeeze)
+
+
+# ---------------------------------------------------------------------------
+# Blocked pipeline: finalize B = min(a_k, block) elements per outer step. All
+# reads for block [t, t+B) use offsets ≥ a_k ≥ B, i.e. only finalized cells.
+# ---------------------------------------------------------------------------
+def _blocked(init, offsets, op, n, block, weights, with_args):
+    a = _check_offsets(offsets)
+    sg, mul = SEMIGROUPS[op], _mul_for(op)
+    argbest = _argbest_for(op) if with_args else None
+    init, weights, squeeze = _batched(init, weights)
+    a1, ak = int(a[0]), int(a[-1])
+    B = max(1, min(ak, block))
+    dev = init.device
+    offs = torch.as_tensor(a, device=dev)
+    st = _init_table(init, a1, n)
+    ar = torch.full(st.shape, -1, dtype=torch.int32, device=dev)
+    lane = torch.arange(B, device=dev)
+    for b in range(-(-(n - a1) // B)):
+        pos = a1 + b * B + lane                        # (B,)
+        ok = pos < n
+        src = (pos[None, :] - offs[:, None]).clamp(0, n - 1)   # (k, B)
+        vals = st[:, src]                              # (batch, k, B)
+        if weights is not None:
+            vals = mul(vals, weights[:, pos.clamp(0, n - 1)].transpose(1, 2))
+        st[:, pos[ok]] = sg.reduce(vals, dim=1)[:, ok]
+        if with_args:
+            ar[:, pos[ok]] = argbest(vals, dim=1).to(torch.int32)[:, ok]
+    return (_out(st, squeeze), _out(ar, squeeze)) if with_args else _out(st, squeeze)
+
+
+def solve_blocked(init, offsets, op: str, n: int, block: int = 512,
+                  weights=None):
+    return _blocked(init, offsets, op, n, block, weights, with_args=False)
+
+
+def solve_blocked_with_args(init, offsets, op: str, n: int, block: int = 512,
+                            weights=None):
+    """``solve_blocked`` + per-cell winning-lane index. Returns (st, args)."""
+    return _blocked(init, offsets, op, n, block, weights, with_args=True)
+
+
+# ---------------------------------------------------------------------------
+# Traceback on the host: follow the winning lanes from a start cell down into
+# the preset region (every step retreats by ≥ a_k).
+# ---------------------------------------------------------------------------
+def linear_traceback_steps(n: int, offsets: Sequence[int]) -> int:
+    a = _check_offsets(offsets)
+    return max((n - 1 - int(a[0])) // int(a[-1]) + 1, 1)
+
+
+def linear_args_np(table: np.ndarray, offsets: Sequence[int], op: str,
+                   weights: np.ndarray | None = None) -> np.ndarray:
+    """Winning-lane table recovered from a finished cost table (for routes
+    that only return costs). Candidates are recomputed in float64."""
+    a = _check_offsets(offsets)
+    if op not in ("min", "max"):
+        raise ValueError(f"argument tracking is undefined for op={op!r}")
+    ring = SEMIGROUP_TO_SEMIRING[op]
+    n = len(table)
+    args = np.full(n, -1, dtype=np.int32)
+    a1 = int(a[0])
+    idx = np.arange(a1, n)
+    cand = np.asarray(table, dtype=np.float64)[idx[:, None] - a[None, :]]
+    if weights is not None:
+        with np.errstate(invalid="ignore"):
+            cand = ring.np_mul(cand, np.asarray(weights, dtype=np.float64)[a1:])
+        cand = np.where(np.isnan(cand), ring.zero, cand)  # ±inf collisions
+    args[a1:] = (np.argmin if op == "min" else np.argmax)(cand, axis=1)
+    return args
+
+
+def linear_traceback_np(args: np.ndarray, offsets: Sequence[int], start: int):
+    """Walk ``args`` from ``start``; returns the live steps
+    ``(cells, lanes, stop)`` with ``stop`` the preset cell reached."""
+    a = _check_offsets(offsets)
+    a1 = int(a[0])
+    cells, lanes = [], []
+    cur = int(start)
+    while cur >= a1:
+        lane = int(args[cur])
+        cells.append(cur)
+        lanes.append(lane)
+        cur -= int(a[lane])
+    return np.asarray(cells, dtype=np.int64), np.asarray(lanes, dtype=np.int64), cur
+
+
+# ---------------------------------------------------------------------------
+# Backend registration (repro_torch.dp): each solver is a dispatchable route
+# with a step-count cost model.
+# ---------------------------------------------------------------------------
+from repro_torch.dp import backends as _dp_backends  # noqa: E402
+
+
+def _register_backends() -> None:
+    table = [
+        ("sequential", solve_sequential, None,
+         "Fig.-1 double loop (oracle parity)"),
+        ("tournament", solve_tournament, solve_tournament_with_args,
+         "per-element gather + tree reduce (§II-B)"),
+        ("pipeline", solve_pipeline, None,
+         "the paper's Fig.-2 skewed pipeline, vectorized over stages"),
+        ("blocked", solve_blocked, solve_blocked_with_args,
+         "blocked pipeline: min(a_k, B) outputs per step"),
+    ]
+    for name, fn, arg_fn, doc in table:
+        _dp_backends.register(_dp_backends.linear_backend(
+            name, fn,
+            cost=lambda s, device, _n=name: _dp_backends.linear_costs(s)[_n],
+            arg_fn=arg_fn, doc=doc))
+
+
+_register_backends()

@@ -1,0 +1,193 @@
+"""Solver-route registry and the batched run paths.
+
+``repro_torch.core.sdp``, ``repro_torch.core.mcm`` and ``repro_torch.kernels``
+register their routes here at import time; :func:`ensure_registered` pulls
+them in lazily. The dispatcher (``repro_torch.dp.routing``) ranks the
+routes that support a spec by ``(cost(spec, device), name)``.
+
+Every route runs on an explicit ``torch.device``. Builders stack the specs
+of a bucket along a leading batch axis, so a bucket is one solver call —
+one kernel launch on the kernel routes.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.dp.problem import LinearSpec, Spec, TriangularSpec
+
+_BACKENDS: dict = {}
+_LOADED = False
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` if given, else the
+    card. Raises when a CUDA device is asked for (or defaulted to) and none
+    is present — the port never carries on on the CPU unasked."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("repro_torch: no CUDA device is available; pass "
+                               "device='cpu' to run the plain PyTorch path")
+        return torch.device("cuda", torch.cuda.current_device())
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"repro_torch: device {device!r} requested but no "
+                           "CUDA device is available")
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class Backend:
+    """A solver route. ``run(spec, device)`` returns the full linearized
+    table as numpy; ``batch_run(specs, device)`` solves a homogeneous list
+    of specs in one call. Arg-capable routes also expose ``run_with_args``
+    / ``batch_run_with_args`` returning ``(table, args)`` — the winning
+    lane (linear) or best split (triangular) per cell. ``cost(spec, device)`` is
+    the analytical step-count prior; ``schedule`` stays None until the
+    static schedule gate is ported."""
+
+    name: str
+    geometry: str
+    run: Callable
+    cost: Callable[[Spec, torch.device], float]
+    supports: Callable[[Spec], bool]
+    batch_run: Callable
+    run_with_args: Optional[Callable] = None
+    batch_run_with_args: Optional[Callable] = None
+    schedule: Optional[Callable] = None
+    doc: str = ""
+
+
+def register(backend: Backend) -> Backend:
+    if backend.name in _BACKENDS:
+        raise ValueError(f"duplicate backend name {backend.name!r}")
+    _BACKENDS[backend.name] = backend
+    return backend
+
+
+def get(name: str) -> Backend:
+    ensure_registered()
+    try:
+        return _BACKENDS[name]
+    except KeyError:
+        raise KeyError(f"unknown backend {name!r}; registered: {names()}") from None
+
+
+def names(geometry: Optional[str] = None) -> list:
+    ensure_registered()
+    return sorted(n for n, b in _BACKENDS.items()
+                  if geometry is None or b.geometry == geometry)
+
+
+def candidates(spec: Spec, device: torch.device) -> list:
+    """Routes able to solve ``spec``, cheapest on ``device`` first (name
+    tiebreak)."""
+    ensure_registered()
+    cands = [b for b in _BACKENDS.values()
+             if b.geometry == spec.geometry and b.supports(spec)]
+    return sorted(cands, key=lambda b: (b.cost(spec, device), b.name))
+
+
+def ensure_registered() -> None:
+    """Idempotently import every module that registers routes."""
+    global _LOADED
+    if _LOADED:
+        return
+    import repro_torch.core.sdp  # noqa: F401  (linear routes)
+    import repro_torch.core.mcm  # noqa: F401  (triangular route)
+    import repro_torch.kernels  # noqa: F401  (kernel routes)
+    _LOADED = True
+
+
+# ---------------------------------------------------------------------------
+# Builders used by the registering modules
+# ---------------------------------------------------------------------------
+def _stack(arrays, device: torch.device) -> torch.Tensor:
+    """float32 ``(batch, ...)`` tensor on ``device`` from numpy arrays (one
+    conversion pass on the host, one copy to the device)."""
+    out = np.empty((len(arrays),) + np.shape(arrays[0]), dtype=np.float32)
+    for i, a in enumerate(arrays):
+        out[i] = a
+    return torch.from_numpy(out).to(device)
+
+
+def _rows(t: torch.Tensor) -> list:
+    return list(t.cpu().numpy())
+
+
+def linear_backend(name: str, fn: Callable, cost: Callable,
+                   supports: Optional[Callable] = None,
+                   arg_fn: Optional[Callable] = None,
+                   doc: str = "") -> Backend:
+    """Wrap a batched S-DP solver ``fn(init, offsets, op, n, weights=None)``
+    into a Backend. ``arg_fn`` (same signature, returns ``(st, args)``)
+    adds the arg-capable pair."""
+
+    def _call(f, specs, device):
+        s0 = specs[0]
+        init = _stack([s.init for s in specs], device)
+        w = None if s0.weights is None else _stack([s.weights for s in specs], device)
+        return f(init, s0.offsets, s0.op, s0.n, weights=w)
+
+    def batch_run(specs, device) -> list:
+        return _rows(_call(fn, specs, device))
+
+    run_with_args = batch_run_with_args = None
+    if arg_fn is not None:
+        def batch_run_with_args(specs, device):
+            st, args = _call(arg_fn, specs, device)
+            return _rows(st), _rows(args)
+
+        def run_with_args(spec: LinearSpec, device):
+            sts, argss = batch_run_with_args([spec], device)
+            return sts[0], argss[0]
+
+    return Backend(name=name, geometry="linear",
+                   run=lambda spec, device: batch_run([spec], device)[0],
+                   cost=cost, supports=supports or (lambda s: True),
+                   batch_run=batch_run, run_with_args=run_with_args,
+                   batch_run_with_args=batch_run_with_args, doc=doc)
+
+
+def triangular_tab_backend(name: str, fn: Callable, cost: Callable,
+                           supports: Optional[Callable] = None,
+                           arg_fn: Optional[Callable] = None,
+                           doc: str = "") -> Backend:
+    """Wrap a batched weight-table triangular solver ``fn(wtab, n)`` into a
+    Backend; ``arg_fn`` (returns ``(st, args)``) adds the arg-capable
+    pair."""
+
+    def _call(f, specs, device):
+        return f(_stack([s.weights for s in specs], device), specs[0].n)
+
+    def batch_run(specs, device) -> list:
+        return _rows(_call(fn, specs, device))
+
+    run_with_args = batch_run_with_args = None
+    if arg_fn is not None:
+        def batch_run_with_args(specs, device):
+            st, args = _call(arg_fn, specs, device)
+            return _rows(st), _rows(args)
+
+        def run_with_args(spec: TriangularSpec, device):
+            sts, argss = batch_run_with_args([spec], device)
+            return sts[0], argss[0]
+
+    return Backend(name=name, geometry="triangular",
+                   run=lambda spec, device: batch_run([spec], device)[0],
+                   cost=cost, supports=supports or (lambda s: True),
+                   batch_run=batch_run, run_with_args=run_with_args,
+                   batch_run_with_args=batch_run_with_args, doc=doc)
+
+
+# shared cost vocabulary (the per-family step-count tables live on the
+# spec classes' ``route_costs`` hooks)
+def linear_costs(spec: LinearSpec) -> dict:
+    return spec.route_costs()
+
+
+def triangular_costs(spec: TriangularSpec) -> dict:
+    return spec.route_costs()

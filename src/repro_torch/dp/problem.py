@@ -1,0 +1,380 @@
+"""Declarative DP problem specs — the contract between the problem zoo and
+the solver routes.
+
+A *spec* is the canonical, fully-materialized numpy form of one problem
+instance. Spec classes form an open **family protocol**: each family (a
+dataclass with a ``family`` tag) registers itself via
+:func:`register_family` and carries its behaviour as hooks on the class —
+shape keys, the route cost vocabulary, digest hashing, argument and
+traceback support — so the routing and reconstruction layers stay
+family-agnostic.
+
+``LinearSpec`` — the paper's (weighted) S-DP recurrence on a 1-D table,
+
+    ST[i] = ⊕_{1≤j≤k} ( ST[i - a_j] ⊙ w[i, j] ),   ST[0..a_1-1] preset,
+
+  with ``(⊕, ⊙)`` the semiring whose ``add`` is ``op`` (min→min-plus,
+  max→max-plus, add→plus-times) and ``w ≡ one`` when ``weights`` is None.
+
+``TriangularSpec`` — the canonical split recurrence on the upper triangle,
+  diagonal-major linearized like the paper's MCM table,
+
+    m[i, j] = min_{0≤e<d} ( m[i, i+e] + m[i+e+1, j] + W[lin(i,d), e] ),
+
+  diagonal-0 cells preset to 0; MCM-shaped specs also carry ``dims``.
+
+Specs, digests and answers are byte-compatible with ``repro.dp``'s:
+:func:`spec_from_reference` converts a ``repro`` spec by duck typing, and
+:func:`spec_digest` of a port spec equals ``repro``'s of the same instance.
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import math
+from typing import Any, Callable, ClassVar, Optional, Union
+
+import numpy as np
+
+
+# --- canonical triangular layout (the paper's diagonal-major linearization) --
+def num_cells(n: int) -> int:
+    return n * (n + 1) // 2
+
+
+def lin_index(i, d, n):
+    """Diagonal-major linear index of cell (i, i+d) in an n-wide table."""
+    return d * n - (d * (d - 1)) // 2 + i
+
+
+# --- the family registry -----------------------------------------------------
+#: family tag -> spec class
+FAMILIES: dict = {}
+
+
+def register_family(cls):
+    """Register a spec family class (keyed by its ``family`` tag)."""
+    if cls.family in FAMILIES:
+        raise ValueError(f"duplicate spec family {cls.family!r}")
+    FAMILIES[cls.family] = cls
+    return cls
+
+
+def family_class(tag: str):
+    """Spec class of a family tag (the first element of a shape_key)."""
+    try:
+        return FAMILIES[tag]
+    except KeyError:
+        raise KeyError(f"unknown spec family {tag!r}; "
+                       f"registered: {sorted(FAMILIES)}") from None
+
+
+# --- shared cost-vocabulary constants (see route_costs hooks) ---------------
+def _log2(x: float) -> float:
+    return math.log2(max(x, 2.0))
+
+
+#: n below which the analytical prior prices fixed dispatch overhead (the
+#: solve itself is a handful of steps there)
+_SMALL_N = 16
+#: per-route fixed-overhead floors, in 'vectorized device steps'
+_LINEAR_OVERHEAD = {"sequential": 0.0, "tournament": 8.0, "pipeline": 8.0,
+                    "blocked": 6.0}
+_TRIANGULAR_OVERHEAD = {"wavefront": 0.0}
+
+
+def _floored(costs: dict, overhead: dict, n: int) -> dict:
+    if n <= _SMALL_N:
+        costs = {name: c + overhead[name] for name, c in costs.items()}
+    return {name: max(1.0, c) for name, c in costs.items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class LinearSpec:
+    """Weighted S-DP instance: table length ``n``, strictly-decreasing
+    ``offsets``, semigroup ``op``, ``init`` of length a_1, optional
+    ``(n, k)`` semiring ``weights``."""
+
+    offsets: tuple
+    op: str
+    n: int
+    init: np.ndarray
+    weights: Optional[np.ndarray] = None
+
+    family: ClassVar[str] = "linear"
+    #: whether traceback entry points (problem ``start`` hooks) apply
+    uses_start: ClassVar[bool] = True
+
+    @property
+    def geometry(self) -> str:
+        return self.family
+
+    def shape_key(self) -> tuple:
+        """Instances with equal keys batch into one launch."""
+        return ("linear", self.op, tuple(int(a) for a in self.offsets),
+                int(self.n), self.weights is not None)
+
+    def validate(self) -> None:
+        a = np.asarray(self.offsets)
+        if not (a.ndim == 1 and a.size and np.all(np.diff(a) < 0) and a[-1] > 0):
+            raise ValueError(f"offsets must be strictly decreasing > 0: {self.offsets}")
+        if len(self.init) != int(a[0]):
+            raise ValueError(f"init must have a_1={int(a[0])} entries, got {len(self.init)}")
+        if self.n <= int(a[0]):
+            raise ValueError(f"n={self.n} must exceed a_1={int(a[0])}")
+        if self.weights is not None and self.weights.shape != (self.n, a.size):
+            raise ValueError(f"weights must be (n, k)=({self.n}, {a.size}), "
+                             f"got {self.weights.shape}")
+
+    # --- family protocol hooks ---------------------------------------------
+    def digest_into(self, h) -> None:
+        h.update(b"linear")
+        h.update(self.op.encode())
+        h.update(repr(tuple(int(a) for a in self.offsets)).encode())
+        h.update(str(int(self.n)).encode())
+        _hash_array(h, self.init)
+        _hash_array(h, self.weights)
+
+    @classmethod
+    def shape_key_size(cls, key: tuple) -> int:
+        return int(key[3])
+
+    @classmethod
+    def shape_key_compatible(cls, a: tuple, b: tuple) -> bool:
+        """Same program modulo table length: op, offsets, and weightedness
+        must match."""
+        return len(a) == len(b) and (a[1], a[2], a[4]) == (b[1], b[2], b[4])
+
+    @classmethod
+    def from_shape_key(cls, key: tuple) -> "LinearSpec":
+        _, op, offsets, n, weighted = key
+        offsets = tuple(int(a) for a in offsets)
+        n, k = int(n), len(offsets)
+        return cls(offsets=offsets, op=op, n=n,
+                   init=np.zeros(offsets[0], np.float32),
+                   weights=np.zeros((n, k), np.float32) if weighted else None)
+
+    def route_costs(self) -> dict:
+        """Step-count cost model of the linear routes (paper §III), in
+        'vectorized device steps', floored at one step; below ``_SMALL_N``
+        each route also pays its fixed dispatch overhead."""
+        n, k = self.n, len(self.offsets)
+        a1, ak = int(self.offsets[0]), int(self.offsets[-1])
+        blocked_steps = max(1, math.ceil((n - a1) / max(1, min(ak, 512))))
+        costs = {
+            "sequential": float(n * k),
+            "tournament": float(n * (1.0 + _log2(k))),
+            "pipeline": float(n + k - a1 - 1),
+            "blocked": blocked_steps * (1.0 + _log2(k)),
+        }
+        return _floored(costs, _LINEAR_OVERHEAD, n)
+
+    def supports_args(self) -> bool:
+        """Linear specs need a selective semigroup (min/max)."""
+        return self.op in ("min", "max")
+
+    def args_unsupported_reason(self) -> str:
+        return f"op={self.op!r} folds every lane"
+
+    def default_start(self, table) -> int:
+        return self.n - 1
+
+    def args_from_table(self, table: np.ndarray) -> np.ndarray:
+        from repro_torch.core.sdp import linear_args_np
+
+        return linear_args_np(table, self.offsets, self.op,
+                              weights=self.weights)
+
+    def traceback_host(self, args: np.ndarray, start: int = -1) -> "Path":
+        from repro_torch.core.sdp import linear_traceback_np
+
+        cells, lanes, stop = linear_traceback_np(
+            args, self.offsets, start if start >= 0 else self.n - 1)
+        return LinearPath(cells=cells, lanes=lanes, stop=int(stop))
+
+
+@dataclasses.dataclass(frozen=True)
+class TriangularSpec:
+    """Canonical triangular instance: width ``n``; ``weights`` is the dense
+    (num_cells(n), n-1) split-major table (``core.mcm.weight_table``).
+    ``dims`` is set for MCM-shaped weights (w = p_i·p_{s+1}·p_{j+1})."""
+
+    n: int
+    weights: np.ndarray
+    dims: Optional[np.ndarray] = None
+
+    family: ClassVar[str] = "triangular"
+    uses_start: ClassVar[bool] = False
+
+    @property
+    def geometry(self) -> str:
+        return self.family
+
+    def shape_key(self) -> tuple:
+        return ("triangular", int(self.n))
+
+    def validate(self) -> None:
+        want = (num_cells(self.n), max(self.n - 1, 1))
+        if self.weights.shape != want:
+            raise ValueError(f"weights must be {want}, got {self.weights.shape}")
+        if self.dims is not None and len(self.dims) != self.n + 1:
+            raise ValueError(f"dims must have n+1={self.n + 1} entries")
+
+    # --- family protocol hooks ---------------------------------------------
+    def digest_into(self, h) -> None:
+        h.update(b"triangular")
+        h.update(str(int(self.n)).encode())
+        _hash_array(h, self.weights)
+        _hash_array(h, self.dims)
+
+    @classmethod
+    def shape_key_size(cls, key: tuple) -> int:
+        return int(key[1])
+
+    @classmethod
+    def shape_key_compatible(cls, a: tuple, b: tuple) -> bool:
+        return len(a) == len(b)
+
+    @classmethod
+    def from_shape_key(cls, key: tuple) -> "TriangularSpec":
+        n = int(key[1])
+        return cls(n=n,
+                   weights=np.zeros((num_cells(n), max(n - 1, 1)), np.float32))
+
+    def route_costs(self) -> dict:
+        """Step-count cost model of the triangular routes; units and floors
+        as in :meth:`LinearSpec.route_costs`."""
+        return _floored({"wavefront": float(self.n)}, _TRIANGULAR_OVERHEAD,
+                        self.n)
+
+    def supports_args(self) -> bool:
+        """Triangular specs always reduce by min — always selective."""
+        return True
+
+    def args_unsupported_reason(self) -> str:
+        return "no argument structure"
+
+    def default_start(self, table) -> int:
+        return -1
+
+    def args_from_table(self, table: np.ndarray) -> np.ndarray:
+        from repro_torch.core.mcm import triangular_args_np
+
+        return triangular_args_np(table, self.weights, self.n)
+
+    def traceback_host(self, args: np.ndarray, start: int = -1) -> "Path":
+        from repro_torch.core.mcm import triangular_traceback_np
+
+        return TriangularPath(nodes=triangular_traceback_np(args, self.n))
+
+
+Spec = Union[LinearSpec, TriangularSpec]
+
+register_family(LinearSpec)
+register_family(TriangularSpec)
+
+
+def _hash_array(h, a: Optional[np.ndarray]) -> None:
+    if a is None:
+        h.update(b"\x00none")
+        return
+    a = np.ascontiguousarray(a)
+    h.update(str(a.dtype).encode())
+    h.update(str(a.shape).encode())
+    h.update(a.tobytes())
+
+
+def spec_digest(spec: Spec) -> str:
+    """Content digest of a canonical instance: equal digests imply
+    bit-equal answers (``extract`` and ``decode`` read only the spec, the
+    table, the args and the path)."""
+    h = hashlib.sha256()
+    spec.digest_into(h)
+    return h.hexdigest()
+
+
+def spec_from_reference(obj) -> Spec:
+    """The port's spec for any object with the numpy fields of a ``repro``
+    spec, read by duck typing: ``offsets``/``op``/``n``/``init``/``weights``
+    (linear) or ``n``/``weights``/``dims`` (triangular)."""
+    def arr(a):
+        return None if a is None else np.asarray(a)
+
+    if all(hasattr(obj, f) for f in ("offsets", "op", "n", "init", "weights")):
+        return LinearSpec(offsets=tuple(int(a) for a in obj.offsets),
+                          op=str(obj.op), n=int(obj.n), init=arr(obj.init),
+                          weights=arr(obj.weights))
+    if all(hasattr(obj, f) for f in ("n", "weights", "dims")):
+        return TriangularSpec(n=int(obj.n), weights=arr(obj.weights),
+                              dims=arr(obj.dims))
+    raise TypeError(f"not a linear or triangular spec: {type(obj).__name__}")
+
+
+# --- reconstruction vocabulary ---------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class LinearPath:
+    """Argument walk over a linear table, in traceback order (start cell
+    first). ``cells[t]`` took lane ``lanes[t]``, i.e. its winning
+    predecessor is ``cells[t] - offsets[lanes[t]]``; ``stop`` is the preset
+    cell the walk ended in."""
+
+    cells: np.ndarray
+    lanes: np.ndarray
+    stop: int
+
+
+@dataclasses.dataclass(frozen=True)
+class TriangularPath:
+    """Split tree of a triangular table as a ``(m, 3)`` preorder array of
+    internal nodes ``(i, d, e)``: cell ``(i, i+d)`` split at ``s = i + e``
+    into children ``(i, e)`` and ``(i+e+1, d-e-1)``."""
+
+    nodes: np.ndarray
+
+
+Path = Union[LinearPath, TriangularPath]
+
+
+@dataclasses.dataclass(frozen=True)
+class Answer:
+    """A solved instance with its reconstructed solution: ``value`` is what
+    ``extract`` returns, ``solution`` what ``DPProblem.decode`` builds;
+    ``table``/``args`` are the linearized cost and argument tables (numpy);
+    ``source`` is ``"device"`` (arg-emitting solver) or ``"host"`` (numpy
+    fallback from the cost table)."""
+
+    value: Any
+    solution: Any
+    table: np.ndarray
+    args: np.ndarray
+    source: str
+
+
+@dataclasses.dataclass(frozen=True)
+class DPProblem:
+    """One zoo entry.
+
+    encode(**instance) -> Spec        canonical form of an instance
+    oracle(**instance) -> np.ndarray  independent numpy reference producing
+                                      the full linearized table
+    extract(table, spec) -> Any       the problem-level answer from a table
+    sample(rng, size) -> dict         random instance kwargs (tests/benches)
+    decode(table, args, spec, path)   structured solution from the traceback
+    start(table, spec) -> int         traceback start cell where the optimum
+                                      is not the family's default cell
+    """
+
+    name: str
+    geometry: str
+    encode: Callable[..., Spec]
+    oracle: Callable[..., np.ndarray]
+    extract: Callable[[np.ndarray, Spec], Any]
+    sample: Callable[[np.random.Generator, int], dict]
+    doc: str = ""
+    decode: Optional[Callable[[np.ndarray, np.ndarray, Spec, Path], Any]] = None
+    start: Optional[Callable[[np.ndarray, Spec], int]] = None
+
+    def solve_reference(self, **instance) -> Any:
+        """Oracle answer for an instance."""
+        spec = self.encode(**instance)
+        return self.extract(self.oracle(**instance), spec)

@@ -1,0 +1,104 @@
+"""Diagonal pipeline for the canonical triangular split recurrence: CUDA
+kernel and its plain PyTorch version.
+
+Port of ``repro/kernels/mcm_pipeline.py`` (``mcm_pipeline_pallas`` and its
+arg twin). On the diagonal-major table one whole diagonal is finalized per
+step; split ``e`` of lane ``t`` on diagonal ``d`` reads ``st[off(e)+t]``,
+``st[off(d-e-1)+e+1+t]`` and ``W[off(d)+t, e]``, combined as
+``(left + right) + w`` and folded by min over ascending ``e`` (strict
+improve: the first best split wins; -1 on diagonal 0).
+
+``wtab`` is ``(cells, n-1)`` or ``(batch, cells, n-1)`` float32. A CPU tensor
+goes through :func:`mcm_pipeline_plain`; a CUDA tensor launches
+``csrc/mcm_pipeline.cu`` (one CTA per instance, one launch per batch).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.mcm import lin_index, num_cells
+from repro_torch.kernels import _build
+
+#: kernel launches per wrapper (incremented only where a kernel launches)
+LAUNCHES = {"mcm_pipeline": 0, "mcm_pipeline_with_args": 0}
+
+
+def _lanes(n: int) -> int:
+    """Row width of the split-major weight table."""
+    return max(n - 1, 1)
+
+
+def mcm_pipeline_plain(wtab, n: int, with_args: bool = False):
+    """The kernel's computation in PyTorch: one diagonal per step, the same
+    association and the same first-best split. Returns ``st`` or
+    ``(st, args)``."""
+    squeeze = wtab.dim() == 2
+    if squeeze:
+        wtab = wtab[None]
+    dev, cells = wtab.device, num_cells(n)
+    st = torch.zeros((wtab.shape[0], cells), dtype=wtab.dtype, device=dev)
+    ar = torch.full(st.shape, -1, dtype=torch.int32, device=dev)
+    for d in range(1, n):
+        t = torch.arange(n - d, device=dev)[:, None]       # lanes of diagonal d
+        e = torch.arange(d, device=dev)[None, :]           # splits, ascending
+        off_d = lin_index(0, d, n)
+        vals = ((st[:, lin_index(0, e, n) + t]
+                 + st[:, lin_index(0, d - e - 1, n) + e + 1 + t])
+                + wtab[:, off_d + t, e])                   # (batch, lanes, d)
+        _, arg = vals.min(dim=2)
+        st[:, off_d:off_d + n - d] = vals.gather(2, arg[..., None])[..., 0]
+        ar[:, off_d:off_d + n - d] = arg.to(torch.int32)
+    if squeeze:
+        st, ar = st[0], ar[0]
+    return (st, ar) if with_args else st
+
+
+def _launch(wtab, n, with_args):
+    name = "mcm_pipeline_with_args" if with_args else "mcm_pipeline"
+    squeeze = wtab.dim() == 2
+    if squeeze:
+        wtab = wtab[None]
+    cells, L = num_cells(n), _lanes(n)
+    if (wtab.dtype != torch.float32 or wtab.dim() != 3
+            or tuple(wtab.shape[1:]) != (cells, L)):
+        raise ValueError(f"{name}: wtab must be float32 (batch, {cells}, {L}), "
+                         f"got {tuple(wtab.shape)} {wtab.dtype}")
+    if not wtab.is_contiguous():
+        raise ValueError(f"{name}: wtab must be contiguous")
+    if cells >= 2 ** 31:
+        raise ValueError(f"{name}: n={n} exceeds int32 cell counts")
+    dev, bt = wtab.device, wtab.shape[0]
+    st = torch.empty((bt, cells), dtype=torch.float32, device=dev)
+    ar = torch.empty((bt, cells), dtype=torch.int32, device=dev) if with_args else None
+    lib = _build.load("mcm_pipeline")
+    fn = lib.mcm_pipeline_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        rc = fn(wtab.data_ptr(), st.data_ptr(),
+                None if ar is None else ar.data_ptr(), bt, n, L,
+                torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, name)
+    LAUNCHES[name] += 1
+    if squeeze:
+        st = st[0]
+        ar = None if ar is None else ar[0]
+    return (st, ar) if with_args else st
+
+
+def mcm_pipeline(wtab, n: int):
+    """Linearized cost table: the CUDA kernel for a CUDA ``wtab``, the plain
+    version for a CPU one."""
+    if wtab.is_cuda:
+        return _launch(wtab, n, with_args=False)
+    return mcm_pipeline_plain(wtab, n)
+
+
+def mcm_pipeline_with_args(wtab, n: int):
+    """``mcm_pipeline`` + the best-split table (-1 on diagonal 0).
+    Returns ``(st, args)``."""
+    if wtab.is_cuda:
+        return _launch(wtab, n, with_args=True)
+    return mcm_pipeline_plain(wtab, n, with_args=True)

@@ -1,0 +1,33 @@
+"""Dispatch layer between the routes and the kernels. The device of the
+data decides the path: the CUDA kernel for a CUDA tensor, the kernel's plain
+PyTorch version for a CPU tensor — there is no mode knob and no fallback."""
+from __future__ import annotations
+
+from repro_torch.kernels.mcm_pipeline import mcm_pipeline, mcm_pipeline_with_args
+from repro_torch.kernels.sdp_pipeline import sdp_pipeline, sdp_pipeline_with_args
+
+
+def sdp_blocked(init, offsets, op: str, n: int, block: int = 512,
+                weights=None):
+    """Blocked S-DP solve through the ``sdp_pipeline`` kernel."""
+    return sdp_pipeline(init, tuple(offsets), op, n, block=block,
+                        weights=weights)
+
+
+def sdp_blocked_with_args(init, offsets, op: str, n: int, block: int = 512,
+                          weights=None):
+    """Arg-emitting blocked S-DP: the winning lane beside each cost cell,
+    with the first-occurrence tie rule of the plain blocked solver."""
+    return sdp_pipeline_with_args(init, tuple(offsets), op, n, block=block,
+                                  weights=weights)
+
+
+def mcm_blocked(wtab, n: int):
+    """Triangular (split-form) table solve through the ``mcm_pipeline``
+    kernel."""
+    return mcm_pipeline(wtab, n)
+
+
+def mcm_blocked_with_args(wtab, n: int):
+    """``mcm_blocked`` + the best-split table."""
+    return mcm_pipeline_with_args(wtab, n)

@@ -1,0 +1,159 @@
+"""Blocked pipelined S-DP solver (the paper's Fig. 2): CUDA kernel and its
+plain PyTorch version.
+
+Port of ``repro/kernels/sdp_pipeline.py`` (``sdp_pipeline_pallas`` and its
+arg twin). Each step finalizes ``B = min(a_k, block)`` cells — the geometry
+of ``_plan`` — and every read of a block uses an offset ``≥ a_k ≥ B``, so it
+touches only cells of earlier steps. Lanes fold in ascending ``j``; with
+args, a lane wins only by strict improvement (argmin/argmax's
+first-occurrence rule) and preset cells carry -1. ``n ≤ a_1`` returns the
+clamped presets.
+
+Inputs carry a leading batch axis or none: ``init`` ``(a_1,)`` or
+``(batch, a_1)``, ``weights`` ``(n, k)`` or ``(batch, n, k)``. A CPU tensor
+goes through :func:`sdp_pipeline_plain`; a CUDA tensor launches
+``csrc/sdp_pipeline.cu`` (one CTA per instance, one launch per batch).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.sdp import _check_offsets
+from repro_torch.core.semiring import SEMIGROUP_TO_SEMIRING
+from repro_torch.kernels import _build
+
+_OP_CODE = {"min": 0, "max": 1, "add": 2}
+
+#: kernel launches per wrapper (incremented only where a kernel launches)
+LAUNCHES = {"sdp_pipeline": 0, "sdp_pipeline_with_args": 0}
+
+
+def _plan(offsets, n: int, block: int):
+    """Shared block geometry: (B, num_blocks, n_pad)."""
+    a1, ak = offsets[0], offsets[-1]
+    B = max(1, min(ak, block))
+    num_blocks = -(-(n - a1) // B)
+    return B, num_blocks, a1 + num_blocks * B
+
+
+def _check_args(op: str, offsets, with_args: bool) -> tuple:
+    offsets = tuple(int(a) for a in _check_offsets(offsets))
+    if op not in _OP_CODE:
+        raise ValueError(f"unknown op {op!r}")
+    if with_args and op == "add":
+        raise ValueError("argument tracking is undefined for op='add' "
+                         "(every lane contributes to the reduction)")
+    return offsets
+
+
+def sdp_pipeline_plain(init, offsets, op: str, n: int, block: int = 512,
+                       weights=None, with_args: bool = False):
+    """The kernel's computation in PyTorch: same cells, same steps, same
+    ``B``, lanes folded in ascending ``j`` (min/max keep the first best
+    lane, as the strict-improve fold does). Returns ``st`` or
+    ``(st, args)``."""
+    offsets = _check_args(op, offsets, with_args)
+    squeeze = init.dim() == 1
+    if squeeze:
+        init = init[None]
+        weights = None if weights is None else weights[None]
+    a1, bt, dev = offsets[0], init.shape[0], init.device
+    if n <= a1:
+        st = init[:, :n].clone()
+        ar = torch.full((bt, n), -1, dtype=torch.int32, device=dev)
+    else:
+        B, num_blocks, _ = _plan(offsets, n, block)
+        mul = SEMIGROUP_TO_SEMIRING[op].mul
+        offs = torch.tensor(offsets, device=dev)
+        st = torch.zeros((bt, n), dtype=init.dtype, device=dev)
+        st[:, :a1] = init
+        ar = torch.full((bt, n), -1, dtype=torch.int32, device=dev)
+        for blk in range(num_blocks):
+            start = a1 + blk * B
+            end = min(start + B, n)
+            src = torch.arange(start, end, device=dev)[None, :] - offs[:, None]
+            vals = st[:, src]                                # (batch, k, cells)
+            if weights is not None:
+                vals = mul(vals, weights[:, start:end].transpose(1, 2))
+            if op == "add":
+                acc = vals[:, 0]
+                for j in range(1, len(offsets)):
+                    acc = acc + vals[:, j]
+            else:
+                _, arg = (vals.min(dim=1) if op == "min" else vals.max(dim=1))
+                acc = vals.gather(1, arg[:, None])[:, 0]
+                ar[:, start:end] = arg.to(torch.int32)
+            st[:, start:end] = acc
+    if squeeze:
+        st, ar = st[0], ar[0]
+    return (st, ar) if with_args else st
+
+
+def _launch(init, offsets, op, n, block, weights, with_args):
+    name = "sdp_pipeline_with_args" if with_args else "sdp_pipeline"
+    offsets = _check_args(op, offsets, with_args)
+    squeeze = init.dim() == 1
+    if squeeze:
+        init = init[None]
+        weights = None if weights is None else weights[None]
+    bt, a1, k = init.shape[0], offsets[0], len(offsets)
+    if init.dtype != torch.float32 or init.shape[1] != a1:
+        raise ValueError(f"{name}: init must be float32 (batch, {a1}), got "
+                         f"{tuple(init.shape)} {init.dtype}")
+    if weights is not None and (weights.device != init.device
+                                or weights.dtype != torch.float32
+                                or tuple(weights.shape) != (bt, n, k)):
+        raise ValueError(f"{name}: weights must be float32 ({bt}, {n}, {k}) "
+                         f"on {init.device}, got {tuple(weights.shape)} "
+                         f"{weights.dtype} on {weights.device}")
+    if not (init.is_contiguous() and (weights is None or weights.is_contiguous())):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    if n >= 2 ** 31:
+        raise ValueError(f"{name}: n={n} exceeds int32 cell indices")
+    dev = init.device
+    if n <= a1:  # preset-only: nothing to pipeline, clamp the presets
+        st = init[:, :n].clone()
+        ar = torch.full((bt, n), -1, dtype=torch.int32, device=dev)
+    else:
+        B, num_blocks, _ = _plan(offsets, n, block)
+        st = torch.empty((bt, n), dtype=torch.float32, device=dev)
+        ar = (torch.empty((bt, n), dtype=torch.int32, device=dev)
+              if with_args else None)
+        offs = torch.tensor(offsets, dtype=torch.int32, device=dev)
+        lib = _build.load("sdp_pipeline")
+        fn = lib.sdp_pipeline_launch
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        with torch.cuda.device(dev):
+            rc = fn(init.data_ptr(), None if weights is None else weights.data_ptr(),
+                    offs.data_ptr(), st.data_ptr(),
+                    None if ar is None else ar.data_ptr(),
+                    bt, n, a1, k, B, num_blocks, _OP_CODE[op],
+                    torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(rc, name)
+        LAUNCHES[name] += 1
+    if squeeze:
+        st = st[0]
+        ar = None if ar is None else ar[0]
+    return (st, ar) if with_args else st
+
+
+def sdp_pipeline(init, offsets, op: str, n: int, block: int = 512,
+                 weights=None):
+    """ST[0..n-1]: the CUDA kernel for a CUDA ``init``, the plain version
+    for a CPU one."""
+    if init.is_cuda:
+        return _launch(init, offsets, op, n, block, weights, with_args=False)
+    return sdp_pipeline_plain(init, offsets, op, n, block, weights)
+
+
+def sdp_pipeline_with_args(init, offsets, op: str, n: int, block: int = 512,
+                           weights=None):
+    """``sdp_pipeline`` + the per-cell winning lane (-1 on presets).
+    Returns ``(st, args)``."""
+    if init.is_cuda:
+        return _launch(init, offsets, op, n, block, weights, with_args=True)
+    return sdp_pipeline_plain(init, offsets, op, n, block, weights,
+                              with_args=True)

@@ -1,0 +1,51 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+neither JAX nor the ``repro`` package (the machine with the card has no
+JAX)."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+#: an import statement of jax/jaxlib or of ``repro`` itself (``repro_torch``
+#: is the port's own prefix and does not match)
+FORBIDDEN = re.compile(
+    r"^\s*(?:import\s+(?:jax|jaxlib|repro)(?:\.|\s|,|$)"
+    r"|from\s+(?:jax|jaxlib|repro)(?:\.|\s))", re.M)
+
+
+def test_importing_the_port_loads_no_jax_and_no_repro():
+    code = ("import sys, repro_torch, repro_torch.dp, repro_torch.kernels.ops; "
+            "from repro_torch import dp; dp.backends.ensure_registered(); "
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "assert not bad, bad; print('clean')")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def test_sources_have_no_jax_or_repro_imports():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) >= 15
+    for f in files:
+        hits = FORBIDDEN.findall(f.read_text())
+        assert not hits, f"{f.relative_to(ROOT)} imports {hits}"
+
+
+def test_scan_pattern_catches_forbidden_imports():
+    for bad in ("import jax", "import jax.numpy as jnp", "from jax import lax",
+                "from repro.dp import zoo", "import repro.core.sdp",
+                "import repro", "    from repro import dp"):
+        assert FORBIDDEN.search(bad), bad
+    for ok in ("import repro_torch", "from repro_torch.dp import zoo",
+               "import repro_torch.core.sdp", "# see repro.dp.zoo"):
+        assert not FORBIDDEN.search(ok), ok
