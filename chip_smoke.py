@@ -12,13 +12,24 @@ and ``dp.batch_solve`` on ``device="cuda"`` — at the paper's sizes:
   * MCM (paper §IV): n = 1024 with reconstruction, and a batch of 8 at
     n = 512;
   * the other six zoo problems with reconstruction, at sizes that finish in
-    seconds.
+    seconds;
+
+and then the grid family's path through the same entry points:
+
+  * needleman_wunsch and gotoh on two DNA sequences of length 4096;
+  * edit_distance_grid and lcs_grid on the 512-long strings of the linear
+    problems, against edit_distance and lcs;
+  * cky on a 64-token sentence with 32 nonterminals, a vocabulary of 512
+    and 1024 binary rules;
+  * a batch of 8 needleman_wunsch pairs of length 1024 (one launch).
 
 Each answer is checked against the numpy oracle (or, where that is too slow,
-against the plain route on the card), its decoded solution is recomputed to
-the optimum, and the kernels' launch counters must show that the main path
-ran through both kernels. Any failed check exits non-zero. The last two
-lines of standard output are the kernels' JSON record and the device record.
+against the plain route on the card and the oracle at a reduced size), its
+decoded solution is recomputed to the optimum, and the kernels' launch
+counters, zeroed before each path and read after it, must show that the
+path ran through every one of its kernels. Any failed check exits non-zero.
+The last two lines of standard output are the kernels' JSON record and the
+device record.
 """
 from __future__ import annotations
 
@@ -36,12 +47,19 @@ import torch  # noqa: E402
 from repro_torch import dp  # noqa: E402
 from repro_torch.core import mcm as core_mcm  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import grid_pipeline as k6  # noqa: E402
 from repro_torch.kernels import mcm_pipeline as k2  # noqa: E402
 from repro_torch.kernels import sdp_pipeline as k1  # noqa: E402
 
 SEED = 0
 SDP_N, SDP_K = 2 ** 20, 2 ** 10
 MCM_N, MCM_BATCH_N, MCM_BATCH = 1024, 512, 8
+#: grid path: DNA alignment length, the batch leg, the reduced oracle length;
+#: the CKY chart (tokens, nonterminals, vocabulary, rules) and its reduced
+#: oracle instance
+ALIGN_N, ALIGN_BATCH_N, ALIGN_BATCH, ALIGN_ORACLE_N = 4096, 1024, 8, 512
+CKY = {"n": 64, "P": 32, "V": 512, "rules": 1024}
+CKY_ORACLE = {"n": 16, "P": 8, "V": 512, "rules": 64}
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 #: float32 tables (sums along chains of up to ~2k cells) against float64
@@ -79,13 +97,40 @@ def bound_ms(nbytes: float, ops: float) -> tuple:
 
 
 def reset_launches() -> None:
-    for counts in (k1.LAUNCHES, k2.LAUNCHES):
+    for counts in (k1.LAUNCHES, k2.LAUNCHES, k6.LAUNCHES):
         for key in counts:
             counts[key] = 0
 
 
 def launches() -> dict:
-    return {**k1.LAUNCHES, **k2.LAUNCHES}
+    return {**k1.LAUNCHES, **k2.LAUNCHES, **k6.LAUNCHES}
+
+
+def kernel_record(name, source, replaces, err, ms, plain_ms, nbytes, ops) -> dict:
+    b, by = bound_ms(nbytes, ops)
+    print(f"{name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{b:.4f} ms ({by}), max_abs_err {err}")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+            "library_ms": None}
+
+
+def timed_once(fn) -> tuple:
+    """``(fn(), device ms)`` of one call, by CUDA events."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def max_err(a, b) -> float:
+    """Largest absolute difference; equal entries (infinities too) count 0."""
+    a, b = a.double(), b.double()
+    return float(torch.where(a == b, 0.0, (a - b).abs()).max())
 
 
 # ---------------------------------------------------------------------------
@@ -216,17 +261,10 @@ def phase_kernels(rng, cuda) -> tuple:
     main path's shapes; returns (records, sdp instance, mcm dims)."""
     records = []
 
-    def record(name, source, replaces, err, ms, plain_ms, nbytes, ops):
-        b, by = bound_ms(nbytes, ops)
-        records.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": 0,
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": b, "bound_by": by, "library_ms": None})
-        print(f"{name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-              f"{b:.4f} ms ({by}), max_abs_err {err}")
+    def record(*args):
+        records.append(kernel_record(*args))
 
-    def err(a, b) -> float:
-        return float((a.double() - b.double()).abs().max())
+    err = max_err
 
     # K1 at the S-DP main-path shape (unweighted, min)
     sdp = sdp_instance(rng)
@@ -373,6 +411,225 @@ def phase_main_path(rng, cuda, sdp: dict, dims: np.ndarray) -> None:
     print(f"main path: {time.perf_counter() - t_all:.2f} s")
 
 
+# ---------------------------------------------------------------------------
+# The grid family (K6)
+# ---------------------------------------------------------------------------
+def cky_instance(rng, n: int, P: int, V: int, n_rules: int) -> dict:
+    """A random PCFG in Chomsky normal form: rule r rewrites nonterminal
+    r mod P (so every plane is targeted) into two random nonterminals;
+    log-probabilities -U(0.3, 2.5)."""
+    rules = [(r % P, int(b), int(c))
+             for r, (b, c) in enumerate(rng.integers(0, P, (n_rules, 2)))]
+    return {"tokens": rng.integers(0, V, n), "rules": rules,
+            "rule_logp": -rng.uniform(0.3, 2.5, n_rules),
+            "lex": -rng.uniform(0.3, 2.5, (P, V))}
+
+
+def grid_instances(rng) -> dict:
+    """The grid path's instances: DNA pairs for the alignments, the linear
+    problems' 512-long strings for the grid twins, a PCFG chart for cky."""
+    x, y = rng.integers(0, 4, ALIGN_N), rng.integers(0, 4, ALIGN_N)
+    others = other_instances(np.random.default_rng(SEED))
+    return {"needleman_wunsch": {"x": x, "y": y}, "gotoh": {"x": x, "y": y},
+            "edit_distance_grid": others["edit_distance"],
+            "lcs_grid": others["lcs"],
+            "cky": cky_instance(rng, CKY["n"], CKY["P"], CKY["V"], CKY["rules"])}
+
+
+def align_batch() -> list:
+    """The batch leg: needleman_wunsch pairs of one shape, from the seed."""
+    pairs = np.random.default_rng(SEED).integers(0, 4, (ALIGN_BATCH, 2, ALIGN_BATCH_N))
+    return [{"x": x, "y": y} for x, y in pairs]
+
+
+def alignment_score(ops, inst: dict, affine: bool) -> tuple:
+    """(ops consume x and y in order, score) of an alignment script, scored
+    with the zoo's default scores (match 2, mismatch -1; gap -2, or affine
+    gaps opening at -3 and extending at -1, one opening per maximal run)."""
+    x, y = inst["x"], inst["y"]
+    gap_open, gap_extend = (-3.0, -1.0) if affine else (-2.0, -2.0)
+    i = j = 0
+    score, ok, prev = 0.0, True, None
+    for op in ops:
+        if op[0] == "align":
+            ok &= op[1] == i and op[2] == j and i < len(x) and j < len(y)
+            score += 2.0 if ok and x[i] == y[j] else -1.0
+            i, j = i + 1, j + 1
+        else:
+            ok &= op[1] == (i if op[0] == "del" else j)
+            score += gap_extend if prev == op[0] else gap_open
+            i, j = (i + 1, j) if op[0] == "del" else (i, j + 1)
+        prev = op[0]
+    return ok and i == len(x) and j == len(y), score
+
+
+def cky_tree_logp(tree, inst: dict) -> float:
+    """Log-probability of a parse tree: lexical scores at the leaves, the
+    best rule of each internal node's (A, B, C) triple."""
+    if len(tree) == 2:
+        return float(inst["lex"][tree[0], inst["tokens"][tree[1]]])
+    a, left, right = tree
+    lp = max(float(w) for (ra, rb, rc), w in zip(inst["rules"], inst["rule_logp"])
+             if (ra, rb, rc) == (a, left[0], right[0]))
+    return lp + cky_tree_logp(left, inst) + cky_tree_logp(right, inst)
+
+
+def check_grid_decoded(name: str, inst: dict, ans) -> bool:
+    sol = ans.solution
+    if name in ("needleman_wunsch", "gotoh"):
+        ok, score = alignment_score(sol["ops"], inst, affine=name == "gotoh")
+        return ok and close(score, ans.value)
+    if name == "cky":
+        return close(cky_tree_logp(sol["tree"], inst), ans.value)
+    return check_decoded({"edit_distance_grid": "edit_distance",
+                          "lcs_grid": "lcs"}[name], inst, ans)
+
+
+def antidiag_candidates(spec) -> int:
+    """(move, cell) pairs the recurrence folds: cells not preset in the
+    move's target plane whose source lies in the grid."""
+    return sum(int((spec.init_mask[p, di:, dj:] == 0).sum())
+               for p, _, di, dj in spec.moves)
+
+
+def k6_records(schedule: str, arrs, meta, label: str, in_bytes: int,
+               out_bytes: int, ops: int, reps: int) -> list:
+    """Both K6 twins of one schedule against one call of the plain version
+    (which computes the args either way, so its one time serves both)."""
+    want, plain = timed_once(lambda: k6.grid_pipeline_plain(arrs, meta, with_args=True))
+    records = []
+    for with_args in (False, True):
+        name = f"grid_pipeline_{schedule}" + ("_with_args" if with_args else "")
+        fn = k6.grid_pipeline_with_args if with_args else k6.grid_pipeline
+        got = fn(arrs, meta)
+        table = got[0] if with_args else got
+        same = torch.equal(table, want[0]) and (not with_args or torch.equal(got[1], want[1]))
+        require(same, f"{name} {label}: table{' and args' if with_args else ''} "
+                "bit-equal to plain")
+        ms = cuda_ms(lambda: fn(arrs, meta), reps=reps)
+        records.append(kernel_record(
+            name, "src/repro_torch/csrc/grid_pipeline.cu",
+            "src/repro/kernels/grid_pipeline.py:" + ("268" if with_args else "259"),
+            max_err(table, want[0]), ms, plain,
+            in_bytes + out_bytes * (2 if with_args else 1), ops))
+        del got, table
+    return records
+
+
+def phase_grid_kernels(cuda) -> list:
+    """K6 against its plain version on the same CUDA tensors: antidiag at
+    gotoh 4096^2 (plus a batch of 8 needleman_wunsch 1024^2), spandiag at
+    the cky chart."""
+    t0 = time.perf_counter()
+    insts = grid_instances(np.random.default_rng(SEED))
+    specs = [dp.get_problem("needleman_wunsch").encode(**i) for i in align_batch()]
+    barrs = tuple(torch.from_numpy(np.stack(slot)).to(cuda)
+                  for slot in zip(*(s.device_arrays() for s in specs)))
+    gt, ga = k6.grid_pipeline_with_args(barrs, specs[0].static_meta())
+    wt, wa = k6.grid_pipeline_plain(barrs, specs[0].static_meta(), with_args=True)
+    require(torch.equal(gt, wt) and torch.equal(ga, wa),
+            f"grid_pipeline_antidiag_with_args batch {ALIGN_BATCH} x "
+            f"needleman_wunsch {ALIGN_BATCH_N}^2: table and args bit-equal to plain")
+    del barrs, gt, ga, wt, wa
+
+    spec = dp.get_problem("gotoh").encode(**insts["gotoh"])
+    arrs = tuple(torch.from_numpy(a).to(cuda) for a in spec.device_arrays())
+    P, RC, L = spec.planes, spec.cells, len(spec.moves)
+    pos = k6.front_positions(spec.rows, spec.cols, cuda)
+    to_ms = cuda_ms(lambda: [k6.to_frontier(a, pos) for a in arrs], reps=3)
+    back = (torch.empty((1, P, RC), device=cuda),
+            torch.empty((1, P, RC), dtype=torch.int32, device=cuda))
+    back_ms = cuda_ms(lambda: [t[..., pos] for t in back], reps=3)
+    print(f"gotoh {spec.rows}x{spec.cols} layout: to frontier-major {to_ms:.3f} ms "
+          f"(weights, init, mask), back {back_ms:.3f} ms (table, args)")
+    del back
+    records = k6_records("antidiag", arrs, spec.static_meta(), f"gotoh {spec.rows}^2",
+                         4 * (L + 2 * P) * RC, 4 * P * RC, 2 * antidiag_candidates(spec),
+                         reps=3)
+    del arrs
+    torch.cuda.empty_cache()
+
+    cspec = dp.get_problem("cky").encode(**insts["cky"])
+    carrs = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+                  for a in cspec.device_arrays())
+    n, NR, P = cspec.rows, len(cspec.rules), cspec.planes
+    records += k6_records("spandiag", carrs, cspec.static_meta(),
+                          f"cky n={n} P={P} rules={NR}", 4 * (NR + P * n),
+                          4 * P * core_mcm.num_cells(n),
+                          3 * NR * sum((n - d) * d for d in range(1, n)), reps=5)
+    print(f"grid kernels phase: {time.perf_counter() - t0:.2f} s")
+    return records
+
+
+def phase_grid(cuda) -> None:
+    """The grid family through the public entry points on the card."""
+    t_all = time.perf_counter()
+    insts = grid_instances(np.random.default_rng(SEED))
+    answers = {}
+    for name, inst in insts.items():
+        prob = dp.get_problem(name)
+        spec = prob.encode(**inst)
+        require(dp.dispatch(spec, reconstruct=True, device=cuda).name == "kernel_grid",
+                f"dispatch({name}, reconstruct) -> kernel_grid")
+        t0 = time.perf_counter()
+        ans = answers[name] = dp.solve(name, reconstruct=True, device=cuda, **inst)
+        print(f"solve {name} ({spec.planes} x {spec.rows} x {spec.cols}) reconstruct: "
+              f"{time.perf_counter() - t0:.2f} s (encode included), value {ans.value}")
+        t0 = time.perf_counter()
+        plain = dp.solve_spec(spec, backend="grid_wavefront", device=cuda)
+        print(f"  plain grid_wavefront route: {time.perf_counter() - t0:.2f} s")
+        require(np.array_equal(ans.table, plain), f"{name} table bit-equal to the "
+                "plain grid_wavefront route on the card")
+        require(check_grid_decoded(name, inst, ans), f"{name} decoded solution "
+                "recomputes to the optimum")
+        del spec, plain
+
+    # values against the numpy oracles, at a reduced size where they are loops
+    m = ALIGN_ORACLE_N
+    small = {"needleman_wunsch": {k: v[:m] for k, v in insts["needleman_wunsch"].items()},
+             "gotoh": {k: v[:m] for k, v in insts["gotoh"].items()},
+             "cky": cky_instance(np.random.default_rng(SEED), CKY_ORACLE["n"],
+                                 CKY_ORACLE["P"], CKY_ORACLE["V"], CKY_ORACLE["rules"]),
+             "edit_distance_grid": insts["edit_distance_grid"],
+             "lcs_grid": insts["lcs_grid"]}
+    for name, inst in small.items():
+        prob = dp.get_problem(name)
+        ans = dp.solve(name, reconstruct=True, device=cuda, **inst)
+        ref = prob.extract(prob.oracle(**inst), prob.encode(**inst))
+        require(close(ans.value, ref), f"{name} value matches the numpy oracle "
+                f"({'reduced' if inst is not insts[name] else 'full'} size)")
+        require(check_grid_decoded(name, inst, ans), f"{name} decoded solution "
+                "recomputes to the optimum (oracle size)")
+    # with reconstruct, the linear twins run their kernel route (without it,
+    # dispatch sends these B = 1 problems to the plain pipeline loop)
+    for grid, linear in (("edit_distance_grid", "edit_distance"), ("lcs_grid", "lcs")):
+        value = dp.solve(linear, reconstruct=True, device=cuda, **insts[grid]).value
+        require(answers[grid].value == value, f"{grid} equals {linear} on the same "
+                f"strings ({answers[grid].value} == {value})")
+
+    batch = align_batch()
+    before = k6.LAUNCHES["grid_pipeline_antidiag_with_args"]
+    t0 = time.perf_counter()
+    got = dp.batch_solve("needleman_wunsch", batch, reconstruct=True, device=cuda)
+    print(f"batch_solve needleman_wunsch {ALIGN_BATCH} x {ALIGN_BATCH_N} reconstruct: "
+          f"{time.perf_counter() - t0:.2f} s (encode included)")
+    require(k6.LAUNCHES["grid_pipeline_antidiag_with_args"] - before == 1,
+            "needleman_wunsch batch is one launch")
+    refs = dp.batch_solve_specs([dp.get_problem("needleman_wunsch").encode(**i)
+                                 for i in batch], backend="grid_wavefront", device=cuda)
+    require(all(np.array_equal(a.table, r) for a, r in zip(got, refs)),
+            "needleman_wunsch batch tables bit-equal to the plain grid_wavefront route")
+    require(all(check_grid_decoded("needleman_wunsch", i, a) for i, a in zip(batch, got)),
+            "needleman_wunsch batch alignments rescore to their optima")
+
+    # without reconstruction, dispatch takes the kernels' table-only twins
+    for name in ("needleman_wunsch", "cky"):
+        value = dp.solve(name, device=cuda, **insts[name])
+        require(value == answers[name].value, f"{name} value without reconstruction "
+                "matches")
+    print(f"grid path: {time.perf_counter() - t_all:.2f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -389,6 +646,7 @@ def main() -> int:
     phase_build()
     rng = np.random.default_rng(SEED)
     records, sdp, dims = phase_kernels(rng, cuda)
+    grid_records = phase_grid_kernels(cuda)
 
     torch.cuda.reset_peak_memory_stats(cuda)
     reset_launches()
@@ -400,6 +658,19 @@ def main() -> int:
         require(rec["launches"] > 0, f"{rec['name']} launched on the main path")
     print(f"peak device memory on the main path: "
           f"{torch.cuda.max_memory_allocated(cuda) / 2 ** 30:.3f} GiB")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    reset_launches()
+    phase_grid(cuda)
+    counts = launches()
+    print(f"launches on the grid path: {counts}")
+    for rec in grid_records:
+        rec["launches"] = counts[rec["name"]]
+        require(rec["launches"] > 0, f"{rec['name']} launched on the grid path")
+    print(f"peak device memory on the grid path: "
+          f"{torch.cuda.max_memory_allocated(cuda) / 2 ** 30:.3f} GiB")
+    records += grid_records
 
     if _failures:
         print(f"chip_smoke: {len(_failures)} check(s) failed", file=sys.stderr)

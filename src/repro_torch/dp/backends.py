@@ -1,9 +1,10 @@
 """Solver-route registry and the batched run paths.
 
-``repro_torch.core.sdp``, ``repro_torch.core.mcm`` and ``repro_torch.kernels``
-register their routes here at import time; :func:`ensure_registered` pulls
-them in lazily. The dispatcher (``repro_torch.dp.routing``) ranks the
-routes that support a spec by ``(cost(spec, device), name)``.
+``repro_torch.core.sdp``, ``repro_torch.core.mcm``, ``repro_torch.core.grid``
+and ``repro_torch.kernels`` register their routes here at import time;
+:func:`ensure_registered` pulls them in lazily. The dispatcher
+(``repro_torch.dp.routing``) ranks the routes that support a spec by
+``(cost(spec, device), name)``.
 
 Every route runs on an explicit ``torch.device``. Builders stack the specs
 of a bucket along a leading batch axis, so a bucket is one solver call —
@@ -17,7 +18,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.dp.problem import LinearSpec, Spec, TriangularSpec
+from repro_torch.dp.problem import GridSpec, LinearSpec, Spec, TriangularSpec
 
 _BACKENDS: dict = {}
 _LOADED = False
@@ -45,9 +46,10 @@ class Backend:
     table as numpy; ``batch_run(specs, device)`` solves a homogeneous list
     of specs in one call. Arg-capable routes also expose ``run_with_args``
     / ``batch_run_with_args`` returning ``(table, args)`` — the winning
-    lane (linear) or best split (triangular) per cell. ``cost(spec, device)`` is
-    the analytical step-count prior; ``schedule`` stays None until the
-    static schedule gate is ported."""
+    lane (linear), best split (triangular), or winning move / packed split
+    (grid) per cell. ``cost(spec, device)`` is the analytical step-count
+    prior; ``schedule`` stays None until the static schedule gate is
+    ported."""
 
     name: str
     geometry: str
@@ -98,6 +100,7 @@ def ensure_registered() -> None:
         return
     import repro_torch.core.sdp  # noqa: F401  (linear routes)
     import repro_torch.core.mcm  # noqa: F401  (triangular route)
+    import repro_torch.core.grid  # noqa: F401  (grid route)
     import repro_torch.kernels  # noqa: F401  (kernel routes)
     _LOADED = True
 
@@ -118,6 +121,32 @@ def _rows(t: torch.Tensor) -> list:
     return list(t.cpu().numpy())
 
 
+def _backend(name: str, geometry: str, call: Callable, fn: Callable,
+             cost: Callable, supports: Optional[Callable],
+             arg_fn: Optional[Callable], doc: str) -> Backend:
+    """A Backend whose batch paths run ``call(f, specs, device)`` with
+    ``f = fn`` (the table) or ``f = arg_fn`` (``(table, args)``)."""
+
+    def batch_run(specs, device) -> list:
+        return _rows(call(fn, specs, device))
+
+    run_with_args = batch_run_with_args = None
+    if arg_fn is not None:
+        def batch_run_with_args(specs, device):
+            st, args = call(arg_fn, specs, device)
+            return _rows(st), _rows(args)
+
+        def run_with_args(spec: Spec, device):
+            sts, argss = batch_run_with_args([spec], device)
+            return sts[0], argss[0]
+
+    return Backend(name=name, geometry=geometry,
+                   run=lambda spec, device: batch_run([spec], device)[0],
+                   cost=cost, supports=supports or (lambda s: True),
+                   batch_run=batch_run, run_with_args=run_with_args,
+                   batch_run_with_args=batch_run_with_args, doc=doc)
+
+
 def linear_backend(name: str, fn: Callable, cost: Callable,
                    supports: Optional[Callable] = None,
                    arg_fn: Optional[Callable] = None,
@@ -126,30 +155,13 @@ def linear_backend(name: str, fn: Callable, cost: Callable,
     into a Backend. ``arg_fn`` (same signature, returns ``(st, args)``)
     adds the arg-capable pair."""
 
-    def _call(f, specs, device):
+    def call(f, specs, device):
         s0 = specs[0]
         init = _stack([s.init for s in specs], device)
         w = None if s0.weights is None else _stack([s.weights for s in specs], device)
         return f(init, s0.offsets, s0.op, s0.n, weights=w)
 
-    def batch_run(specs, device) -> list:
-        return _rows(_call(fn, specs, device))
-
-    run_with_args = batch_run_with_args = None
-    if arg_fn is not None:
-        def batch_run_with_args(specs, device):
-            st, args = _call(arg_fn, specs, device)
-            return _rows(st), _rows(args)
-
-        def run_with_args(spec: LinearSpec, device):
-            sts, argss = batch_run_with_args([spec], device)
-            return sts[0], argss[0]
-
-    return Backend(name=name, geometry="linear",
-                   run=lambda spec, device: batch_run([spec], device)[0],
-                   cost=cost, supports=supports or (lambda s: True),
-                   batch_run=batch_run, run_with_args=run_with_args,
-                   batch_run_with_args=batch_run_with_args, doc=doc)
+    return _backend(name, "linear", call, fn, cost, supports, arg_fn, doc)
 
 
 def triangular_tab_backend(name: str, fn: Callable, cost: Callable,
@@ -160,27 +172,27 @@ def triangular_tab_backend(name: str, fn: Callable, cost: Callable,
     Backend; ``arg_fn`` (returns ``(st, args)``) adds the arg-capable
     pair."""
 
-    def _call(f, specs, device):
+    def call(f, specs, device):
         return f(_stack([s.weights for s in specs], device), specs[0].n)
 
-    def batch_run(specs, device) -> list:
-        return _rows(_call(fn, specs, device))
+    return _backend(name, "triangular", call, fn, cost, supports, arg_fn, doc)
 
-    run_with_args = batch_run_with_args = None
-    if arg_fn is not None:
-        def batch_run_with_args(specs, device):
-            st, args = _call(arg_fn, specs, device)
-            return _rows(st), _rows(args)
 
-        def run_with_args(spec: TriangularSpec, device):
-            sts, argss = batch_run_with_args([spec], device)
-            return sts[0], argss[0]
+def grid_backend(name: str, fn: Callable, cost: Callable,
+                 supports: Optional[Callable] = None,
+                 arg_fn: Optional[Callable] = None,
+                 doc: str = "") -> Backend:
+    """Wrap a batched grid solver ``fn(arrs, meta)`` — ``arrs`` one stacked
+    tensor per ``GridSpec.device_arrays()`` slot, ``meta`` the shared
+    ``static_meta()`` — into a Backend; ``arg_fn`` (returns ``(st,
+    args)``) adds the arg-capable pair."""
 
-    return Backend(name=name, geometry="triangular",
-                   run=lambda spec, device: batch_run([spec], device)[0],
-                   cost=cost, supports=supports or (lambda s: True),
-                   batch_run=batch_run, run_with_args=run_with_args,
-                   batch_run_with_args=batch_run_with_args, doc=doc)
+    def call(f, specs, device):
+        slots = zip(*(s.device_arrays() for s in specs))
+        return f(tuple(_stack(slot, device) for slot in slots),
+                 specs[0].static_meta())
+
+    return _backend(name, "grid", call, fn, cost, supports, arg_fn, doc)
 
 
 # shared cost vocabulary (the per-family step-count tables live on the
@@ -190,4 +202,8 @@ def linear_costs(spec: LinearSpec) -> dict:
 
 
 def triangular_costs(spec: TriangularSpec) -> dict:
+    return spec.route_costs()
+
+
+def grid_costs(spec: GridSpec) -> dict:
     return spec.route_costs()

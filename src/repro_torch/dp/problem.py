@@ -23,6 +23,10 @@ family-agnostic.
 
   diagonal-0 cells preset to 0; MCM-shaped specs also carry ``dims``.
 
+``GridSpec`` — multi-plane 2-D wavefronts: alignment grids filled one
+  anti-diagonal at a time (``antidiag``) and parse charts filled one span
+  diagonal at a time (``spandiag``); see the class docstring.
+
 Specs, digests and answers are byte-compatible with ``repro.dp``'s:
 :func:`spec_from_reference` converts a ``repro`` spec by duck typing, and
 :func:`spec_digest` of a port spec equals ``repro``'s of the same instance.
@@ -81,6 +85,7 @@ _SMALL_N = 16
 _LINEAR_OVERHEAD = {"sequential": 0.0, "tournament": 8.0, "pipeline": 8.0,
                     "blocked": 6.0}
 _TRIANGULAR_OVERHEAD = {"wavefront": 0.0}
+_GRID_OVERHEAD = {"grid_wavefront": 0.0}
 
 
 def _floored(costs: dict, overhead: dict, n: int) -> dict:
@@ -268,10 +273,224 @@ class TriangularSpec:
         return TriangularPath(nodes=triangular_traceback_np(args, self.n))
 
 
-Spec = Union[LinearSpec, TriangularSpec]
+@dataclasses.dataclass(frozen=True)
+class GridSpec:
+    """Multi-plane 2-D wavefront instance.
+
+    ``schedule="antidiag"`` (alignment grids): the table is ``planes``
+    stacked ``(rows, cols)`` grids; *shift moves* ``(p_to, p_from, di, dj)``
+    (``di + dj ≥ 1``) each carry a per-cell weight plane
+    ``weights[ℓ] (rows, cols)``;
+
+        ST[p, i, j] = op_{ℓ: p_to=p} ( ST[p_from, i-di, j-dj] + w_ℓ[i, j] )
+
+    with preset cells given by ``init``/``init_mask`` (``(planes, rows,
+    cols)``). Invalid moves are masked with the semiring zero (±inf) in
+    their weight plane. Table/args layout: row-major ``(planes·rows·cols,)``
+    flat by ``(p, i, j)``.
+
+    ``schedule="spandiag"`` (parse charts; ``rows == cols == n``): the
+    triangular split recurrence over planes — cell ``(p, i, i+d)`` combines
+    *binary rules* ``(p_to, p_left, p_right)`` with scalar log-weights
+    ``rule_weights[r]`` over every split offset ``e``:
+
+        ST[A, lin(i,d)] = op_{e, r: p_to=A}
+            ( ST[B, lin(i,e)] + ST[C, lin(i+e+1, d-e-1)] + rw[r] )
+
+    with diagonal 0 preset from ``init`` (``(planes, n)``). Layout:
+    ``(planes·num_cells(n),)`` flat, diagonal-major per plane. The packed
+    arg of a cell is ``e·len(rules) + r``.
+    """
+
+    rows: int
+    cols: int
+    op: str
+    schedule: str
+    planes: int = 1
+    moves: tuple = ()
+    rules: tuple = ()
+    weights: Optional[np.ndarray] = None
+    rule_weights: Optional[np.ndarray] = None
+    init: Optional[np.ndarray] = None
+    init_mask: Optional[np.ndarray] = None
+
+    family: ClassVar[str] = "grid"
+    uses_start: ClassVar[bool] = True
+
+    @property
+    def geometry(self) -> str:
+        return self.family
+
+    @property
+    def cells(self) -> int:
+        """Cells per plane (schedule-dependent layout length)."""
+        if self.schedule == "spandiag":
+            return num_cells(self.rows)
+        return self.rows * self.cols
+
+    def shape_key(self) -> tuple:
+        return ("grid", self.schedule, self.op, int(self.planes),
+                int(self.rows), int(self.cols),
+                tuple(tuple(int(v) for v in m) for m in self.moves),
+                tuple(tuple(int(v) for v in r) for r in self.rules))
+
+    def validate(self) -> None:
+        if self.op not in ("min", "max"):
+            raise ValueError(f"grid op must be min or max, got {self.op!r}")
+        if self.schedule not in ("antidiag", "spandiag"):
+            raise ValueError(f"unknown grid schedule {self.schedule!r}")
+        if self.planes < 1 or self.rows < 1 or self.cols < 1:
+            raise ValueError("planes, rows, cols must be positive")
+        if self.schedule == "antidiag":
+            self._validate_antidiag()
+        else:
+            self._validate_spandiag()
+
+    def _validate_antidiag(self) -> None:
+        if self.rules:
+            raise ValueError("antidiag grids take shift moves, not rules")
+        if not self.moves:
+            raise ValueError("antidiag grids need at least one move")
+        for m in self.moves:
+            p_to, p_from, di, dj = m
+            if not (0 <= p_to < self.planes and 0 <= p_from < self.planes):
+                raise ValueError(f"move {m} references a plane out of range")
+            if di < 0 or dj < 0 or di + dj < 1:
+                raise ValueError(f"move {m} must step strictly forward "
+                                 "(di, dj >= 0, di + dj >= 1)")
+        shape = (len(self.moves), self.rows, self.cols)
+        if self.weights is None or self.weights.shape != shape:
+            raise ValueError(f"weights must be {shape}, got "
+                             f"{None if self.weights is None else self.weights.shape}")
+        pshape = (self.planes, self.rows, self.cols)
+        if self.init is None or self.init.shape != pshape:
+            raise ValueError(f"init must be {pshape}")
+        if self.init_mask is None or self.init_mask.shape != pshape:
+            raise ValueError(f"init_mask must be {pshape}")
+        if not bool(np.all(self.init_mask[:, 0, 0])):
+            raise ValueError("cell (0, 0) must be preset on every plane "
+                             "(no move can reach it)")
+
+    def _validate_spandiag(self) -> None:
+        if self.moves:
+            raise ValueError("spandiag grids take rules, not shift moves")
+        if not self.rules:
+            raise ValueError("spandiag grids need at least one rule")
+        if self.rows != self.cols or self.rows < 2:
+            raise ValueError("spandiag grids need rows == cols >= 2")
+        for r in self.rules:
+            if len(r) != 3 or not all(0 <= p < self.planes for p in r):
+                raise ValueError(f"rule {r} references a plane out of range")
+        if (self.rule_weights is None
+                or self.rule_weights.shape != (len(self.rules),)):
+            raise ValueError(f"rule_weights must be ({len(self.rules)},)")
+        if self.init is None or self.init.shape != (self.planes, self.rows):
+            raise ValueError(f"init must be ({self.planes}, {self.rows})")
+
+    # --- family protocol hooks ---------------------------------------------
+    def digest_into(self, h) -> None:
+        h.update(b"grid")
+        h.update(self.schedule.encode())
+        h.update(self.op.encode())
+        h.update(repr((int(self.planes), int(self.rows),
+                       int(self.cols))).encode())
+        h.update(repr(self.shape_key()[6:]).encode())   # moves, rules
+        _hash_array(h, self.weights)
+        _hash_array(h, self.rule_weights)
+        _hash_array(h, self.init)
+        _hash_array(h, None if self.init_mask is None
+                    else self.init_mask.astype(np.uint8))
+
+    @classmethod
+    def shape_key_size(cls, key: tuple) -> int:
+        return int(key[4]) * int(key[5])
+
+    @classmethod
+    def shape_key_compatible(cls, a: tuple, b: tuple) -> bool:
+        """Only the grid extents may differ: schedule, op, planes, moves
+        and rules all change the solver's program."""
+        return (len(a) == len(b)
+                and (a[1], a[2], a[3], a[6], a[7])
+                == (b[1], b[2], b[3], b[6], b[7]))
+
+    @classmethod
+    def from_shape_key(cls, key: tuple) -> "GridSpec":
+        _, schedule, op, planes, rows, cols, moves, rules = key
+        planes, rows, cols = int(planes), int(rows), int(cols)
+        if schedule == "antidiag":
+            mask = np.zeros((planes, rows, cols), bool)
+            mask[:, 0, 0] = True          # the minimal valid preset set
+            return cls(rows=rows, cols=cols, op=op, schedule=schedule,
+                       planes=planes, moves=moves,
+                       weights=np.zeros((len(moves), rows, cols), np.float32),
+                       init=np.zeros((planes, rows, cols), np.float32),
+                       init_mask=mask)
+        return cls(rows=rows, cols=cols, op=op, schedule=schedule,
+                   planes=planes, rules=rules,
+                   rule_weights=np.zeros((len(rules),), np.float32),
+                   init=np.zeros((planes, rows), np.float32))
+
+    def route_costs(self) -> dict:
+        """Step-count model of the grid routes: one combine per wavefront —
+        ``rows + cols - 1`` anti-diagonals or ``rows`` span diagonals —
+        scaled by the per-front fan-in (moves or rules). Units and floors
+        as in :meth:`LinearSpec.route_costs`."""
+        if self.schedule == "antidiag":
+            fronts = self.rows + self.cols - 1
+            fan = max(1, len(self.moves))
+        else:
+            fronts = self.rows
+            fan = max(1, len(self.rules))
+        costs = {"grid_wavefront": float(fronts) * (1.0 + _log2(fan) / 4.0)}
+        return _floored(costs, _GRID_OVERHEAD, min(self.rows, self.cols))
+
+    def supports_args(self) -> bool:
+        return True         # validate() restricts op to min/max
+
+    def args_unsupported_reason(self) -> str:
+        return "no argument structure"
+
+    def default_start(self, table) -> int:
+        """Plane 0 at the far corner (antidiag) or the full-span root cell
+        (spandiag); problems with a different optimum define ``start``."""
+        if self.schedule == "spandiag":
+            return int(lin_index(0, self.rows - 1, self.rows))
+        return (self.rows - 1) * self.cols + (self.cols - 1)
+
+    # --- solver plumbing (consumed by backends.grid_backend) ----------------
+    def device_arrays(self) -> tuple:
+        """The per-instance arrays a grid solver consumes, in a fixed slot
+        order per schedule: ``(weights, init, init_mask)`` (antidiag) or
+        ``(rule_weights, init)`` (spandiag), float32."""
+        if self.schedule == "antidiag":
+            return (np.asarray(self.weights, np.float32),
+                    np.asarray(self.init, np.float32),
+                    np.asarray(self.init_mask, np.float32))
+        return (np.asarray(self.rule_weights, np.float32),
+                np.asarray(self.init, np.float32))
+
+    def static_meta(self) -> tuple:
+        """``(schedule, op, planes, rows, cols, moves, rules)``: everything
+        the solvers need besides the instance arrays."""
+        return self.shape_key()[1:]
+
+    def args_from_table(self, table: np.ndarray) -> np.ndarray:
+        from repro_torch.core.grid import grid_args_np
+
+        return grid_args_np(table, self)
+
+    def traceback_host(self, args: np.ndarray, start: int = -1) -> "Path":
+        from repro_torch.core.grid import grid_traceback_np
+
+        return grid_traceback_np(
+            args, self, start if start >= 0 else self.default_start(None))
+
+
+Spec = Union[LinearSpec, TriangularSpec, GridSpec]
 
 register_family(LinearSpec)
 register_family(TriangularSpec)
+register_family(GridSpec)
 
 
 def _hash_array(h, a: Optional[np.ndarray]) -> None:
@@ -296,10 +515,21 @@ def spec_digest(spec: Spec) -> str:
 def spec_from_reference(obj) -> Spec:
     """The port's spec for any object with the numpy fields of a ``repro``
     spec, read by duck typing: ``offsets``/``op``/``n``/``init``/``weights``
-    (linear) or ``n``/``weights``/``dims`` (triangular)."""
+    (linear), ``n``/``weights``/``dims`` (triangular) or ``schedule``,
+    ``rows``, ``cols``, ``planes``, ``moves``, ``rules`` and the grid
+    arrays (grid)."""
     def arr(a):
         return None if a is None else np.asarray(a)
 
+    if all(hasattr(obj, f) for f in ("schedule", "rows", "cols", "planes",
+                                     "moves", "rules")):
+        return GridSpec(
+            rows=int(obj.rows), cols=int(obj.cols), op=str(obj.op),
+            schedule=str(obj.schedule), planes=int(obj.planes),
+            moves=tuple(tuple(int(v) for v in m) for m in obj.moves),
+            rules=tuple(tuple(int(v) for v in r) for r in obj.rules),
+            weights=arr(obj.weights), rule_weights=arr(obj.rule_weights),
+            init=arr(obj.init), init_mask=arr(obj.init_mask))
     if all(hasattr(obj, f) for f in ("offsets", "op", "n", "init", "weights")):
         return LinearSpec(offsets=tuple(int(a) for a in obj.offsets),
                           op=str(obj.op), n=int(obj.n), init=arr(obj.init),
@@ -307,7 +537,7 @@ def spec_from_reference(obj) -> Spec:
     if all(hasattr(obj, f) for f in ("n", "weights", "dims")):
         return TriangularSpec(n=int(obj.n), weights=arr(obj.weights),
                               dims=arr(obj.dims))
-    raise TypeError(f"not a linear or triangular spec: {type(obj).__name__}")
+    raise TypeError(f"not a linear, triangular or grid spec: {type(obj).__name__}")
 
 
 # --- reconstruction vocabulary ---------------------------------------------
@@ -332,7 +562,24 @@ class TriangularPath:
     nodes: np.ndarray
 
 
-Path = Union[LinearPath, TriangularPath]
+@dataclasses.dataclass(frozen=True)
+class GridPath:
+    """Argument structure of a grid table, as an ``(m, 4)`` node array.
+
+    antidiag: the walk in traceback order — node ``(plane, i, j, move)``
+    took shift move ``move``; the walk ends in preset cell ``stop`` (flat
+    ``p·rows·cols + i·cols + j`` index).
+
+    spandiag: the parse tree in preorder — node ``(plane, i, d, a)`` with
+    packed arg ``a = e·len(rules) + r``: rule ``r`` split cell ``(i, i+d)``
+    at offset ``e`` into ``(p_left, i, e)`` and ``(p_right, i+e+1,
+    d-e-1)``; ``stop`` is -1 (leaves are implied by the rules)."""
+
+    nodes: np.ndarray
+    stop: int
+
+
+Path = Union[LinearPath, TriangularPath, GridPath]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,4 +1,4 @@
-"""The DP problem zoo: classic scenarios reduced to the two canonical forms.
+"""The DP problem zoo: classic scenarios reduced to the canonical forms.
 
 Linear (weighted S-DP):
   * ``sdp``                — the paper's Definition-1 problem itself
@@ -17,6 +17,14 @@ Triangular (canonical split form):
   * ``polygon_triangulation``  — min-cost triangulation ≡ MCM with
                                  dims = vertex weights
 
+Grid (multi-plane wavefronts):
+  * ``needleman_wunsch``   — global alignment, linear gaps (antidiag)
+  * ``gotoh``              — affine-gap alignment, three planes (antidiag)
+  * ``cky``                — Viterbi CKY parsing, one plane per
+                             nonterminal (spandiag)
+  * ``edit_distance_grid`` / ``lcs_grid`` — the linear problems on their
+                             native grid: equal answers through another family
+
 Encoders, oracles, samplers and decoders are numpy and produce the same
 specs, digests and answers as ``repro.dp.zoo``. Every entry carries an
 independent numpy oracle (the textbook recurrence in its native shape).
@@ -27,7 +35,8 @@ import numpy as np
 
 from repro_torch.core import mcm as _mcm
 from repro_torch.core import sdp as _sdp
-from repro_torch.dp.problem import DPProblem, LinearSpec, TriangularSpec, lin_index
+from repro_torch.dp.problem import (DPProblem, GridSpec, LinearSpec,
+                                    TriangularSpec, lin_index)
 from repro_torch.dp.registry import register
 
 _NEG = -np.inf
@@ -579,3 +588,372 @@ register(DPProblem(
     sample=lambda rng, size: {"vertices": rng.integers(1, 20, size=max(3, int(size))).astype(np.float64)},
     decode=_poly_decode,
     doc="Min-cost convex polygon triangulation (vertex-weight product cost)."))
+
+
+# ===========================================================================
+# Grid-family helpers
+# ===========================================================================
+def _grid_lead_ops(stop: int, R: int, C: int):
+    """Leading gap ops implied by the preset cell an antidiag alignment
+    walk terminated in: column 0 means x[:i0] deleted first, row 0 means
+    y[:j0] inserted first."""
+    RC = R * C
+    i0, j0 = (stop % RC) // C, stop % C
+    if j0 == 0:
+        return [("del", t) for t in range(i0)]
+    return [("ins", t) for t in range(j0)]
+
+
+def _alignment_ops(path, R: int, C: int, kinds):
+    """Forward-order alignment script from an antidiag move walk: ``kinds``
+    maps move index -> 'align' | 'del' | 'ins'."""
+    ops = []
+    for p, i, j, mv in path.nodes[::-1]:
+        kind = kinds[int(mv)]
+        if kind == "align":
+            ops.append(("align", int(i) - 1, int(j) - 1))
+        elif kind == "del":
+            ops.append(("del", int(i) - 1))
+        else:
+            ops.append(("ins", int(j) - 1))
+    return _grid_lead_ops(int(path.stop), R, C) + ops
+
+
+# ===========================================================================
+# needleman_wunsch — global alignment on the native grid (antidiag)
+# ===========================================================================
+def _nw_encode(x, y, match=2.0, mismatch=-1.0, gap=-2.0):
+    x, y = np.asarray(x), np.asarray(y)
+    m, c = len(x), len(y)
+    if m < 1 or c < 1:
+        raise ValueError("needleman_wunsch needs non-empty sequences")
+    R, C = m + 1, c + 1
+    w = np.full((3, R, C), _NEG, dtype=np.float32)
+    w[0, 1:, 1:] = np.where(x[:, None] == y[None, :], match, mismatch)
+    w[1, 1:, :] = gap                                  # up: gap against x_i
+    w[2, :, 1:] = gap                                  # left: gap against y_j
+    init = np.zeros((1, R, C), dtype=np.float32)
+    init[0, 0, :] = gap * np.arange(C)
+    init[0, :, 0] = gap * np.arange(R)
+    mask = np.zeros((1, R, C), dtype=bool)
+    mask[0, 0, :] = mask[0, :, 0] = True
+    spec = GridSpec(rows=R, cols=C, op="max", schedule="antidiag", planes=1,
+                    moves=((0, 0, 1, 1), (0, 0, 1, 0), (0, 0, 0, 1)),
+                    weights=w, init=init, init_mask=mask)
+    spec.validate()
+    return spec
+
+
+def _nw_oracle(x, y, match=2.0, mismatch=-1.0, gap=-2.0):
+    x, y = np.asarray(x), np.asarray(y)
+    m, c = len(x), len(y)
+    D = np.zeros((m + 1, c + 1))
+    D[0, :] = gap * np.arange(c + 1)
+    D[:, 0] = gap * np.arange(m + 1)
+    for i in range(1, m + 1):
+        for j in range(1, c + 1):
+            s = match if x[i - 1] == y[j - 1] else mismatch
+            D[i, j] = max(D[i - 1, j - 1] + s, D[i - 1, j] + gap,
+                          D[i, j - 1] + gap)
+    return D.reshape(-1)
+
+
+def _nw_sample(rng, size):
+    m = int(rng.integers(2, max(3, size)))
+    c = int(rng.integers(2, max(3, size)))
+    return {"x": rng.integers(0, 4, size=m), "y": rng.integers(0, 4, size=c),
+            "match": float(np.round(rng.uniform(1.0, 3.0), 2)),
+            "mismatch": float(np.round(rng.uniform(-2.0, -0.5), 2)),
+            "gap": float(np.round(rng.uniform(-3.0, -1.0), 2))}
+
+
+def _nw_decode(table, args, spec, path):
+    """Global alignment script in forward order: ('align', i, j) pairs
+    x[i]↔y[j] (match or mismatch), ('del', i) gaps x[i], ('ins', j) gaps
+    y[j]; 0-based sequence positions."""
+    ops = _alignment_ops(path, spec.rows, spec.cols,
+                         {0: "align", 1: "del", 2: "ins"})
+    return {"ops": ops, "score": float(table[-1])}
+
+
+register(DPProblem(
+    name="needleman_wunsch", geometry="grid",
+    encode=_nw_encode, oracle=_nw_oracle,
+    extract=lambda table, spec: float(table[-1]),
+    sample=_nw_sample, decode=_nw_decode,
+    doc="Global alignment (linear gap) on the native antidiag grid."))
+
+
+# ===========================================================================
+# gotoh — affine-gap global alignment; planes M=0, X=1 (gap in y), Y=2
+# ===========================================================================
+_GOTOH_MOVES = (
+    (0, 0, 1, 1), (0, 1, 1, 1), (0, 2, 1, 1),   # M from M/X/Y, diagonal
+    (1, 0, 1, 0), (1, 1, 1, 0),                 # X: open / extend (up)
+    (2, 0, 0, 1), (2, 2, 0, 1))                 # Y: open / extend (left)
+
+
+def _gotoh_encode(x, y, match=2.0, mismatch=-1.0, gap_open=-3.0,
+                  gap_extend=-1.0):
+    x, y = np.asarray(x), np.asarray(y)
+    m, c = len(x), len(y)
+    if m < 1 or c < 1:
+        raise ValueError("gotoh needs non-empty sequences")
+    R, C = m + 1, c + 1
+    w = np.full((7, R, C), _NEG, dtype=np.float32)
+    s = np.where(x[:, None] == y[None, :], match, mismatch)
+    w[0, 1:, 1:] = w[1, 1:, 1:] = w[2, 1:, 1:] = s
+    w[3, 1:, :] = gap_open
+    w[4, 1:, :] = gap_extend
+    w[5, :, 1:] = gap_open
+    w[6, :, 1:] = gap_extend
+    init = np.full((3, R, C), _NEG, dtype=np.float32)
+    mask = np.zeros((3, R, C), dtype=bool)
+    mask[:, 0, :] = mask[:, :, 0] = True
+    init[0, 0, 0] = 0.0
+    init[1, 1:, 0] = gap_open + gap_extend * np.arange(m)
+    init[2, 0, 1:] = gap_open + gap_extend * np.arange(c)
+    spec = GridSpec(rows=R, cols=C, op="max", schedule="antidiag", planes=3,
+                    moves=_GOTOH_MOVES, weights=w, init=init, init_mask=mask)
+    spec.validate()
+    return spec
+
+
+def _gotoh_oracle(x, y, match=2.0, mismatch=-1.0, gap_open=-3.0,
+                  gap_extend=-1.0):
+    x, y = np.asarray(x), np.asarray(y)
+    m, c = len(x), len(y)
+    R, C = m + 1, c + 1
+    M = np.full((R, C), -np.inf)
+    X = np.full((R, C), -np.inf)
+    Y = np.full((R, C), -np.inf)
+    M[0, 0] = 0.0
+    X[1:, 0] = gap_open + gap_extend * np.arange(m)
+    Y[0, 1:] = gap_open + gap_extend * np.arange(c)
+    for i in range(1, R):
+        for j in range(1, C):
+            s = match if x[i - 1] == y[j - 1] else mismatch
+            M[i, j] = s + max(M[i - 1, j - 1], X[i - 1, j - 1],
+                              Y[i - 1, j - 1])
+            X[i, j] = max(M[i - 1, j] + gap_open, X[i - 1, j] + gap_extend)
+            Y[i, j] = max(M[i, j - 1] + gap_open, Y[i, j - 1] + gap_extend)
+    return np.stack([M, X, Y]).reshape(-1)
+
+
+def _gotoh_sample(rng, size):
+    kw = _nw_sample(rng, size)
+    kw.pop("gap")
+    kw["gap_open"] = float(np.round(rng.uniform(-4.0, -2.0), 2))
+    kw["gap_extend"] = float(np.round(rng.uniform(-1.5, -0.5), 2))
+    return kw
+
+
+def _gotoh_start(table, spec):
+    """Traceback enters at the best of the three planes' far corners."""
+    RC = spec.rows * spec.cols
+    corner = np.asarray([table[p * RC + RC - 1] for p in range(spec.planes)],
+                        dtype=np.float64)
+    return int(np.argmax(corner)) * RC + RC - 1
+
+
+def _gotoh_decode(table, args, spec, path):
+    """Affine-gap alignment script (same op vocabulary as
+    ``needleman_wunsch``) plus the plane the optimum ends in."""
+    ops = _alignment_ops(path, spec.rows, spec.cols,
+                         {0: "align", 1: "align", 2: "align",
+                          3: "del", 4: "del", 5: "ins", 6: "ins"})
+    RC = spec.rows * spec.cols
+    score = max(float(table[p * RC + RC - 1]) for p in range(spec.planes))
+    return {"ops": ops, "score": score}
+
+
+register(DPProblem(
+    name="gotoh", geometry="grid",
+    encode=_gotoh_encode, oracle=_gotoh_oracle,
+    extract=lambda table, spec: max(
+        float(table[p * spec.rows * spec.cols + spec.rows * spec.cols - 1])
+        for p in range(spec.planes)),
+    sample=_gotoh_sample, decode=_gotoh_decode, start=_gotoh_start,
+    doc="Affine-gap global alignment (Gotoh); three-plane antidiag grid."))
+
+
+# ===========================================================================
+# cky — Viterbi parsing; spandiag chart, one plane per nonterminal
+# ===========================================================================
+def _cky_encode(tokens, rules, rule_logp, lex):
+    tokens = np.asarray(tokens, dtype=np.int64)
+    lex = np.asarray(lex, dtype=np.float64)
+    n = len(tokens)
+    if n < 2:
+        raise ValueError("cky needs at least 2 tokens")
+    P = lex.shape[0]
+    init = lex[:, tokens].astype(np.float32)            # (P, n) leaf scores
+    spec = GridSpec(rows=n, cols=n, op="max", schedule="spandiag", planes=P,
+                    rules=tuple(tuple(int(v) for v in r) for r in rules),
+                    rule_weights=np.asarray(rule_logp, dtype=np.float32),
+                    init=init)
+    spec.validate()
+    return spec
+
+
+def _cky_oracle(tokens, rules, rule_logp, lex):
+    tokens = np.asarray(tokens, dtype=np.int64)
+    lex = np.asarray(lex, dtype=np.float64)
+    n, P = len(tokens), lex.shape[0]
+    chart = np.full((P, n, n), -np.inf)     # chart[A, i, j]: span i..j incl.
+    for i in range(n):
+        chart[:, i, i] = lex[:, tokens[i]]
+    for length in range(2, n + 1):
+        for i in range(0, n - length + 1):
+            j = i + length - 1
+            for (A, B, C), lp in zip(rules, np.asarray(rule_logp)):
+                for k in range(i, j):
+                    v = chart[B, i, k] + chart[C, k + 1, j] + lp
+                    if v > chart[A, i, j]:
+                        chart[A, i, j] = v
+    cells = (n * (n + 1)) // 2
+    st = np.empty(P * cells)
+    for p in range(P):
+        for d in range(n):
+            for i in range(n - d):
+                st[p * cells + lin_index(i, d, n)] = chart[p, i, i + d]
+    return st
+
+
+def _cky_sample(rng, size):
+    n = max(2, min(int(size), 12))
+    P, V = 3, 4
+    rules = [(0, 0, 0), (0, 1, 2), (1, 2, 0), (2, 1, 1)]
+    extra = int(rng.integers(0, 3))
+    for _ in range(extra):
+        rules.append(tuple(int(v) for v in rng.integers(0, P, size=3)))
+    return {"tokens": rng.integers(0, V, size=n),
+            "rules": rules,
+            "rule_logp": -np.round(rng.uniform(0.3, 2.5, size=len(rules)), 3),
+            "lex": -np.round(rng.uniform(0.3, 2.5, size=(P, V)), 3)}
+
+
+def _cky_render(tree):
+    if len(tree) == 2:                      # leaf: (nonterminal, position)
+        return f"(N{tree[0]} {tree[1]})"
+    return (f"(N{tree[0]} {_cky_render(tree[1])} {_cky_render(tree[2])})")
+
+
+def _cky_decode(table, args, spec, path):
+    """The Viterbi parse as nested ``(A, left, right)`` tuples with
+    ``(A, position)`` leaves, plus a bracketed render. Internal node
+    (A, i, d) took packed arg ``e·len(rules) + r``: rule r splits the span
+    after offset e."""
+    NR = len(spec.rules)
+    amap = {(int(p), int(i), int(d)): int(a) for p, i, d, a in path.nodes}
+
+    def build(p, i, d):
+        if d == 0:
+            return (p, i)
+        e, r = divmod(amap[(p, i, d)], NR)
+        _, B, C = spec.rules[r]
+        return (p, build(B, i, e), build(C, i + e + 1, d - e - 1))
+
+    n = spec.rows
+    tree = build(0, 0, n - 1)
+    return {"tree": tree, "bracket": _cky_render(tree),
+            "logp": float(table[lin_index(0, n - 1, n)])}
+
+
+register(DPProblem(
+    name="cky", geometry="grid",
+    encode=_cky_encode, oracle=_cky_oracle,
+    extract=lambda table, spec: float(
+        table[lin_index(0, spec.rows - 1, spec.rows)]),
+    sample=_cky_sample, decode=_cky_decode,
+    doc="Viterbi CKY parsing; spandiag chart, binary log-prob rules, "
+        "root nonterminal 0 over the full span."))
+
+
+# ===========================================================================
+# edit_distance_grid / lcs_grid — the linear problems on their native grid
+# (differential encodings: equal answers through a different family)
+# ===========================================================================
+def _edit_grid_encode(x, y):
+    x, y = np.asarray(x), np.asarray(y)
+    m, c = len(x), len(y)
+    if m < 1 or c < 1:
+        raise ValueError("edit_distance_grid needs non-empty sequences")
+    R, C = m + 1, c + 1
+    w = np.full((3, R, C), _POS, dtype=np.float32)
+    w[0, 1:, 1:] = np.where(x[:, None] == y[None, :], 0.0, 1.0)
+    w[1, 1:, :] = 1.0                                  # deletion (up)
+    w[2, :, 1:] = 1.0                                  # insertion (left)
+    init = np.zeros((1, R, C), dtype=np.float32)
+    init[0, 0, :] = np.arange(C)
+    init[0, :, 0] = np.arange(R)
+    mask = np.zeros((1, R, C), dtype=bool)
+    mask[0, 0, :] = mask[0, :, 0] = True
+    spec = GridSpec(rows=R, cols=C, op="min", schedule="antidiag", planes=1,
+                    moves=((0, 0, 1, 1), (0, 0, 1, 0), (0, 0, 0, 1)),
+                    weights=w, init=init, init_mask=mask)
+    spec.validate()
+    return spec
+
+
+def _edit_grid_decode(table, args, spec, path):
+    """Same op vocabulary as the linear ``edit_distance`` decode, recovered
+    from the native grid walk."""
+    ops = []
+    for _, i, j, mv in path.nodes[::-1]:
+        i, j = int(i), int(j)
+        if mv == 0:
+            kind = "match" if spec.weights[0, i, j] == 0.0 else "sub"
+            ops.append((kind, i - 1, j - 1))
+        elif mv == 1:
+            ops.append(("del", i - 1))
+        else:
+            ops.append(("ins", j - 1))
+    return {"ops": _grid_lead_ops(int(path.stop), spec.rows, spec.cols) + ops,
+            "cost": float(table[-1])}
+
+
+register(DPProblem(
+    name="edit_distance_grid", geometry="grid",
+    encode=_edit_grid_encode, oracle=_edit_oracle,
+    extract=lambda table, spec: float(table[-1]),
+    sample=_edit_sample, decode=_edit_grid_decode,
+    doc="Levenshtein on the native antidiag grid; same answers as the "
+        "linear edit_distance encoding."))
+
+
+def _lcs_grid_encode(x, y):
+    x, y = np.asarray(x), np.asarray(y)
+    m, c = len(x), len(y)
+    if m < 1 or c < 1:
+        raise ValueError("lcs_grid needs non-empty sequences")
+    R, C = m + 1, c + 1
+    w = np.full((3, R, C), _NEG, dtype=np.float32)
+    w[0, 1:, 1:] = np.where(x[:, None] == y[None, :], 1.0, _NEG)
+    w[1, 1:, :] = 0.0
+    w[2, :, 1:] = 0.0
+    init = np.zeros((1, R, C), dtype=np.float32)
+    mask = np.zeros((1, R, C), dtype=bool)
+    mask[0, 0, :] = mask[0, :, 0] = True
+    spec = GridSpec(rows=R, cols=C, op="max", schedule="antidiag", planes=1,
+                    moves=((0, 0, 1, 1), (0, 0, 1, 0), (0, 0, 0, 1)),
+                    weights=w, init=init, init_mask=mask)
+    spec.validate()
+    return spec
+
+
+def _lcs_grid_decode(table, args, spec, path):
+    """Common-subsequence index pairs, forward order — diagonal moves whose
+    +1 match weight won the cell (same format as the linear ``lcs``)."""
+    pairs = [(int(i) - 1, int(j) - 1) for _, i, j, mv in path.nodes[::-1]
+             if int(mv) == 0 and spec.weights[0, int(i), int(j)] == 1.0]
+    return {"pairs": pairs, "length": float(table[-1])}
+
+
+register(DPProblem(
+    name="lcs_grid", geometry="grid",
+    encode=_lcs_grid_encode, oracle=_lcs_oracle,
+    extract=lambda table, spec: float(table[-1]),
+    sample=_edit_sample, decode=_lcs_grid_decode,
+    doc="Longest common subsequence on the native antidiag grid; same "
+        "answers as the linear lcs encoding."))

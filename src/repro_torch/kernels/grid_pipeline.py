@@ -1,0 +1,301 @@
+"""Wavefront pipeline for the grid family: CUDA kernel and its plain
+PyTorch version.
+
+Port of ``repro/kernels/grid_pipeline.py`` (``grid_pipeline_pallas`` and
+its arg twin). ``arrs``/``meta`` are a ``GridSpec``'s ``device_arrays()``
+slots (as tensors, per instance or with a leading batch axis) and its
+``static_meta()``.
+
+``antidiag`` — the buffers are permuted to *frontier-major* order: cell
+``(i, j)`` of front ``t = i + j`` sits at ``base(t) + j - c0(t)``, with
+``c0(t) = max(0, t - rows + 1)`` and ``base(t)`` the sum of the earlier
+fronts' lengths (:func:`front_base`, a closed form in three regimes). Each
+front is then one contiguous run, and the source of move ``(di, dj)`` for
+the front's lanes is a contiguous run of front ``t - di - dj``. A move whose
+source lies outside the grid contributes nothing; a preset cell takes its
+``init`` value and arg -1; a plane that no move targets keeps its initial
+value (``init`` where preset, the semiring zero elsewhere).
+
+``spandiag`` — the table is diagonal-major per plane already. Per span
+diagonal, each (plane ``A``, lane ``i``) folds ``(left + right) + rw[r]``
+over the splits ``e`` ascending and, per split, the rules into ``A`` in
+declaration order; the packed arg is ``e·len(rules) + r``.
+
+Both fold with strict improvement from the semiring zero, starting from the
+first move or rule into the plane, so ties keep the first candidate in
+declaration order — the tie rule of ``repro_torch.core.grid``'s
+``argmin``/``argmax``, against which the CPU tests hold this module.
+
+A CPU tensor goes through :func:`grid_pipeline_plain`; a CUDA tensor
+launches ``csrc/grid_pipeline.cu`` (one CTA per instance, one launch per
+batch).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.grid import batched, plane_lists, semiring_zero, unbatched
+from repro_torch.core.mcm import lin_index, num_cells
+from repro_torch.kernels import _build
+
+#: kernel launches per wrapper (incremented only where a kernel launches)
+LAUNCHES = {"grid_pipeline_antidiag": 0, "grid_pipeline_antidiag_with_args": 0,
+            "grid_pipeline_spandiag": 0, "grid_pipeline_spandiag_with_args": 0}
+
+#: the most dynamic shared memory a block may take on sm_90
+_MAX_SMEM = 232448
+
+
+# ---------------------------------------------------------------------------
+# antidiag geometry: the frontier-major layout
+# ---------------------------------------------------------------------------
+def front_base(t, R: int, C: int):
+    """Frontier-major offset of front ``t``'s first cell: fronts grow by one
+    lane up to ``min(R, C)``, hold that width up to ``max(R, C)``, then
+    shrink. ``t`` is an int or an integer tensor."""
+    m, M = min(R, C), max(R, C)
+    grow = t * (t + 1) // 2
+    band = m * (m + 1) // 2 + (t - m) * m
+    u = t - M
+    shrink = m * (m + 1) // 2 + (M - m) * m + u * m - u * (u + 1) // 2
+    if isinstance(t, torch.Tensor):
+        return torch.where(t <= m, grow, torch.where(t <= M, band, shrink))
+    return grow if t <= m else band if t <= M else shrink
+
+
+def front_positions(R: int, C: int, device) -> torch.Tensor:
+    """Frontier-major position of every row-major cell, ``(R·C,)`` int64."""
+    i = torch.arange(R, device=device)[:, None]
+    j = torch.arange(C, device=device)[None, :]
+    t = i + j
+    return (front_base(t, R, C) + j - (t - (R - 1)).clamp(min=0)).reshape(-1)
+
+
+def to_frontier(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """``(..., R, C)`` row-major → ``(..., R·C)`` frontier-major."""
+    flat = x.reshape(*x.shape[:-2], -1)
+    out = torch.empty_like(flat)
+    out[..., pos] = flat
+    return out
+
+
+def _ranks(items, planes: int, dev):
+    """The fold's schedule, as device tensors (indexing a CUDA tensor with
+    a Python list copies the list to the card each time): the targeted
+    planes ``live``, each one's first move / rule (``(P', 1)`` int32), and
+    per rank k the positions ``q`` in ``live`` of the planes that have a
+    k-th item with that item's index and fields as ``(Q, 1)`` columns."""
+    by_plane = plane_lists(items, planes)
+    live = [p for p in range(planes) if by_plane[p]]
+    first = torch.tensor([by_plane[p][0] for p in live], dtype=torch.int32,
+                         device=dev)[:, None]
+    ranks = []
+    for k in range(max(len(lst) for lst in by_plane)):
+        q = [m for m, p in enumerate(live) if len(by_plane[p]) > k]
+        rk = torch.tensor([[by_plane[live[m]][k], *items[by_plane[live[m]][k]][1:]]
+                           for m in q], device=dev)
+        ranks.append((torch.tensor(q, device=dev),
+                      *(rk[:, c:c + 1] for c in range(rk.shape[1]))))
+    return torch.tensor(live, device=dev), first, ranks
+
+
+def _antidiag_plain(arrs, meta, with_args: bool):
+    _, op, P, R, C, moves, _ = meta
+    squeeze, (w, init, pmask) = batched(arrs, meta)
+    dev, dt, B = w.device, w.dtype, w.shape[0]
+    zero = semiring_zero(op)
+    pos = front_positions(R, C, dev)
+    w_ad, init_ad, pm_ad = (to_frontier(a, pos) for a in (w, init, pmask))
+    st = torch.empty((B, P, R * C), dtype=dt, device=dev)
+    ar = torch.empty((B, P, R * C), dtype=torch.int32, device=dev)
+    live, first, ranks = _ranks(moves, P, dev)
+    better = torch.lt if op == "min" else torch.gt
+    for t in range(R + C - 1):
+        c0, c1 = max(0, t - R + 1), min(t, C - 1)
+        base = front_base(t, R, C)
+        front = slice(base, base + c1 - c0 + 1)
+        preset = pm_ad[:, :, front] > 0
+        s0 = torch.where(preset, init_ad[:, :, front], zero)
+        st[:, :, front] = s0
+        ar[:, :, front] = -1
+        if t == 0:
+            continue
+        j = torch.arange(c0, c1 + 1, device=dev)
+        i = t - j
+        lanes = torch.arange(base, base + c1 - c0 + 1, device=dev)
+        acc = torch.full((B, len(live), c1 - c0 + 1), zero, dtype=dt, device=dev)
+        arg = first.expand(B, -1, c1 - c0 + 1).clone()
+        for q, l, pf, di, dj in ranks:
+            ok = (i >= di) & (j >= dj)                           # (Q, lanes)
+            ts = t - di - dj
+            src = front_base(ts, R, C) + (j - dj) - (ts - (R - 1)).clamp(min=0)
+            src = torch.where(ok, src, 0)
+            val = st[:, pf, src] + w_ad[:, l, lanes]             # (B, Q, lanes)
+            improve = ok & better(val, acc[:, q])
+            acc[:, q] = torch.where(improve, val, acc[:, q])
+            arg[:, q] = torch.where(improve, l.to(torch.int32), arg[:, q])
+        hold = preset[:, live]
+        st[:, live, front] = torch.where(hold, s0[:, live], acc)
+        ar[:, live, front] = torch.where(hold, -1, arg)
+    return unbatched(squeeze, st[..., pos].reshape(B, -1),
+                      ar[..., pos].reshape(B, -1), with_args)
+
+
+def _spandiag_plain(arrs, meta, with_args: bool):
+    _, op, P, n, _, _, rules = meta
+    squeeze, (rw, init) = batched(arrs, meta)
+    dev, dt, B, NR = rw.device, rw.dtype, rw.shape[0], len(rules)
+    zero = semiring_zero(op)
+    cells = num_cells(n)
+    st = torch.full((B, P, cells), zero, dtype=dt, device=dev)
+    st[:, :, :n] = init
+    ar = torch.full((B, P, cells), -1, dtype=torch.int32, device=dev)
+    live, first, ranks = _ranks(rules, P, dev)
+    better = torch.lt if op == "min" else torch.gt
+    for d in range(1, n):
+        lanes, off_d = n - d, lin_index(0, d, n)
+        i = torch.arange(lanes, device=dev)[:, None]              # (lanes, 1)
+        e = torch.arange(d, device=dev)[None, :]                  # (1, d)
+        li, ri = lin_index(i, e, n), lin_index(i + e + 1, d - e - 1, n)
+        # the kernel's fold over (split e, rule r), e-major: first over the
+        # rules of every split at once, then over the splits ascending —
+        # strict improve at both levels keeps the same first best
+        acc_e = torch.full((B, len(live), lanes, d), zero, dtype=dt, device=dev)
+        arg_e = torch.zeros((B, len(live), lanes, d), dtype=torch.int32, device=dev)
+        for q, r, rb, rc in ranks:
+            r, rb, rc = r[:, 0], rb[..., None], rc[..., None]      # (Q,), (Q, 1, 1)
+            val = (st[:, rb, li] + st[:, rc, ri]) + rw[:, r][:, :, None, None]
+            improve = better(val, acc_e[:, q])
+            acc_e[:, q] = torch.where(improve, val, acc_e[:, q])
+            packed = (e * NR + r[:, None, None]).to(torch.int32)
+            arg_e[:, q] = torch.where(improve, packed, arg_e[:, q])
+        acc = torch.full((B, len(live), lanes), zero, dtype=dt, device=dev)
+        arg = first.expand(B, -1, lanes).clone()
+        for s in range(d):
+            improve = better(acc_e[..., s], acc)
+            acc = torch.where(improve, acc_e[..., s], acc)
+            arg = torch.where(improve, arg_e[..., s], arg)
+        st[:, live, off_d:off_d + lanes] = acc
+        ar[:, live, off_d:off_d + lanes] = arg
+    return unbatched(squeeze, st.reshape(B, -1), ar.reshape(B, -1), with_args)
+
+
+def grid_pipeline_plain(arrs, meta: tuple, with_args: bool = False):
+    """The kernel's computation in PyTorch: the same layout, step order,
+    association and strict-improve folds. Returns ``st`` or ``(st, args)``,
+    flat per instance."""
+    if meta[0] == "antidiag":
+        return _antidiag_plain(arrs, meta, with_args)
+    return _spandiag_plain(arrs, meta, with_args)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA launch
+# ---------------------------------------------------------------------------
+def _plane_table(items, planes: int, fields) -> list:
+    """int32 payload of the kernel's per-plane lists: ``planes + 1`` start
+    offsets, the item indices grouped by target plane in declaration
+    order, then each of ``fields`` (columns of the items) in that order."""
+    by_plane = plane_lists(items, planes)
+    order = [k for lst in by_plane for k in lst]
+    starts = [0]
+    for lst in by_plane:
+        starts.append(starts[-1] + len(lst))
+    return starts + order + [int(items[k][f]) for f in fields for k in order]
+
+
+def _check(name: str, tensors: dict, shapes: dict) -> None:
+    for key, t in tensors.items():
+        if t.dtype != torch.float32 or tuple(t.shape) != shapes[key]:
+            raise ValueError(f"{name}: {key} must be float32 {shapes[key]}, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+
+
+def _launch(fn_name: str, name: str, pointers: list, ints: list) -> None:
+    """Call launcher ``fn_name``: device pointers, int arguments, then the
+    current stream."""
+    lib = _build.load("grid_pipeline")
+    fn = getattr(lib, fn_name)
+    fn.argtypes = ([ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * len(ints)
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(torch.cuda.current_device()).cuda_stream
+    _build.check(fn(*pointers, *ints, stream), name)
+    LAUNCHES[name] += 1
+
+
+def _launch_antidiag(arrs, meta, with_args: bool):
+    name = "grid_pipeline_antidiag" + ("_with_args" if with_args else "")
+    _, op, P, R, C, moves, _ = meta
+    squeeze, (w, init, pmask) = batched(arrs, meta)
+    B, L, dev = w.shape[0], len(moves), w.device
+    _check(name, {"weights": w, "init": init, "init_mask": pmask},
+           {"weights": (B, L, R, C), "init": (B, P, R, C),
+            "init_mask": (B, P, R, C)})
+    if P * R * C >= 2 ** 31:
+        raise ValueError(f"{name}: {P}·{R}·{C} cells exceed int32 indices")
+    table = _plane_table(moves, P, (1, 2, 3))
+    if 4 * len(table) > _MAX_SMEM:
+        raise ValueError(f"{name}: {L} moves exceed shared memory")
+    pos = front_positions(R, C, dev)
+    w_ad, init_ad, pm_ad = (to_frontier(a, pos) for a in (w, init, pmask))
+    mtab = torch.tensor(table, dtype=torch.int32, device=dev)
+    st = torch.empty((B, P, R * C), dtype=torch.float32, device=dev)
+    ar = torch.empty((B, P, R * C), dtype=torch.int32, device=dev) if with_args else None
+    with torch.cuda.device(dev):
+        _launch("grid_antidiag_launch", name,
+                [w_ad.data_ptr(), init_ad.data_ptr(), pm_ad.data_ptr(),
+                 mtab.data_ptr(), st.data_ptr(),
+                 None if ar is None else ar.data_ptr()],
+                [B, P, R, C, L, int(op == "min")])
+    return unbatched(squeeze, st[..., pos].reshape(B, -1),
+                      None if ar is None else ar[..., pos].reshape(B, -1),
+                      with_args)
+
+
+def _launch_spandiag(arrs, meta, with_args: bool):
+    name = "grid_pipeline_spandiag" + ("_with_args" if with_args else "")
+    _, op, P, n, _, _, rules = meta
+    squeeze, (rw, init) = batched(arrs, meta)
+    B, NR, dev = rw.shape[0], len(rules), rw.device
+    _check(name, {"rule_weights": rw, "init": init},
+           {"rule_weights": (B, NR), "init": (B, P, n)})
+    cells = num_cells(n)
+    if P * cells >= 2 ** 31 or n * NR >= 2 ** 31:
+        raise ValueError(f"{name}: {P} planes × {cells} cells or {n}·{NR} "
+                         "packed args exceed int32")
+    table = _plane_table(rules, P, (1, 2))
+    if 4 * (len(table) + NR) > _MAX_SMEM:
+        raise ValueError(f"{name}: {NR} rules exceed shared memory")
+    rtab = torch.tensor(table, dtype=torch.int32, device=dev)
+    st = torch.empty((B, P * cells), dtype=torch.float32, device=dev)
+    ar = torch.empty((B, P * cells), dtype=torch.int32, device=dev) if with_args else None
+    with torch.cuda.device(dev):
+        _launch("grid_spandiag_launch", name,
+                [rw.data_ptr(), init.data_ptr(), rtab.data_ptr(),
+                 st.data_ptr(), None if ar is None else ar.data_ptr()],
+                [B, P, n, NR, int(op == "min")])
+    return unbatched(squeeze, st, ar, with_args)
+
+
+def _run(arrs, meta, with_args: bool):
+    if arrs[0].is_cuda:
+        launch = _launch_antidiag if meta[0] == "antidiag" else _launch_spandiag
+        return launch(arrs, meta, with_args)
+    return grid_pipeline_plain(arrs, meta, with_args)
+
+
+def grid_pipeline(arrs, meta: tuple):
+    """Flat grid table: the CUDA kernel for CUDA tensors, the plain version
+    for CPU ones."""
+    return _run(arrs, meta, with_args=False)
+
+
+def grid_pipeline_with_args(arrs, meta: tuple):
+    """``grid_pipeline`` + the winning move / packed-split table (-1 on
+    preset cells). Returns ``(st, args)``."""
+    return _run(arrs, meta, with_args=True)

@@ -3,6 +3,7 @@ data decides the path: the CUDA kernel for a CUDA tensor, the kernel's plain
 PyTorch version for a CPU tensor — there is no mode knob and no fallback."""
 from __future__ import annotations
 
+from repro_torch.kernels.grid_pipeline import grid_pipeline, grid_pipeline_with_args
 from repro_torch.kernels.mcm_pipeline import mcm_pipeline, mcm_pipeline_with_args
 from repro_torch.kernels.sdp_pipeline import sdp_pipeline, sdp_pipeline_with_args
 
@@ -31,3 +32,15 @@ def mcm_blocked(wtab, n: int):
 def mcm_blocked_with_args(wtab, n: int):
     """``mcm_blocked`` + the best-split table."""
     return mcm_pipeline_with_args(wtab, n)
+
+
+def grid_blocked(arrs, meta: tuple):
+    """Grid (antidiag/spandiag) table solve through the ``grid_pipeline``
+    kernel — ``arrs``/``meta`` per ``GridSpec.device_arrays()`` /
+    ``static_meta()``."""
+    return grid_pipeline(arrs, meta)
+
+
+def grid_blocked_with_args(arrs, meta: tuple):
+    """``grid_blocked`` + the winning move / packed-split table."""
+    return grid_pipeline_with_args(arrs, meta)

@@ -1,8 +1,8 @@
 """The port's main path (``repro_torch.dp``) against ``repro.dp`` on the
 CPU: the same instances (sampled with numpy from a seed) through
 ``solve``/``batch_solve`` with ``reconstruct=True`` on both sides, for all
-eight linear and triangular problems, on the kernel route and on the plain
-route.
+thirteen problems (linear, triangular and grid), on the kernel route and on
+the plain route.
 
 Tables and args are bit-equal and solutions and values equal (every zoo
 problem reduces by min or max, which is exact). ``repro``'s kernel routes
@@ -23,9 +23,11 @@ from repro_torch import dp as tdp  # noqa: E402
 
 LINEAR = ("sdp", "edit_distance", "lcs", "viterbi", "unbounded_knapsack")
 TRIANGULAR = ("mcm", "optimal_bst", "polygon_triangulation")
-PROBLEMS = LINEAR + TRIANGULAR
+GRID = ("needleman_wunsch", "gotoh", "cky", "edit_distance_grid", "lcs_grid")
+PROBLEMS = LINEAR + TRIANGULAR + GRID
 ROUTES = {"linear": ("kernel_blocked", "blocked"),
-          "triangular": ("kernel_wavefront", "wavefront")}
+          "triangular": ("kernel_wavefront", "wavefront"),
+          "grid": ("kernel_grid", "grid_wavefront")}
 VALUE_RTOL = 1e-5
 
 
@@ -43,7 +45,7 @@ def _same_answer(got, want, label, source="device"):
     assert got.source == want.source == source, label
 
 
-def test_zoo_has_the_eight_problems():
+def test_zoo_has_the_thirteen_problems():
     assert sorted(tdp.problem_names()) == sorted(PROBLEMS)
     assert set(tdp.problem_names()) <= set(jdp.problem_names())
 
@@ -167,6 +169,13 @@ def test_kernel_routes_win_on_the_card():
     tri = tdp.TriangularSpec(n=1024, weights=np.zeros((1, 1), np.float32))
     assert tdp.backends.candidates(tri, cuda)[0].name == "kernel_wavefront"
     assert tdp.backends.candidates(tri, torch.device("cpu"))[0].name == "wavefront"
+    gotoh = tdp.GridSpec.from_shape_key(("grid", "antidiag", "max", 3, 4097, 4097,
+                                         tdp.zoo._GOTOH_MOVES, ()))
+    cky = tdp.GridSpec.from_shape_key(("grid", "spandiag", "max", 32, 64, 64,
+                                       (), ((0, 1, 2),) * 1024))
+    for grid in (gotoh, cky):
+        assert tdp.backends.candidates(grid, cuda)[0].name == "kernel_grid"
+        assert tdp.backends.candidates(grid, torch.device("cpu"))[0].name == "grid_wavefront"
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):

@@ -1,7 +1,8 @@
 """Tests that need the card: each CUDA kernel against its plain PyTorch
 version on the same CUDA tensors, and the main path on the card against the
 CPU path. Marked ``gpu``; the ``cuda`` fixture skips them where no CUDA
-device is present. This file imports no JAX.
+device is present. This file imports no JAX; ``grid_edge_specs`` and
+``grid_arrs`` are shared with the CPU tests of ``tests/test_torch_grid.py``.
 
 Run on the card with ``python -m pytest -m gpu tests/test_torch_gpu.py``.
 """
@@ -12,10 +13,48 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import dp  # noqa: E402
 from repro_torch.core.mcm import num_cells  # noqa: E402
+from repro_torch.kernels import grid_pipeline as k6  # noqa: E402
 from repro_torch.kernels import mcm_pipeline as k2  # noqa: E402
 from repro_torch.kernels import sdp_pipeline as k1  # noqa: E402
 
 pytestmark = pytest.mark.gpu
+
+
+def grid_edge_specs() -> list:
+    """``(label, GridSpec)`` cases the zoo does not reach: rows ≠ cols both
+    ways and a single row or column (every regime of the frontier-major
+    offsets), a move with di + dj = 3, a plane that no move or rule
+    targets, a rule with B == A, and cells where every candidate is the
+    semiring zero (their arg is the first move or rule into the plane)."""
+    rng = np.random.default_rng(12)
+    cases = []
+    moves = ((0, 0, 1, 1), (0, 1, 2, 1), (0, 0, 0, 1), (1, 0, 1, 0), (1, 1, 1, 0))
+    rules = ((0, 0, 1), (1, 1, 1), (0, 1, 0), (1, 0, 0), (3, 2, 2))
+    for op in ("min", "max"):
+        zero = np.float32(np.inf if op == "min" else -np.inf)
+        for R, C in ((3, 7), (7, 3), (5, 5), (1, 4), (4, 1)):
+            w = rng.normal(size=(len(moves), R, C)).astype(np.float32)
+            w[rng.random(w.shape) < 0.2] = zero
+            w[:, R // 2, C // 2] = zero                 # all candidates zero
+            for l, (_, _, di, dj) in enumerate(moves):  # the spec's contract:
+                w[l, :di], w[l, :, :dj] = zero, zero    # out-of-grid moves masked
+            mask = rng.random((3, R, C)) < 0.1          # plane 2: untargeted
+            mask[:, 0, 0] = True
+            mask[0, 0, :] = mask[1, :, 0] = True
+            cases.append((f"antidiag-{op}-{R}x{C}", dp.GridSpec(
+                rows=R, cols=C, op=op, schedule="antidiag", planes=3,
+                moves=moves, weights=w, init_mask=mask,
+                init=rng.normal(size=(3, R, C)).astype(np.float32))))
+        for n in (2, 3, 7):
+            init = rng.normal(size=(4, n)).astype(np.float32)
+            init[2] = zero        # plane 2 untargeted: plane 3 sees only zero
+            cases.append((f"spandiag-{op}-{n}", dp.GridSpec(
+                rows=n, cols=n, op=op, schedule="spandiag", planes=4,
+                rules=rules, init=init,
+                rule_weights=rng.normal(size=len(rules)).astype(np.float32))))
+    for _, spec in cases:
+        spec.validate()
+    return cases
 
 
 @pytest.fixture
@@ -64,22 +103,81 @@ def test_mcm_kernel_bit_equal_to_plain(cuda, n, batch):
     assert torch.equal(k2.mcm_pipeline(w, n), wt)
 
 
+def grid_arrs(spec, device, batch=None):
+    """A spec's ``device_arrays()`` as tensors on ``device``; with ``batch``,
+    that many distinct instances (each copy's weights shifted by 0.25)."""
+    arrs = [torch.from_numpy(np.ascontiguousarray(a)) for a in spec.device_arrays()]
+    if batch is not None:
+        arrs[0] = torch.stack([arrs[0] + 0.25 * b for b in range(batch)])
+        arrs[1:] = [torch.stack([a] * batch) for a in arrs[1:]]
+    return tuple(a.to(device) for a in arrs)
+
+
+def _grid_kernel_equals_plain(arrs, meta):
+    gt, ga = k6.grid_pipeline_with_args(arrs, meta)
+    wt, wa = k6.grid_pipeline_plain(arrs, meta, with_args=True)
+    assert torch.equal(gt, wt) and torch.equal(ga, wa)
+    assert torch.equal(k6.grid_pipeline(arrs, meta), wt)
+
+
+@pytest.mark.parametrize("name", ["needleman_wunsch", "gotoh", "cky",
+                                  "edit_distance_grid", "lcs_grid"])
+@pytest.mark.parametrize("size,batch", [(3, None), (12, 3), (40, None),
+                                        (1100, None)])
+def test_grid_kernel_bit_equal_to_plain(cuda, name, size, batch):
+    """Zoo instances, batched and not; 1100 has more lanes (antidiag) than
+    a CTA has threads."""
+    prob = dp.get_problem(name)
+    inst = prob.sample(np.random.default_rng(size), size)
+    if name == "cky":       # the sampler caps n at 12; widen the sentence
+        inst["tokens"] = np.random.default_rng(size).integers(0, 4, size=min(size, 64))
+    spec = prob.encode(**inst)
+    _grid_kernel_equals_plain(grid_arrs(spec, cuda, batch), spec.static_meta())
+
+
+@pytest.mark.parametrize("spec", [pytest.param(spec, id=label)
+                                  for label, spec in grid_edge_specs()])
+def test_grid_kernel_edge_cases(cuda, spec):
+    _grid_kernel_equals_plain(grid_arrs(spec, cuda), spec.static_meta())
+    _grid_kernel_equals_plain(grid_arrs(spec, cuda, batch=2), spec.static_meta())
+
+
+def test_grid_spandiag_rules_beyond_48k_shared_memory(cuda):
+    """4000 rules take 64 KB of dynamic shared memory (opt-in above 48 KB)."""
+    rng = np.random.default_rng(3)
+    P, n, NR = 8, 6, 4000
+    rules = tuple(tuple(int(v) for v in r) for r in rng.integers(0, P, (NR, 3)))
+    spec = dp.GridSpec(rows=n, cols=n, op="max", schedule="spandiag", planes=P,
+                       rules=rules,
+                       rule_weights=-rng.uniform(0.3, 2.5, NR).astype(np.float32),
+                       init=-rng.uniform(0.3, 2.5, (P, n)).astype(np.float32))
+    _grid_kernel_equals_plain(grid_arrs(spec, cuda), spec.static_meta())
+
+
 def test_kernels_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         k1.sdp_pipeline(torch.zeros(3, dtype=torch.float64, device=cuda),
                         (3, 1), "min", 10)
     with pytest.raises(ValueError):
         k2.mcm_pipeline(torch.zeros((6, 3), device=cuda), 4)  # wrong rows
+    spec = dp.get_problem("needleman_wunsch").encode(x=[1, 2], y=[2, 1, 3])
+    w, init, mask = grid_arrs(spec, cuda)
+    with pytest.raises(ValueError):                          # wrong moves
+        k6.grid_pipeline((w[:2], init, mask), spec.static_meta())
+    with pytest.raises(ValueError):                          # not contiguous
+        k6.grid_pipeline((w.transpose(1, 2), init, mask), spec.static_meta())
 
 
 @pytest.mark.parametrize("name", ["sdp", "edit_distance", "lcs", "viterbi",
                                   "unbounded_knapsack", "mcm", "optimal_bst",
-                                  "polygon_triangulation"])
+                                  "polygon_triangulation", "needleman_wunsch",
+                                  "gotoh", "cky", "edit_distance_grid",
+                                  "lcs_grid"])
 def test_main_path_on_the_card_matches_cpu(cuda, name):
     prob = dp.get_problem(name)
     rng = np.random.default_rng(7)
     inst = prob.sample(rng, 24)
-    before = dict(k1.LAUNCHES, **k2.LAUNCHES)
+    before = dict(k1.LAUNCHES, **k2.LAUNCHES, **k6.LAUNCHES)
     got = dp.solve(name, reconstruct=True, device=cuda, **inst)
     want = dp.solve(name, backend=dp.dispatch(name, reconstruct=True,
                                               device=cuda, **inst).name,
@@ -87,5 +185,5 @@ def test_main_path_on_the_card_matches_cpu(cuda, name):
     np.testing.assert_array_equal(got.table, want.table)
     np.testing.assert_array_equal(got.args, want.args)
     assert got.solution == want.solution
-    after = dict(k1.LAUNCHES, **k2.LAUNCHES)
+    after = dict(k1.LAUNCHES, **k2.LAUNCHES, **k6.LAUNCHES)
     assert sum(after.values()) > sum(before.values())
