@@ -9,10 +9,14 @@ and ``dp.batch_solve`` on ``device="cuda"`` — at the paper's sizes:
 
   * S-DP (paper Table I): n = 2^20, offsets range(2k, k, -1) with k = 2^10,
     op="min", with and without reconstruction;
-  * MCM (paper §IV): n = 1024 with reconstruction, and a batch of 8 at
-    n = 512;
+  * MCM (paper §IV): n = 1024 with reconstruction, and batches of 8 at
+    n = 512 and n = 256;
   * the other six zoo problems with reconstruction, at sizes that finish in
     seconds;
+  * past the on-chip gate (the card's L2): S-DP at n = 2^23, edit_distance
+    on two 2048-long strings, viterbi 64 x 2048, MCM 1024 and the 512-wide
+    triangular instances, which dispatch to the streaming kernels (the
+    triangular ones with the traceback fused into the launch);
 
 and then the grid family's path through the same entry points:
 
@@ -45,15 +49,23 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import dp  # noqa: E402
+from repro_torch import kernels as tkernels  # noqa: E402
 from repro_torch.core import mcm as core_mcm  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import grid_pipeline as k6  # noqa: E402
 from repro_torch.kernels import mcm_pipeline as k2  # noqa: E402
+from repro_torch.kernels import mcm_tiled as k4  # noqa: E402
+from repro_torch.kernels import sdp_chunked as k3  # noqa: E402
 from repro_torch.kernels import sdp_pipeline as k1  # noqa: E402
 
 SEED = 0
 SDP_N, SDP_K = 2 ** 20, 2 ** 10
 MCM_N, MCM_BATCH_N, MCM_BATCH = 1024, 512, 8
+#: past the on-chip gate: S-DP length, edit_distance string length; the
+#: resident MCM batch width; the viterbi instance (states, steps) small
+#: enough for the weighted K3 twin's host-looped plain version
+SDP_BIG_N, EDIT_BIG_N, MCM_SMALL_N = 2 ** 23, 2048, 256
+VITERBI_CHECK = (64, 256)
 #: grid path: DNA alignment length, the batch leg, the reduced oracle length;
 #: the CKY chart (tokens, nonterminals, vocabulary, rules) and its reduced
 #: oracle instance
@@ -97,13 +109,38 @@ def bound_ms(nbytes: float, ops: float) -> tuple:
 
 
 def reset_launches() -> None:
-    for counts in (k1.LAUNCHES, k2.LAUNCHES, k6.LAUNCHES):
+    for counts in (k1.LAUNCHES, k2.LAUNCHES, k3.LAUNCHES, k4.LAUNCHES, k6.LAUNCHES):
         for key in counts:
             counts[key] = 0
 
 
 def launches() -> dict:
-    return {**k1.LAUNCHES, **k2.LAUNCHES, **k6.LAUNCHES}
+    return {**k1.LAUNCHES, **k2.LAUNCHES, **k3.LAUNCHES, **k4.LAUNCHES, **k6.LAUNCHES}
+
+
+_PEAKS: list = []
+
+
+def measured(label: str, fn):
+    """``fn()`` with its host time and the device memory peak it reached
+    printed; the peak joins the path's own."""
+    torch.cuda.synchronize()
+    _PEAKS.append(torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    _PEAKS.append(peak)
+    print(f"{label}: {took:.2f} s, peak device memory {peak / 2 ** 30:.3f} GiB")
+    return out
+
+
+def path_peak_gib() -> float:
+    peak = max(_PEAKS + [torch.cuda.max_memory_allocated()])
+    _PEAKS.clear()
+    return peak / 2 ** 30
 
 
 def kernel_record(name, source, replaces, err, ms, plain_ms, nbytes, ops) -> dict:
@@ -142,20 +179,23 @@ def sdp_instance(rng) -> dict:
             "offsets": offsets, "op": "min", "n": SDP_N}
 
 
+def viterbi_instance(rng, S: int, T: int, M: int = 16) -> dict:
+    lognorm = lambda x, axis: np.log(x / x.sum(axis=axis, keepdims=True))  # noqa: E731
+    return {"log_a": lognorm(rng.random((S, S)) + 0.05, 1),
+            "log_b": lognorm(rng.random((S, M)) + 0.05, 1),
+            "log_pi": lognorm(rng.random(S) + 0.05, 0),
+            "obs": rng.integers(0, M, T)}
+
+
 def mcm_dims(rng, n: int) -> np.ndarray:
     return rng.integers(1, 61, size=n + 1).astype(np.float64)
 
 
 def other_instances(rng) -> dict:
-    S, T, M = 64, 2048, 16
-    lognorm = lambda x, axis: np.log(x / x.sum(axis=axis, keepdims=True))  # noqa: E731
     return {
         "edit_distance": {"x": rng.integers(0, 4, 512), "y": rng.integers(0, 4, 512)},
         "lcs": {"x": rng.integers(0, 4, 512), "y": rng.integers(0, 4, 512)},
-        "viterbi": {"log_a": lognorm(rng.random((S, S)) + 0.05, 1),
-                    "log_b": lognorm(rng.random((S, M)) + 0.05, 1),
-                    "log_pi": lognorm(rng.random(S) + 0.05, 0),
-                    "obs": rng.integers(0, M, T)},
+        "viterbi": viterbi_instance(rng, 64, 2048),
         "unbounded_knapsack": {"item_weights": rng.integers(1, 33, 12),
                                "item_values": np.round(rng.random(12) * 10 + 0.5, 3),
                                "capacity": 4096},
@@ -331,14 +371,126 @@ def phase_kernels(rng, cuda) -> tuple:
         record(name, "src/repro_torch/csrc/mcm_pipeline.cu",
                "src/repro/kernels/mcm_pipeline.py:" + ("120" if with_args else "105"),
                e, ms, plain, nbytes, 3 * needed)
-    del wtab, bw
+    del bw
+    records += k4_records(wtab, cells, needed)
+    del wtab
     torch.cuda.empty_cache()
     return records, sdp, dims
+
+
+def k4_records(wtab, cells: int, needed: int) -> list:
+    """K4's three twins at MCM n = 1024 on K2's instance: tables and args
+    bit-equal to K2's and to the plain version, fused nodes equal to the
+    host walk of K4's args; then the head-to-head with K2."""
+    n = MCM_N
+    k2_table, k2_args = k2.mcm_pipeline_with_args(wtab, n)
+    (pt, pa, pnodes), plain = timed_once(lambda: k4.mcm_tiled_plain(wtab, n, fused=True))
+    print(f"mcm_tiled tiles (T rows, E splits) = {k4.tile_plan(n)}, shared memory "
+          f"{k4.smem_bytes(n, fused=True)} bytes")
+    records = []
+    for twin, replaces in (("", "350"), ("_with_args", "365"), ("_fused", "380")):
+        name = "mcm_tiled" + twin
+        fn = {"": k4.mcm_tiled, "_with_args": k4.mcm_tiled_with_args,
+              "_fused": k4.mcm_tiled_fused}[twin]
+        got = fn(wtab, n)
+        table = got if not twin else got[0]
+        same = torch.equal(table, k2_table) and torch.equal(table, pt)
+        if twin:
+            same = same and torch.equal(got[1], k2_args) and torch.equal(got[1], pa)
+        require(same, f"{name} n={n}: table{' and args' if twin else ''} bit-equal "
+                "to mcm_pipeline's and to the plain version")
+        if twin == "_fused":
+            nodes = torch.stack(got[2], dim=1).cpu().numpy()
+            walk = core_mcm.triangular_traceback_np(got[1].cpu().numpy(), n)
+            require(np.array_equal(nodes, walk) and all(
+                torch.equal(a, b) for a, b in zip(got[2], pnodes)),
+                f"{name} n={n}: nodes equal the host walk of its args and the "
+                "plain version's")
+        ms = cuda_ms(lambda: fn(wtab, n), reps=3)
+        nbytes = 4 * needed + 4 * cells * (2 if twin else 1) + (12 * (n - 1) if twin == "_fused" else 0)
+        records.append(kernel_record(name, "src/repro_torch/csrc/mcm_tiled.cu",
+                                     "src/repro/kernels/mcm_tiled.py:" + replaces,
+                                     max_err(table, pt), ms, plain, nbytes, 3 * needed))
+        del got, table
+    return records
+
+
+def phase_streaming_kernels(cuda, sdp: dict) -> list:
+    """K3 against its plain version at S-DP n = 2^23 (both twins), K1 on
+    the same instance and both at 2^20 (the head-to-head), and the weighted
+    K3 twin with args on a viterbi instance."""
+    t0 = time.perf_counter()
+    offsets, n = sdp["offsets"], SDP_BIG_N
+    a1, k = offsets[0], len(offsets)
+    init = torch.from_numpy(sdp["init"]).to(cuda)[None]
+    print(f"sdp_chunked window (B, R, J) = {k3.window_plan(offsets)}, shared memory "
+          f"{k3.smem_bytes(offsets, False)} bytes")
+    (pt, pa), plain = timed_once(lambda: k3.sdp_chunked_plain(init, offsets, "min", n,
+                                                              with_args=True))
+    records = []
+    for with_args in (False, True):
+        name = "sdp_chunked_with_args" if with_args else "sdp_chunked"
+        fn = k3.sdp_chunked_with_args if with_args else k3.sdp_chunked
+        got = fn(init, offsets, "min", n)
+        table = got[0] if with_args else got
+        require(torch.equal(table, pt) and (not with_args or torch.equal(got[1], pa)),
+                f"{name} n={n} k={k}: table{' and args' if with_args else ''} "
+                "bit-equal to plain")
+        ms = cuda_ms(lambda: fn(init, offsets, "min", n), reps=3)
+        records.append(kernel_record(
+            name, "src/repro_torch/csrc/sdp_chunked.cu",
+            "src/repro/kernels/sdp_pipeline.py:" + ("304" if with_args else "288"),
+            max_err(table, pt), ms, plain, 4 * a1 + 4 * k + 4 * n * (2 if with_args else 1),
+            (n - a1) * (k - 1)))
+        del got, table
+    # the head-to-head: K1 on the same instances (the gate refuses K1 at 2^23;
+    # the direct call does not ask it)
+    k1_table = k1.sdp_pipeline(init, offsets, "min", n)
+    require(torch.equal(k1_table, pt), f"sdp_pipeline n={n}: table bit-equal to sdp_chunked's")
+    k1_big = cuda_ms(lambda: k1.sdp_pipeline(init, offsets, "min", n), reps=2)
+    k3_big = records[0]["ms"]
+    spec20 = dp.get_problem("sdp").encode(**sdp)
+    via_route = dp.solve_spec(spec20, backend="kernel_tiled", device=cuda)
+    require(np.array_equal(via_route, k1.sdp_pipeline(init, offsets, "min", SDP_N)[0].cpu().numpy()),
+            f"kernel_tiled route n={SDP_N}: table bit-equal to sdp_pipeline's")
+    k1_20 = cuda_ms(lambda: k1.sdp_pipeline(init, offsets, "min", SDP_N), reps=3)
+    k3_20 = cuda_ms(lambda: k3.sdp_chunked(init, offsets, "min", SDP_N), reps=3)
+    print(f"head-to-head sdp k={k}: n={SDP_N} K1 {k1_20:.3f} ms, K3 {k3_20:.3f} ms; "
+          f"n={n} K1 {k1_big:.3f} ms, K3 {k3_big:.3f} ms")
+    del init, pt, pa, k1_table
+
+    # the weighted twin with args on a viterbi instance (B = 1, k = 127)
+    S, T = VITERBI_CHECK
+    vs = dp.get_problem("viterbi").encode(**viterbi_instance(np.random.default_rng(SEED), S, T))
+    vinit = torch.from_numpy(vs.init).to(cuda)
+    vw = torch.from_numpy(vs.weights).to(cuda)
+    got = k3.sdp_chunked_with_args(vinit, vs.offsets, "max", vs.n, weights=vw)
+    want, vplain = timed_once(lambda: k3.sdp_chunked_plain(vinit, vs.offsets, "max", vs.n,
+                                                           weights=vw, with_args=True))
+    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+            f"sdp_chunked_with_args weighted (viterbi {S} x {T}, n={vs.n}, "
+            f"k={len(vs.offsets)}): bit-equal to plain")
+    vms = cuda_ms(lambda: k3.sdp_chunked_with_args(vinit, vs.offsets, "max", vs.n,
+                                                   weights=vw), reps=3)
+    k1v = cuda_ms(lambda: k1.sdp_pipeline_with_args(vinit, vs.offsets, "max", vs.n,
+                                                    weights=vw), reps=3)
+    print(f"viterbi {S} x {T} weighted with args: K3 {vms:.3f} ms, K1 {k1v:.3f} ms, "
+          f"plain {vplain:.3f} ms")
+    print(f"streaming kernels phase: {time.perf_counter() - t0:.2f} s")
+    return records
+
+
+EXPECTED_ROUTES = {"edit_distance": "kernel_blocked", "lcs": "kernel_blocked",
+                   "viterbi": "kernel_tiled", "unbounded_knapsack": "kernel_blocked",
+                   "optimal_bst": "kernel_tiled_wavefront",
+                   "polygon_triangulation": "kernel_tiled_wavefront"}
 
 
 def phase_main_path(rng, cuda, sdp: dict, dims: np.ndarray) -> None:
     """The main path through the public entry points on the card."""
     t_all = time.perf_counter()
+    print(f"on-chip budget (the L2 size the card reports): "
+          f"{tkernels.on_chip_budget(cuda)} bytes")
     # dispatch names the kernel routes for the paper's shapes
     sdp_spec = dp.get_problem("sdp").encode(**sdp)
     require(dp.dispatch(sdp_spec, device=cuda).name == "kernel_blocked",
@@ -360,25 +512,52 @@ def phase_main_path(rng, cuda, sdp: dict, dims: np.ndarray) -> None:
     require(check_decoded("sdp", sdp, ans), "sdp witness chain ends in the "
             "preset that holds the optimum")
 
+    # S-DP past the gate: n = 2^23 streams through K3, with and without args
+    big = dict(sdp, n=SDP_BIG_N)
+    big_spec = dp.get_problem("sdp").encode(**big)
+    for rec in (False, True):
+        require(dp.dispatch(big_spec, reconstruct=rec, device=cuda).name == "kernel_tiled",
+                f"dispatch(sdp n={SDP_BIG_N}{', reconstruct' if rec else ''}) -> kernel_tiled")
+    big_table = measured(f"solve sdp n={SDP_BIG_N}",
+                         lambda: dp.solve("sdp", device=cuda, **big))
+    init = torch.from_numpy(sdp["init"]).to(cuda)
+    require(np.array_equal(big_table, k3.sdp_chunked_plain(
+        init, sdp["offsets"], "min", SDP_BIG_N).cpu().numpy()),
+        f"sdp n={SDP_BIG_N} table bit-equal to the plain sdp_chunked on the card")
+    ans = measured(f"solve sdp n={SDP_BIG_N} reconstruct",
+                   lambda: dp.solve("sdp", reconstruct=True, device=cuda, **big))
+    require(np.array_equal(ans.table, big_table), f"sdp n={SDP_BIG_N} reconstruct "
+            "table equals the solve without it")
+    require(check_decoded("sdp", big, ans), f"sdp n={SDP_BIG_N} witness chain ends "
+            "in the preset that holds the optimum")
+    del big_table, ans, big_spec
+
+    # MCM n = 1024 past the gate: K4 with the traceback fused into its launch
     mcm_spec = dp.get_problem("mcm").encode(dims=dims)
-    require(dp.dispatch(mcm_spec, reconstruct=True, device=cuda).name == "kernel_wavefront",
-            f"dispatch(mcm n={MCM_N}, reconstruct) -> kernel_wavefront")
-    t0 = time.perf_counter()
-    ans = dp.solve("mcm", dims=dims, reconstruct=True, device=cuda)
-    print(f"solve mcm n={MCM_N} reconstruct: {time.perf_counter() - t0:.2f} s "
-          f"(encode included), value {ans.value}")
+    require(dp.dispatch(mcm_spec, reconstruct=True, device=cuda).name == "kernel_tiled_wavefront",
+            f"dispatch(mcm n={MCM_N}, reconstruct) -> kernel_tiled_wavefront")
+    before = k4.LAUNCHES["mcm_tiled_fused"]
+    ans = measured(f"solve mcm n={MCM_N} reconstruct (encode included)",
+                   lambda: dp.solve("mcm", dims=dims, reconstruct=True, device=cuda))
+    print(f"  value {ans.value}")
+    require(k4.LAUNCHES["mcm_tiled_fused"] - before == 1, f"mcm n={MCM_N} reconstruct "
+            "is one fused launch")
     ref = dp.solve_spec(mcm_spec, backend="wavefront", device=cuda)
     require(np.array_equal(ans.table, ref), f"mcm n={MCM_N} table bit-equal to "
             "the plain wavefront route on the card")
     require(check_decoded("mcm", {"dims": dims}, ans), f"mcm n={MCM_N} tree "
             "recomputes to the optimum")
-    del mcm_spec
+    del mcm_spec, ref
 
     insts = [{"dims": mcm_dims(rng, MCM_BATCH_N)} for _ in range(MCM_BATCH)]
-    t0 = time.perf_counter()
-    answers = dp.batch_solve("mcm", insts, reconstruct=True, device=cuda)
-    print(f"batch_solve mcm {MCM_BATCH} x n={MCM_BATCH_N} reconstruct: "
-          f"{time.perf_counter() - t0:.2f} s (encode included)")
+    require(dp.dispatch("mcm", reconstruct=True, device=cuda, **insts[0]).name
+            == "kernel_tiled_wavefront",
+            f"dispatch(mcm n={MCM_BATCH_N}, reconstruct) -> kernel_tiled_wavefront")
+    before = k4.LAUNCHES["mcm_tiled_fused"]
+    answers = measured(f"batch_solve mcm {MCM_BATCH} x n={MCM_BATCH_N} reconstruct "
+                       "(encode included)",
+                       lambda: dp.batch_solve("mcm", insts, reconstruct=True, device=cuda))
+    require(k4.LAUNCHES["mcm_tiled_fused"] - before == 1, "mcm batch is one fused launch")
     refs = dp.batch_solve_specs([dp.get_problem("mcm").encode(**i) for i in insts],
                                 backend="wavefront", device=cuda)
     require(all(np.array_equal(a.table, r) for a, r in zip(answers, refs)),
@@ -386,28 +565,75 @@ def phase_main_path(rng, cuda, sdp: dict, dims: np.ndarray) -> None:
     require(all(check_decoded("mcm", i, a) for i, a in zip(insts, answers)),
             "mcm batch trees recompute to their optima")
 
+    # MCM below the gate: a batch of 8 at n = 256 stays on K2
+    small = [{"dims": mcm_dims(rng, MCM_SMALL_N)} for _ in range(MCM_BATCH)]
+    require(dp.dispatch("mcm", reconstruct=True, device=cuda, **small[0]).name
+            == "kernel_wavefront",
+            f"dispatch(mcm n={MCM_SMALL_N}, reconstruct) -> kernel_wavefront")
+    answers = measured(f"batch_solve mcm {MCM_BATCH} x n={MCM_SMALL_N} reconstruct",
+                       lambda: dp.batch_solve("mcm", small, reconstruct=True, device=cuda))
+    values = dp.batch_solve("mcm", small, device=cuda)
+    refs = dp.batch_solve_specs([dp.get_problem("mcm").encode(**i) for i in small],
+                                backend="wavefront", device=cuda)
+    require(all(np.array_equal(a.table, r) and a.value == v
+                for a, r, v in zip(answers, refs, values)),
+            f"mcm batch n={MCM_SMALL_N} tables bit-equal to the plain wavefront route, "
+            "values equal without reconstruction")
+    require(all(check_decoded("mcm", i, a) for i, a in zip(small, answers)),
+            f"mcm batch n={MCM_SMALL_N} trees recompute to their optima")
+
     for name, inst in other_instances(np.random.default_rng(SEED)).items():
         prob = dp.get_problem(name)
         spec = prob.encode(**inst)
-        t0 = time.perf_counter()
-        ans = dp.solve(name, reconstruct=True, device=cuda, **inst)
-        took = time.perf_counter() - t0
         route = dp.dispatch(spec, reconstruct=True, device=cuda).name
+        require(route == EXPECTED_ROUTES[name], f"dispatch({name} n={spec.n}, "
+                f"reconstruct) -> {EXPECTED_ROUTES[name]} (got {route})")
+        ans = measured(f"solve {name} (n={spec.n}) via {route}",
+                       lambda: dp.solve(name, reconstruct=True, device=cuda, **inst))
         if name in ("optimal_bst", "polygon_triangulation"):   # O(n^3) oracles
             ref = prob.extract(dp.solve_spec(spec, backend="wavefront", device=cuda), spec)
             what = "the plain wavefront route on the card"
         else:
             ref = prob.extract(prob.oracle(**inst), spec)
             what = "the numpy oracle"
-        print(f"solve {name} (n={spec.n}) via {route}: {took:.2f} s, value {ans.value}")
+        print(f"  value {ans.value}")
         require(close(ans.value, ref), f"{name} value matches {what}")
         require(check_decoded(name, inst, ans), f"{name} decoded solution "
                 "recomputes to the optimum")
+        if name == "optimal_bst":      # args without the walk: K4's arg twin
+            _, args, source = dp.routing.solve_spec_with_args(spec, device=cuda)
+            require(source == "device" and np.array_equal(args, ans.args),
+                    "optimal_bst args without the walk equal the fused route's")
     poly = other_instances(np.random.default_rng(SEED))["polygon_triangulation"]
     value = dp.solve("polygon_triangulation", device=cuda, **poly)
     require(close(value, dp.solve("polygon_triangulation", reconstruct=True,
                                   device=cuda, **poly).value),
             "polygon_triangulation value without reconstruction matches")
+
+    # one cell per step without reconstruction: a kernel route, not the
+    # host-looped pipeline
+    edit = other_instances(np.random.default_rng(SEED))["edit_distance"]
+    espec = dp.get_problem("edit_distance").encode(**edit)
+    require(dp.dispatch(espec, device=cuda).name == "kernel_blocked",
+            f"dispatch(edit_distance n={espec.n}) -> kernel_blocked")
+    value = measured(f"solve edit_distance n={espec.n} without reconstruction",
+                     lambda: dp.solve("edit_distance", device=cuda, **edit))
+    require(value == dp.solve("edit_distance", reconstruct=True, device=cuda, **edit).value,
+            "edit_distance value without reconstruction matches")
+
+    # edit_distance on two 2048-long strings: 4.2 M cells stream through K3
+    rs = np.random.default_rng(SEED)
+    long = {"x": rs.integers(0, 4, EDIT_BIG_N), "y": rs.integers(0, 4, EDIT_BIG_N)}
+    lspec = dp.get_problem("edit_distance").encode(**long)
+    require(dp.dispatch(lspec, reconstruct=True, device=cuda).name == "kernel_tiled",
+            f"dispatch(edit_distance n={lspec.n}, reconstruct) -> kernel_tiled")
+    ans = measured(f"solve edit_distance {EDIT_BIG_N} x {EDIT_BIG_N} reconstruct",
+                   lambda: dp.solve("edit_distance", reconstruct=True, device=cuda, **long))
+    grid_value = dp.solve("edit_distance_grid", device=cuda, **long)
+    require(ans.value == grid_value, f"edit_distance {EDIT_BIG_N}^2 equals "
+            f"edit_distance_grid (K6) on the same strings ({ans.value} == {grid_value})")
+    require(check_decoded("edit_distance", long, ans), f"edit_distance {EDIT_BIG_N}^2 "
+            "script turns x into y at its cost")
     print(f"main path: {time.perf_counter() - t_all:.2f} s")
 
 
@@ -600,10 +826,9 @@ def phase_grid(cuda) -> None:
                 f"({'reduced' if inst is not insts[name] else 'full'} size)")
         require(check_grid_decoded(name, inst, ans), f"{name} decoded solution "
                 "recomputes to the optimum (oracle size)")
-    # with reconstruct, the linear twins run their kernel route (without it,
-    # dispatch sends these B = 1 problems to the plain pipeline loop)
+    # the linear twins, through their kernel route
     for grid, linear in (("edit_distance_grid", "edit_distance"), ("lcs_grid", "lcs")):
-        value = dp.solve(linear, reconstruct=True, device=cuda, **insts[grid]).value
+        value = dp.solve(linear, device=cuda, **insts[grid])
         require(answers[grid].value == value, f"{grid} equals {linear} on the same "
                 f"strings ({answers[grid].value} == {value})")
 
@@ -646,6 +871,7 @@ def main() -> int:
     phase_build()
     rng = np.random.default_rng(SEED)
     records, sdp, dims = phase_kernels(rng, cuda)
+    records += phase_streaming_kernels(cuda, sdp)
     grid_records = phase_grid_kernels(cuda)
 
     torch.cuda.reset_peak_memory_stats(cuda)
@@ -653,11 +879,12 @@ def main() -> int:
     phase_main_path(rng, cuda, sdp, dims)
     counts = launches()
     print(f"launches on the main path: {counts}")
+    print("streaming kernels' launches on the main path: "
+          + ", ".join(f"{k} {counts[k]}" for k in (*k3.LAUNCHES, *k4.LAUNCHES)))
     for rec in records:
         rec["launches"] = counts[rec["name"]]
         require(rec["launches"] > 0, f"{rec['name']} launched on the main path")
-    print(f"peak device memory on the main path: "
-          f"{torch.cuda.max_memory_allocated(cuda) / 2 ** 30:.3f} GiB")
+    print(f"peak device memory on the main path: {path_peak_gib():.3f} GiB")
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(cuda)
@@ -668,8 +895,7 @@ def main() -> int:
     for rec in grid_records:
         rec["launches"] = counts[rec["name"]]
         require(rec["launches"] > 0, f"{rec['name']} launched on the grid path")
-    print(f"peak device memory on the grid path: "
-          f"{torch.cuda.max_memory_allocated(cuda) / 2 ** 30:.3f} GiB")
+    print(f"peak device memory on the grid path: {path_peak_gib():.3f} GiB")
     records += grid_records
 
     if _failures:

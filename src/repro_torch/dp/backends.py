@@ -3,8 +3,11 @@
 ``repro_torch.core.sdp``, ``repro_torch.core.mcm``, ``repro_torch.core.grid``
 and ``repro_torch.kernels`` register their routes here at import time;
 :func:`ensure_registered` pulls them in lazily. The dispatcher
-(``repro_torch.dp.routing``) ranks the routes that support a spec by
-``(cost(spec, device), name)``.
+(``repro_torch.dp.routing``) ranks the routes that support a spec on a
+device by ``(cost(spec, device), name)``. On a CUDA device every kernel
+route ranks ahead of every plain route: the plain routes loop on the host
+and launch PyTorch ops step by step, so on the card their step counts say
+nothing about their time.
 
 Every route runs on an explicit ``torch.device``. Builders stack the specs
 of a bucket along a leading batch axis, so a bucket is one solver call —
@@ -18,7 +21,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.dp.problem import GridSpec, LinearSpec, Spec, TriangularSpec
+from repro_torch.dp.problem import (GridSpec, LinearSpec, Spec, TriangularPath,
+                                    TriangularSpec)
 
 _BACKENDS: dict = {}
 _LOADED = False
@@ -47,18 +51,23 @@ class Backend:
     of specs in one call. Arg-capable routes also expose ``run_with_args``
     / ``batch_run_with_args`` returning ``(table, args)`` — the winning
     lane (linear), best split (triangular), or winning move / packed split
-    (grid) per cell. ``cost(spec, device)`` is the analytical step-count
-    prior; ``schedule`` stays None until the static schedule gate is
-    ported."""
+    (grid) per cell. Fused routes also expose ``batch_run_fused``
+    returning ``(tables, argss, paths)``: the tracebacks walked inside the
+    solve's launch. ``cost(spec, device)`` is the analytical step-count
+    prior and ``supports(spec, device)`` the route's gate on that device;
+    ``kernel`` marks a route that runs a hand-written kernel on the card.
+    ``schedule`` stays None until the static schedule gate is ported."""
 
     name: str
     geometry: str
     run: Callable
     cost: Callable[[Spec, torch.device], float]
-    supports: Callable[[Spec], bool]
+    supports: Callable[[Spec, torch.device], bool]
     batch_run: Callable
     run_with_args: Optional[Callable] = None
     batch_run_with_args: Optional[Callable] = None
+    batch_run_fused: Optional[Callable] = None
+    kernel: bool = False
     schedule: Optional[Callable] = None
     doc: str = ""
 
@@ -85,12 +94,15 @@ def names(geometry: Optional[str] = None) -> list:
 
 
 def candidates(spec: Spec, device: torch.device) -> list:
-    """Routes able to solve ``spec``, cheapest on ``device`` first (name
-    tiebreak)."""
+    """Routes able to solve ``spec`` on ``device``, cheapest first (name
+    tiebreak); on a CUDA device the kernel routes come first, each group in
+    cost order."""
     ensure_registered()
     cands = [b for b in _BACKENDS.values()
-             if b.geometry == spec.geometry and b.supports(spec)]
-    return sorted(cands, key=lambda b: (b.cost(spec, device), b.name))
+             if b.geometry == spec.geometry and b.supports(spec, device)]
+    plain_last = device.type == "cuda"
+    return sorted(cands, key=lambda b: (plain_last and not b.kernel,
+                                        b.cost(spec, device), b.name))
 
 
 def ensure_registered() -> None:
@@ -123,9 +135,12 @@ def _rows(t: torch.Tensor) -> list:
 
 def _backend(name: str, geometry: str, call: Callable, fn: Callable,
              cost: Callable, supports: Optional[Callable],
-             arg_fn: Optional[Callable], doc: str) -> Backend:
+             arg_fn: Optional[Callable], kernel: bool, doc: str,
+             fused: Optional[Callable] = None) -> Backend:
     """A Backend whose batch paths run ``call(f, specs, device)`` with
-    ``f = fn`` (the table) or ``f = arg_fn`` (``(table, args)``)."""
+    ``f = fn`` (the table) or ``f = arg_fn`` (``(table, args)``);
+    ``fused(specs, device)`` (``(tables, argss, paths)``) is the fused
+    batch path."""
 
     def batch_run(specs, device) -> list:
         return _rows(call(fn, specs, device))
@@ -142,14 +157,16 @@ def _backend(name: str, geometry: str, call: Callable, fn: Callable,
 
     return Backend(name=name, geometry=geometry,
                    run=lambda spec, device: batch_run([spec], device)[0],
-                   cost=cost, supports=supports or (lambda s: True),
+                   cost=cost, supports=supports or (lambda s, device: True),
                    batch_run=batch_run, run_with_args=run_with_args,
-                   batch_run_with_args=batch_run_with_args, doc=doc)
+                   batch_run_with_args=batch_run_with_args,
+                   batch_run_fused=fused, kernel=kernel,
+                   doc=doc)
 
 
 def linear_backend(name: str, fn: Callable, cost: Callable,
                    supports: Optional[Callable] = None,
-                   arg_fn: Optional[Callable] = None,
+                   arg_fn: Optional[Callable] = None, kernel: bool = False,
                    doc: str = "") -> Backend:
     """Wrap a batched S-DP solver ``fn(init, offsets, op, n, weights=None)``
     into a Backend. ``arg_fn`` (same signature, returns ``(st, args)``)
@@ -161,26 +178,37 @@ def linear_backend(name: str, fn: Callable, cost: Callable,
         w = None if s0.weights is None else _stack([s.weights for s in specs], device)
         return f(init, s0.offsets, s0.op, s0.n, weights=w)
 
-    return _backend(name, "linear", call, fn, cost, supports, arg_fn, doc)
+    return _backend(name, "linear", call, fn, cost, supports, arg_fn, kernel,
+                    doc)
 
 
 def triangular_tab_backend(name: str, fn: Callable, cost: Callable,
                            supports: Optional[Callable] = None,
                            arg_fn: Optional[Callable] = None,
-                           doc: str = "") -> Backend:
+                           fused_fn: Optional[Callable] = None,
+                           kernel: bool = False, doc: str = "") -> Backend:
     """Wrap a batched weight-table triangular solver ``fn(wtab, n)`` into a
-    Backend; ``arg_fn`` (returns ``(st, args)``) adds the arg-capable
-    pair."""
+    Backend; ``arg_fn`` (returns ``(st, args)``) adds the arg-capable pair,
+    ``fused_fn`` (returns ``(st, args, (ii, dd, ee))``, the node arrays in
+    ``triangular_traceback_np``'s preorder) the fused batch path."""
 
     def call(f, specs, device):
         return f(_stack([s.weights for s in specs], device), specs[0].n)
 
-    return _backend(name, "triangular", call, fn, cost, supports, arg_fn, doc)
+    fused = None
+    if fused_fn is not None:
+        def fused(specs, device):
+            st, args, nodes = call(fused_fn, specs, device)
+            nodes = torch.stack(nodes, dim=-1).cpu().numpy().astype(np.int64)
+            return _rows(st), _rows(args), [TriangularPath(nodes=x) for x in nodes]
+
+    return _backend(name, "triangular", call, fn, cost, supports, arg_fn,
+                    kernel, doc, fused)
 
 
 def grid_backend(name: str, fn: Callable, cost: Callable,
                  supports: Optional[Callable] = None,
-                 arg_fn: Optional[Callable] = None,
+                 arg_fn: Optional[Callable] = None, kernel: bool = False,
                  doc: str = "") -> Backend:
     """Wrap a batched grid solver ``fn(arrs, meta)`` — ``arrs`` one stacked
     tensor per ``GridSpec.device_arrays()`` slot, ``meta`` the shared
@@ -192,7 +220,8 @@ def grid_backend(name: str, fn: Callable, cost: Callable,
         return f(tuple(_stack(slot, device) for slot in slots),
                  specs[0].static_meta())
 
-    return _backend(name, "grid", call, fn, cost, supports, arg_fn, doc)
+    return _backend(name, "grid", call, fn, cost, supports, arg_fn, kernel,
+                    doc)
 
 
 # shared cost vocabulary (the per-family step-count tables live on the

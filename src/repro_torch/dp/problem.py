@@ -84,7 +84,7 @@ _SMALL_N = 16
 #: per-route fixed-overhead floors, in 'vectorized device steps'
 _LINEAR_OVERHEAD = {"sequential": 0.0, "tournament": 8.0, "pipeline": 8.0,
                     "blocked": 6.0}
-_TRIANGULAR_OVERHEAD = {"wavefront": 0.0}
+_TRIANGULAR_OVERHEAD = {"wavefront": 0.0, "tiled_wavefront": 0.0}
 _GRID_OVERHEAD = {"grid_wavefront": 0.0}
 
 
@@ -249,8 +249,13 @@ class TriangularSpec:
     def route_costs(self) -> dict:
         """Step-count cost model of the triangular routes; units and floors
         as in :meth:`LinearSpec.route_costs`."""
-        return _floored({"wavefront": float(self.n)}, _TRIANGULAR_OVERHEAD,
-                        self.n)
+        n = self.n
+        costs = {
+            "wavefront": float(n),              # one masked combine/diagonal
+            # O(n) depth over banded tiles, plus a flat streaming-setup term
+            "tiled_wavefront": float(n) * 0.85 + 24.0,
+        }
+        return _floored(costs, _TRIANGULAR_OVERHEAD, n)
 
     def supports_args(self) -> bool:
         """Triangular specs always reduce by min — always selective."""

@@ -6,7 +6,8 @@
      the host by re-ranking each cell's candidates against the finished
      table.
   2. *path* — a lane walk (:class:`LinearPath`) or a preorder split tree
-     (:class:`TriangularPath`), walked on the host per instance.
+     (:class:`TriangularPath`), walked on the host per instance unless a
+     fused route walked it inside its solve launch.
   3. *decode* — ``DPProblem.decode(table, args, spec, path)``;
      :func:`reconstruct_one` wraps it all in an :class:`Answer`.
 
@@ -62,7 +63,10 @@ def reconstruct_one(prob: DPProblem, spec: Spec, table: np.ndarray,
 
 def reconstruct_batch(prob: DPProblem, specs: Sequence[Spec],
                       tables: Sequence[np.ndarray],
-                      argss: Sequence[np.ndarray], source: str) -> list:
-    """Batch assembly: one host walk and decode per instance."""
-    return [reconstruct_one(prob, s, t, a, source)
-            for s, t, a in zip(specs, tables, argss)]
+                      argss: Sequence[np.ndarray], source: str,
+                      paths: Optional[Sequence[Path]] = None) -> list:
+    """Batch assembly: one decode per instance, after one host walk each
+    unless a fused route passes its ``paths`` in."""
+    paths = [None] * len(specs) if paths is None else list(paths)
+    return [reconstruct_one(prob, s, t, a, source, path=p)
+            for s, t, a, p in zip(specs, tables, argss, paths)]

@@ -1,10 +1,12 @@
 """Shape-aware routing of specs to solver routes, plus the batched solve.
 
-``dispatch(spec, device=...)`` ranks the routes that support the spec by
-``(cost(spec, device), name)`` — ``repro.dp``'s order with an empty
-calibration table — and under ``reconstruct`` prefers arg-capable routes.
-``solve`` / ``solve_spec`` run the choice; ``batch_solve`` stacks B
-same-shape instances into one call of the chosen route.
+``dispatch(spec, device=...)`` ranks the routes that support the spec on
+the device by ``(cost(spec, device), name)`` — ``repro.dp``'s order with an
+empty calibration table, kernel routes first on the card — and under
+``reconstruct`` prefers arg-capable routes. ``solve`` / ``solve_spec`` run
+the choice; ``batch_solve`` stacks B same-shape instances into one call of
+the chosen route. Under ``reconstruct``, a fused route returns
+the traceback walked inside its solve launch, and no host walk runs.
 
 Every entry point takes ``device=`` (default: the card; see
 ``backends.resolve_device``). An explicit ``backend=`` is validated here; a
@@ -53,11 +55,13 @@ def resolve_backend(spec: Spec, backend=None, reconstruct: bool = False,
                     device=None) -> _backends.Backend:
     """Resolve a route exactly once: dispatch or an explicit override
     (validated here)."""
+    device = _backends.resolve_device(device)
     if backend is None:
-        return _best(spec, _backends.resolve_device(device), reconstruct)
+        return _best(spec, device, reconstruct)
     b = backend if isinstance(backend, _backends.Backend) else _backends.get(backend)
-    if not (b.geometry == spec.geometry and b.supports(spec)):
-        raise ValueError(f"backend {b.name!r} does not support this spec")
+    if not (b.geometry == spec.geometry and b.supports(spec, device)):
+        raise ValueError(f"backend {b.name!r} does not support this spec on "
+                         f"{device}")
     return b
 
 
@@ -96,8 +100,11 @@ def solve(problem: Union[str, DPProblem], backend: Optional[str] = None,
     spec = prob.encode(**instance)
     if not reconstruct:
         return prob.extract(solve_spec(spec, backend, device), spec)
-    table, args, source = solve_spec_with_args(spec, backend, device)
-    return _reconstruct.reconstruct_one(prob, spec, table, args, source)
+    device = _backends.resolve_device(device)
+    b = resolve_backend(spec, backend, reconstruct=True, device=device)
+    tables, argss, source, paths = run_batch_with_args(b, [spec], device)
+    return _reconstruct.reconstruct_batch(prob, [spec], tables, argss, source,
+                                          paths=paths)[0]
 
 
 def run_batch(b: _backends.Backend, specs: Sequence[Spec], device=None) -> list:
@@ -107,15 +114,21 @@ def run_batch(b: _backends.Backend, specs: Sequence[Spec], device=None) -> list:
 
 def run_batch_with_args(b: _backends.Backend, specs: Sequence[Spec],
                         device=None):
-    """Batched :func:`run_with_args`; returns ``(tables, argss, source)``."""
+    """Batched :func:`run_with_args`; returns ``(tables, argss, source,
+    paths)``, with ``paths`` the in-launch tracebacks of a fused route and
+    None elsewhere."""
     device = _backends.resolve_device(device)
     specs = list(specs)
-    if b.batch_run_with_args is not None and _reconstruct.supports_args(specs[0]):
-        tables, argss = b.batch_run_with_args(specs, device)
-        return tables, argss, "device"
+    if _reconstruct.supports_args(specs[0]):
+        if b.batch_run_fused is not None:
+            tables, argss, paths = b.batch_run_fused(specs, device)
+            return tables, argss, "device", paths
+        if b.batch_run_with_args is not None:
+            tables, argss = b.batch_run_with_args(specs, device)
+            return tables, argss, "device", None
     tables = run_batch(b, specs, device)
     argss = [_reconstruct.args_from_table(t, s) for t, s in zip(tables, specs)]
-    return tables, argss, "host"
+    return tables, argss, "host", None
 
 
 def batch_solve_specs(specs: Sequence[Spec], backend: Optional[str] = None,
@@ -131,10 +144,11 @@ def batch_solve_specs(specs: Sequence[Spec], backend: Optional[str] = None,
 
 def batch_solve_specs_with_args(specs: Sequence[Spec],
                                 backend: Optional[str] = None, device=None):
-    """Batched arg-tracking solve; returns ``(tables, argss, source)``."""
+    """Batched arg-tracking solve; returns ``(tables, argss, source,
+    paths)`` (``paths`` non-None only on fused routes)."""
     specs = list(specs)
     if not specs:
-        return [], [], "device"
+        return [], [], "device", None
     device = _backends.resolve_device(device)
     b = resolve_backend(specs[0], backend, reconstruct=True, device=device)
     return run_batch_with_args(b, specs, device)
@@ -157,6 +171,7 @@ def batch_solve(problem: Union[str, DPProblem], instances: Sequence[dict],
     if not reconstruct:
         tables = batch_solve_specs(specs, backend=backend, device=device)
         return [prob.extract(t, s) for t, s in zip(tables, specs)]
-    tables, argss, source = batch_solve_specs_with_args(
+    tables, argss, source, paths = batch_solve_specs_with_args(
         specs, backend=backend, device=device)
-    return _reconstruct.reconstruct_batch(prob, specs, tables, argss, source)
+    return _reconstruct.reconstruct_batch(prob, specs, tables, argss, source,
+                                          paths=paths)

@@ -5,50 +5,149 @@ version, and their registration as dispatchable routes.
                        arg-emitting), replacing ``repro``'s Pallas K1
   * ``mcm_pipeline`` — diagonal pipeline for the triangular split
                        recurrence, replacing ``repro``'s Pallas K2
+  * ``sdp_chunked``  — the S-DP pipeline streamed through a shared-memory
+                       ring of the last ``a_1`` cells, replacing K3
+  * ``mcm_tiled``    — the triangular recurrence over row × split tiles
+                       staged in shared memory, with the traceback fused
+                       into the launch, replacing K4
   * ``grid_pipeline`` — frontier-major wavefront pipeline for the grid
                         family (antidiag/spandiag), replacing ``repro``'s
                         Pallas K6
 
-``kernel_blocked`` (linear), ``kernel_wavefront`` (triangular) and
-``kernel_grid`` (grid) route through ``ops``. Their costs keep ``repro``'s
-factor structure: ×0.5 where the kernel runs (a CUDA device), ×1.25 where
-the plain version stands in (the CPU), so dispatch prefers the kernel routes
-on the card exactly as ``repro`` prefers them on a TPU. ``supports`` states
-what the kernels need: int32 cell indices (over all planes, for the grid).
-The tables live in device memory, so there is no on-chip size cap.
+Routes: ``kernel_blocked`` (K1) and ``kernel_tiled`` (K3) for the linear
+family, ``kernel_wavefront`` (K2) and ``kernel_tiled_wavefront`` (K4, with
+a fused pair) for the triangular one, ``kernel_grid`` (K6) for the grid.
+Their costs keep ``repro``'s factor structure: the resident routes ×0.5
+where the kernel runs (a CUDA device) and ×1.25 where the plain version
+stands in (the CPU); the streaming routes ×0.6 + 8 and ×1.2 + 8 (linear),
+×0.6 and ×1.2 (triangular).
+
+The on-chip gate. K1 and K2 keep their whole working set (table, args,
+weights) in device memory and lean on L2 to hold it between steps; past
+L2 they chain reads to DRAM. So on a CUDA device they support a spec only
+while ``repro``'s working-set formulas (``_linear_vmem_bytes``,
+``_triangular_vmem_bytes``) stay within :func:`on_chip_budget`, the L2
+size the card reports (50 MiB on an H100) — ``repro``'s VMEM budget gate
+with the card's own budget and no knob. Past it K3 and K4 take over; they
+keep only a window or a tile on chip and have no size cap beyond their
+shared memory. Where that cap refuses a spec (a horizon ``a_1`` of more
+than some 57k cells), K1 or K2 keeps it past the budget, as no kernel
+route would serve it otherwise. On the CPU there is no gate (``repro``'s
+``ref`` mode).
+K6 is not gated, unlike ``repro``'s ``_kernel_grid_supports``: it has no
+streaming twin, and its plain route is some 30× slower on the card.
 """
+from typing import Optional
+
+import torch
+
 from repro_torch.core.mcm import num_cells
 from repro_torch.dp import backends as _dp_backends
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, mcm_tiled, ops, sdp_chunked
+
+
+def on_chip_budget(device) -> Optional[int]:
+    """Bytes a resident kernel's working set may take on ``device``: the
+    L2 cache size a CUDA device reports, or None (no gate) elsewhere."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(device).L2_cache_size
+
+
+def _linear_vmem_bytes(spec) -> int:
+    """float32 working set of the (weighted, arg-emitting) S-DP kernel:
+    padded table + int32 arg table + the optional (n, k) weight slab
+    (``repro.kernels._linear_vmem_bytes``)."""
+    n_pad = spec.n + int(spec.offsets[-1])           # ≤ one block of padding
+    k = len(spec.offsets) if spec.weights is not None else 0
+    return 4 * n_pad * (2 + k)
+
+
+def _triangular_vmem_bytes(spec) -> int:
+    """float32 working set of the triangular kernel: padded cost and arg
+    tables plus the dense (cells, n-1) weight table, with K2's padded
+    geometry (``repro.kernels.mcm_pipeline._geometry``)."""
+    lanes = max(spec.n - 1, 1)
+    size = num_cells(spec.n) + lanes + 1
+    return 4 * size * (2 + lanes)
+
+
+def _resident(nbytes: int, device) -> bool:
+    budget = on_chip_budget(device)
+    return budget is None or nbytes <= budget
+
+
+def _fits_smem(nbytes: int, device) -> bool:
+    return device.type != "cuda" or nbytes <= _build.SMEM_OPTIN_BYTES
+
+
+def _tiled_supports(spec, device) -> bool:
+    return spec.n < 2 ** 31 and _fits_smem(
+        sdp_chunked.smem_bytes(spec.offsets, spec.weights is not None), device)
+
+
+def _tiled_wavefront_supports(spec, device) -> bool:
+    return num_cells(spec.n) < 2 ** 31 and _fits_smem(
+        mcm_tiled.smem_bytes(spec.n, fused=True), device)
 
 
 def _device_factor(device) -> float:
     return 0.5 if device.type == "cuda" else 1.25
 
 
+def _tiled_factor(device) -> float:
+    return 0.6 if device.type == "cuda" else 1.2
+
+
 _dp_backends.register(_dp_backends.linear_backend(
     "kernel_blocked", ops.sdp_blocked,
     cost=lambda s, device: (_dp_backends.linear_costs(s)["blocked"]
                             * _device_factor(device)),
-    supports=lambda s: s.n < 2 ** 31,
-    arg_fn=ops.sdp_blocked_with_args,
-    doc="ops.sdp_blocked: the sdp_pipeline CUDA kernel on the card, its "
-        "plain PyTorch version on the CPU"))
+    supports=lambda s, device: s.n < 2 ** 31 and (
+        _resident(_linear_vmem_bytes(s), device)
+        or not _tiled_supports(s, device)),
+    arg_fn=ops.sdp_blocked_with_args, kernel=True,
+    doc="ops.sdp_blocked: the sdp_pipeline CUDA kernel on the card (working "
+        "set within L2, or a window too large for kernel_tiled), its plain "
+        "PyTorch version on the CPU"))
+
+_dp_backends.register(_dp_backends.linear_backend(
+    "kernel_tiled", ops.sdp_chunked,
+    cost=lambda s, device: (_dp_backends.linear_costs(s)["blocked"]
+                            * _tiled_factor(device) + 8.0),
+    supports=_tiled_supports,
+    arg_fn=ops.sdp_chunked_with_args, kernel=True,
+    doc="ops.sdp_chunked: the sdp_chunked CUDA kernel on the card (the last "
+        "a_1 cells in a shared-memory ring; no cap on n), its plain PyTorch "
+        "version on the CPU"))
 
 _dp_backends.register(_dp_backends.triangular_tab_backend(
     "kernel_wavefront", ops.mcm_blocked,
     cost=lambda s, device: (_dp_backends.triangular_costs(s)["wavefront"]
                             * _device_factor(device)),
-    supports=lambda s: num_cells(s.n) < 2 ** 31,
-    arg_fn=ops.mcm_blocked_with_args,
-    doc="ops.mcm_blocked: the mcm_pipeline CUDA kernel on the card, its "
+    supports=lambda s, device: num_cells(s.n) < 2 ** 31 and (
+        _resident(_triangular_vmem_bytes(s), device)
+        or not _tiled_wavefront_supports(s, device)),
+    arg_fn=ops.mcm_blocked_with_args, kernel=True,
+    doc="ops.mcm_blocked: the mcm_pipeline CUDA kernel on the card (working "
+        "set within L2, or a stack too large for kernel_tiled_wavefront), its "
         "plain PyTorch version on the CPU"))
+
+_dp_backends.register(_dp_backends.triangular_tab_backend(
+    "kernel_tiled_wavefront", ops.mcm_tiled,
+    cost=lambda s, device: (_dp_backends.triangular_costs(s)["tiled_wavefront"]
+                            * _tiled_factor(device)),
+    supports=_tiled_wavefront_supports,
+    arg_fn=ops.mcm_tiled_with_args, fused_fn=ops.mcm_tiled_fused, kernel=True,
+    doc="ops.mcm_tiled: the mcm_tiled CUDA kernel on the card (row x split "
+        "tiles staged in shared memory, traceback fused into the launch; no "
+        "cap on n), its plain PyTorch version on the CPU"))
 
 _dp_backends.register(_dp_backends.grid_backend(
     "kernel_grid", ops.grid_blocked,
     cost=lambda s, device: (_dp_backends.grid_costs(s)["grid_wavefront"]
                             * _device_factor(device)),
-    supports=lambda s: s.planes * s.cells < 2 ** 31,
-    arg_fn=ops.grid_blocked_with_args,
+    supports=lambda s, device: s.planes * s.cells < 2 ** 31,
+    arg_fn=ops.grid_blocked_with_args, kernel=True,
     doc="ops.grid_blocked: the grid_pipeline CUDA kernel on the card, its "
         "plain PyTorch version on the CPU"))

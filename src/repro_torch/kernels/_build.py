@@ -21,10 +21,13 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("sdp_pipeline", "mcm_pipeline", "grid_pipeline")
+SOURCES = ("sdp_pipeline", "mcm_pipeline", "grid_pipeline", "sdp_chunked",
+           "mcm_tiled")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "--fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+#: dynamic shared memory a block may opt into on the target, sm_90a (227 KB)
+SMEM_OPTIN_BYTES = 232448
 
 #: source name -> {"seconds": wall time of its nvcc, "log": nvcc's output
 #: (ptxas registers, shared memory, spills)} for the builds this process ran

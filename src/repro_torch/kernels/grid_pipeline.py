@@ -44,9 +44,6 @@ from repro_torch.kernels import _build
 LAUNCHES = {"grid_pipeline_antidiag": 0, "grid_pipeline_antidiag_with_args": 0,
             "grid_pipeline_spandiag": 0, "grid_pipeline_spandiag_with_args": 0}
 
-#: the most dynamic shared memory a block may take on sm_90
-_MAX_SMEM = 232448
-
 
 # ---------------------------------------------------------------------------
 # antidiag geometry: the frontier-major layout
@@ -239,7 +236,7 @@ def _launch_antidiag(arrs, meta, with_args: bool):
     if P * R * C >= 2 ** 31:
         raise ValueError(f"{name}: {P}·{R}·{C} cells exceed int32 indices")
     table = _plane_table(moves, P, (1, 2, 3))
-    if 4 * len(table) > _MAX_SMEM:
+    if 4 * len(table) > _build.SMEM_OPTIN_BYTES:
         raise ValueError(f"{name}: {L} moves exceed shared memory")
     pos = front_positions(R, C, dev)
     w_ad, init_ad, pm_ad = (to_frontier(a, pos) for a in (w, init, pmask))
@@ -269,7 +266,7 @@ def _launch_spandiag(arrs, meta, with_args: bool):
         raise ValueError(f"{name}: {P} planes × {cells} cells or {n}·{NR} "
                          "packed args exceed int32")
     table = _plane_table(rules, P, (1, 2))
-    if 4 * (len(table) + NR) > _MAX_SMEM:
+    if 4 * (len(table) + NR) > _build.SMEM_OPTIN_BYTES:
         raise ValueError(f"{name}: {NR} rules exceed shared memory")
     rtab = torch.tensor(table, dtype=torch.int32, device=dev)
     st = torch.empty((B, P * cells), dtype=torch.float32, device=dev)

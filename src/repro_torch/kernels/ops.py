@@ -5,6 +5,11 @@ from __future__ import annotations
 
 from repro_torch.kernels.grid_pipeline import grid_pipeline, grid_pipeline_with_args
 from repro_torch.kernels.mcm_pipeline import mcm_pipeline, mcm_pipeline_with_args
+from repro_torch.kernels.mcm_tiled import (mcm_tiled as _mcm_tiled,
+                                           mcm_tiled_fused as _mcm_tiled_fused,
+                                           mcm_tiled_with_args as _mcm_tiled_with_args)
+from repro_torch.kernels.sdp_chunked import (sdp_chunked as _sdp_chunked,
+                                             sdp_chunked_with_args as _sdp_chunked_with_args)
 from repro_torch.kernels.sdp_pipeline import sdp_pipeline, sdp_pipeline_with_args
 
 
@@ -32,6 +37,39 @@ def mcm_blocked(wtab, n: int):
 def mcm_blocked_with_args(wtab, n: int):
     """``mcm_blocked`` + the best-split table."""
     return mcm_pipeline_with_args(wtab, n)
+
+
+def sdp_chunked(init, offsets, op: str, n: int, block: int = 512,
+                weights=None):
+    """Streaming S-DP solve through the ``sdp_chunked`` kernel: the table's
+    last ``a_1`` cells in a shared-memory ring, no size cap on ``n``."""
+    return _sdp_chunked(init, tuple(offsets), op, n, block=block,
+                        weights=weights)
+
+
+def sdp_chunked_with_args(init, offsets, op: str, n: int, block: int = 512,
+                          weights=None):
+    """``sdp_chunked`` + the winning lane per cell, first-occurrence tie
+    rule."""
+    return _sdp_chunked_with_args(init, tuple(offsets), op, n, block=block,
+                                  weights=weights)
+
+
+def mcm_tiled(wtab, n: int):
+    """Triangular table solve through the ``mcm_tiled`` kernel (tiles of
+    rows × splits staged in shared memory)."""
+    return _mcm_tiled(wtab, n)
+
+
+def mcm_tiled_with_args(wtab, n: int):
+    """``mcm_tiled`` + the best-split table."""
+    return _mcm_tiled_with_args(wtab, n)
+
+
+def mcm_tiled_fused(wtab, n: int):
+    """``mcm_tiled_with_args`` + the preorder traceback walked inside the
+    same launch: ``(st, args, (node_i, node_d, node_e))``."""
+    return _mcm_tiled_fused(wtab, n)
 
 
 def grid_blocked(arrs, meta: tuple):

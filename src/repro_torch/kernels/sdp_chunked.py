@@ -1,0 +1,163 @@
+"""Streaming S-DP solver (the paper's Fig. 2 past the on-chip budget): CUDA
+kernel and its plain PyTorch version.
+
+Port of ``repro/kernels/sdp_pipeline.py``'s ``sdp_chunked_pallas`` and its
+arg twin. The recurrence, step geometry (``B = min(a_k, block)`` cells per
+step), fold order and arg rule are K1's (``sdp_pipeline``); what differs is
+where the table lives while it is built. A cell reads at most ``a_1`` cells
+back, so the kernel keeps only that horizon on chip: a ring of
+``R ≥ a_1 + B`` cells in shared memory, cell ``c`` in slot ``c mod R``
+(:func:`window_plan`). Finished cells also go straight to the output table,
+which nothing reads back. Weight rows of a step are staged ``J`` lanes at a
+time through a shared tile with coalesced loads.
+
+Inputs carry a leading batch axis or none: ``init`` ``(a_1,)`` or
+``(batch, a_1)``, ``weights`` ``(n, k)`` or ``(batch, n, k)``. A CPU tensor
+goes through :func:`sdp_chunked_plain`, which walks the same ring step by
+step; a CUDA tensor launches ``csrc/sdp_chunked.cu`` (one CTA per
+instance, one launch per batch). ``n ≤ a_1`` returns the clamped presets.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.semiring import SEMIGROUP_TO_SEMIRING
+from repro_torch.kernels import _build
+from repro_torch.kernels.sdp_pipeline import _OP_CODE, _check_args, fold_lanes
+
+#: weights staged per tile, in floats (``B·J``; 32 KB)
+WEIGHT_TILE_FLOATS = 8192
+
+#: kernel launches per wrapper (incremented only where a kernel launches)
+LAUNCHES = {"sdp_chunked": 0, "sdp_chunked_with_args": 0}
+
+
+def window_plan(offsets, block: int = 512) -> tuple:
+    """``(B, R, J)``: cells per step, ring length, weight lanes per staged
+    tile. The ring holds the ``a_1``-cell horizon plus at least one step:
+    ``R`` is the smallest multiple of 32 that is ``≥ a_1 + B`` (a warp's
+    contiguous reads then stay on distinct banks across the wrap)."""
+    a1, ak, k = offsets[0], offsets[-1], len(offsets)
+    B = max(1, min(ak, block))
+    R = -(-(a1 + B) // 32) * 32
+    return B, R, min(k, max(1, WEIGHT_TILE_FLOATS // B))
+
+
+def smem_bytes(offsets, weighted: bool, block: int = 512) -> int:
+    """Dynamic shared memory of one CTA: ring, offsets and (weighted) the
+    staged tile of row stride ``J | 1``."""
+    B, R, J = window_plan(offsets, block)
+    return 4 * (R + len(offsets) + (B * (J | 1) if weighted else 0))
+
+
+def sdp_chunked_plain(init, offsets, op: str, n: int, block: int = 512,
+                      weights=None, with_args: bool = False):
+    """The kernel's computation in PyTorch: the same ring, the same steps
+    of ``B`` cells (vectorized per step), lanes folded in ascending ``j``
+    (min/max keep the first best lane). Returns ``st`` or ``(st, args)``."""
+    offsets = _check_args(op, offsets, with_args)
+    squeeze = init.dim() == 1
+    if squeeze:
+        init = init[None]
+        weights = None if weights is None else weights[None]
+    a1, bt, dev = offsets[0], init.shape[0], init.device
+    ar = torch.full((bt, n), -1, dtype=torch.int32, device=dev)
+    if n <= a1:
+        st = init[:, :n].clone()
+    else:
+        B, R, _ = window_plan(offsets, block)
+        mul = SEMIGROUP_TO_SEMIRING[op].mul
+        offs = torch.tensor(offsets, device=dev)
+        ring = torch.zeros((bt, R), dtype=init.dtype, device=dev)
+        ring[:, :a1] = init
+        st = torch.empty((bt, n), dtype=init.dtype, device=dev)
+        st[:, :a1] = init
+        for s in range(a1, n, B):
+            cnt = min(B, n - s)
+            slot = torch.arange(s, s + cnt, device=dev) % R
+            vals = ring[:, (slot[None, :] - offs[:, None]) % R]   # (batch, k, cnt)
+            if weights is not None:
+                vals = mul(vals, weights[:, s:s + cnt].transpose(1, 2))
+            acc, arg = fold_lanes(vals, op)
+            if arg is not None:
+                ar[:, s:s + cnt] = arg
+            ring[:, slot] = acc
+            st[:, s:s + cnt] = acc
+    if squeeze:
+        st, ar = st[0], ar[0]
+    return (st, ar) if with_args else st
+
+
+def _launch(init, offsets, op, n, block, weights, with_args):
+    name = "sdp_chunked_with_args" if with_args else "sdp_chunked"
+    offsets = _check_args(op, offsets, with_args)
+    squeeze = init.dim() == 1
+    if squeeze:
+        init = init[None]
+        weights = None if weights is None else weights[None]
+    bt, a1, k = init.shape[0], offsets[0], len(offsets)
+    if init.dtype != torch.float32 or init.shape[1] != a1:
+        raise ValueError(f"{name}: init must be float32 (batch, {a1}), got "
+                         f"{tuple(init.shape)} {init.dtype}")
+    if weights is not None and (weights.device != init.device
+                                or weights.dtype != torch.float32
+                                or tuple(weights.shape) != (bt, n, k)):
+        raise ValueError(f"{name}: weights must be float32 ({bt}, {n}, {k}) "
+                         f"on {init.device}, got {tuple(weights.shape)} "
+                         f"{weights.dtype} on {weights.device}")
+    if not (init.is_contiguous() and (weights is None or weights.is_contiguous())):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    if n >= 2 ** 31:
+        raise ValueError(f"{name}: n={n} exceeds int32 cell indices")
+    smem = smem_bytes(offsets, weights is not None, block)
+    if smem > _build.SMEM_OPTIN_BYTES:
+        raise ValueError(f"{name}: the window takes {smem} bytes of shared "
+                         f"memory, over the {_build.SMEM_OPTIN_BYTES} a block "
+                         "can use")
+    dev = init.device
+    if n <= a1:  # preset-only: nothing to pipeline, clamp the presets
+        st = init[:, :n].clone()
+        ar = torch.full((bt, n), -1, dtype=torch.int32, device=dev)
+    else:
+        B, R, J = window_plan(offsets, block)
+        st = torch.empty((bt, n), dtype=torch.float32, device=dev)
+        ar = (torch.empty((bt, n), dtype=torch.int32, device=dev)
+              if with_args else None)
+        offs = torch.tensor(offsets, dtype=torch.int32, device=dev)
+        fn = _build.load("sdp_chunked").sdp_chunked_launch
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                       + [ctypes.c_longlong, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        with torch.cuda.device(dev):
+            rc = fn(init.data_ptr(), None if weights is None else weights.data_ptr(),
+                    offs.data_ptr(), st.data_ptr(),
+                    None if ar is None else ar.data_ptr(),
+                    bt, n, a1, k, B, R, J, _OP_CODE[op], smem,
+                    torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(rc, name)
+        LAUNCHES[name] += 1
+    if squeeze:
+        st = st[0]
+        ar = None if ar is None else ar[0]
+    return (st, ar) if with_args else st
+
+
+def sdp_chunked(init, offsets, op: str, n: int, block: int = 512,
+                weights=None):
+    """ST[0..n-1]: the CUDA kernel for a CUDA ``init``, the plain version
+    for a CPU one."""
+    if init.is_cuda:
+        return _launch(init, offsets, op, n, block, weights, False)
+    return sdp_chunked_plain(init, offsets, op, n, block, weights)
+
+
+def sdp_chunked_with_args(init, offsets, op: str, n: int, block: int = 512,
+                          weights=None):
+    """``sdp_chunked`` + the per-cell winning lane (-1 on presets).
+    Returns ``(st, args)``."""
+    if init.is_cuda:
+        return _launch(init, offsets, op, n, block, weights, True)
+    return sdp_chunked_plain(init, offsets, op, n, block, weights,
+                             with_args=True)

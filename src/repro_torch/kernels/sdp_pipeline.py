@@ -48,6 +48,19 @@ def _check_args(op: str, offsets, with_args: bool) -> tuple:
     return offsets
 
 
+def fold_lanes(vals, op: str) -> tuple:
+    """Fold ``(batch, k, cells)`` candidates over their lanes in ascending
+    ``j``: ``(sum, None)`` for add, else the min/max with its first best
+    lane (as the kernels' strict-improve fold) as int32."""
+    if op == "add":
+        acc = vals[:, 0]
+        for j in range(1, vals.shape[1]):
+            acc = acc + vals[:, j]
+        return acc, None
+    _, arg = vals.min(dim=1) if op == "min" else vals.max(dim=1)
+    return vals.gather(1, arg[:, None])[:, 0], arg.to(torch.int32)
+
+
 def sdp_pipeline_plain(init, offsets, op: str, n: int, block: int = 512,
                        weights=None, with_args: bool = False):
     """The kernel's computation in PyTorch: same cells, same steps, same
@@ -77,14 +90,9 @@ def sdp_pipeline_plain(init, offsets, op: str, n: int, block: int = 512,
             vals = st[:, src]                                # (batch, k, cells)
             if weights is not None:
                 vals = mul(vals, weights[:, start:end].transpose(1, 2))
-            if op == "add":
-                acc = vals[:, 0]
-                for j in range(1, len(offsets)):
-                    acc = acc + vals[:, j]
-            else:
-                _, arg = (vals.min(dim=1) if op == "min" else vals.max(dim=1))
-                acc = vals.gather(1, arg[:, None])[:, 0]
-                ar[:, start:end] = arg.to(torch.int32)
+            acc, arg = fold_lanes(vals, op)
+            if arg is not None:
+                ar[:, start:end] = arg
             st[:, start:end] = acc
     if squeeze:
         st, ar = st[0], ar[0]

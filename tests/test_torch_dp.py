@@ -20,14 +20,22 @@ torch = pytest.importorskip("torch")
 
 from repro import dp as jdp  # noqa: E402
 from repro_torch import dp as tdp  # noqa: E402
+from repro_torch import kernels  # noqa: E402
 
 LINEAR = ("sdp", "edit_distance", "lcs", "viterbi", "unbounded_knapsack")
 TRIANGULAR = ("mcm", "optimal_bst", "polygon_triangulation")
 GRID = ("needleman_wunsch", "gotoh", "cky", "edit_distance_grid", "lcs_grid")
 PROBLEMS = LINEAR + TRIANGULAR + GRID
-ROUTES = {"linear": ("kernel_blocked", "blocked"),
-          "triangular": ("kernel_wavefront", "wavefront"),
+#: per geometry: the resident kernel route, the plain route, then the
+#: streaming kernel route where the family has one
+ROUTES = {"linear": ("kernel_blocked", "blocked", "kernel_tiled"),
+          "triangular": ("kernel_wavefront", "wavefront",
+                         "kernel_tiled_wavefront"),
           "grid": ("kernel_grid", "grid_wavefront")}
+KERNEL_ROUTES = ("kernel_blocked", "kernel_tiled", "kernel_wavefront",
+                 "kernel_tiled_wavefront")
+#: the L2 size an H100 reports, for ranking on a stubbed card
+L2_BYTES = 50 * 2 ** 20
 VALUE_RTOL = 1e-5
 
 
@@ -57,6 +65,20 @@ def test_solve_reconstruct_matches_reference(monkeypatch, name, kernel):
     route = ROUTES[geometry][0 if kernel else 1]
     if kernel:
         monkeypatch.setenv("REPRO_KERNELS", "interpret")
+    for i, inst in enumerate(_instances(name)):
+        want = jdp.solve(name, backend=route, reconstruct=True, **inst)
+        got = tdp.solve(name, backend=route, reconstruct=True, device="cpu",
+                        **inst)
+        _same_answer(got, want, f"{name}/{route}/{i}")
+
+
+@pytest.mark.parametrize("name", LINEAR + TRIANGULAR)
+def test_streaming_route_reconstruct_matches_reference(monkeypatch, name):
+    """The streaming kernel routes (``kernel_tiled``, and
+    ``kernel_tiled_wavefront`` with its fused traceback) against
+    ``repro``'s in interpret mode."""
+    route = ROUTES[tdp.get_problem(name).geometry][2]
+    monkeypatch.setenv("REPRO_KERNELS", "interpret")
     for i, inst in enumerate(_instances(name)):
         want = jdp.solve(name, backend=route, reconstruct=True, **inst)
         got = tdp.solve(name, backend=route, reconstruct=True, device="cpu",
@@ -158,17 +180,37 @@ def test_dispatch_order_matches_reference(monkeypatch, name, size):
                                 device="cpu").name == jname
 
 
-def test_kernel_routes_win_on_the_card():
-    """The ×0.5 device factor makes dispatch pick the kernel routes on a
-    CUDA device for the paper's shapes (ranking only; nothing runs)."""
-    cuda = torch.device("cuda")
+@pytest.fixture
+def card(monkeypatch):
+    """A CUDA device for ranking only (nothing runs): the on-chip budget is
+    stubbed to an H100's L2 size."""
+    from repro_torch import kernels
+
+    monkeypatch.setattr(kernels, "on_chip_budget",
+                        lambda device: L2_BYTES if device.type == "cuda" else None)
+    return torch.device("cuda")
+
+
+def _first(spec, device, reconstruct=False):
+    return tdp.routing._best(spec, device, reconstruct).name
+
+
+def test_kernel_routes_win_on_the_card(card):
+    """On a CUDA device the kernel routes rank first, and the L2 gate
+    sends the resident kernels' instances past 50 MiB to the streaming
+    ones: MCM n = 1024 (a 2.1 GB weight table) to ``kernel_tiled_wavefront``,
+    n = 256 (34 MB) stays on ``kernel_wavefront`` (ranking only; nothing
+    runs)."""
+    cuda = card
     sdp = tdp.LinearSpec(offsets=tuple(range(2048, 1024, -1)), op="min",
                          n=2 ** 20, init=np.zeros(2048, np.float32))
     assert tdp.backends.candidates(sdp, cuda)[0].name == "kernel_blocked"
     assert tdp.backends.candidates(sdp, torch.device("cpu"))[0].name != "kernel_blocked"
     tri = tdp.TriangularSpec(n=1024, weights=np.zeros((1, 1), np.float32))
-    assert tdp.backends.candidates(tri, cuda)[0].name == "kernel_wavefront"
+    assert tdp.backends.candidates(tri, cuda)[0].name == "kernel_tiled_wavefront"
     assert tdp.backends.candidates(tri, torch.device("cpu"))[0].name == "wavefront"
+    tri = tdp.TriangularSpec(n=256, weights=np.zeros((1, 1), np.float32))
+    assert tdp.backends.candidates(tri, cuda)[0].name == "kernel_wavefront"
     gotoh = tdp.GridSpec.from_shape_key(("grid", "antidiag", "max", 3, 4097, 4097,
                                          tdp.zoo._GOTOH_MOVES, ()))
     cky = tdp.GridSpec.from_shape_key(("grid", "spandiag", "max", 32, 64, 64,
@@ -176,6 +218,109 @@ def test_kernel_routes_win_on_the_card():
     for grid in (gotoh, cky):
         assert tdp.backends.candidates(grid, cuda)[0].name == "kernel_grid"
         assert tdp.backends.candidates(grid, torch.device("cpu"))[0].name == "grid_wavefront"
+
+
+def _edit_spec(m):
+    """edit_distance on two m-long strings, as the zoo encodes it (B = 1,
+    k = 3, weighted)."""
+    W = m + 1
+    n = W * W
+    return tdp.LinearSpec(offsets=(W + 1, W, 1), op="min", n=n,
+                          init=np.zeros(W + 1, np.float32),
+                          weights=np.zeros((1, 1), np.float32))
+
+
+@pytest.mark.parametrize("m,route", [(512, "kernel_blocked"),
+                                     (2048, "kernel_tiled")])
+def test_one_cell_steps_dispatch_to_a_kernel_on_the_card(card, m, route):
+    """edit_distance without reconstruction: one cell per step (B = 1),
+    where the host-looped ``pipeline`` route used to win on the step count;
+    512² (5.3 MB) stays resident, 2048² (84 MB) streams."""
+    spec = _edit_spec(m)
+    assert _first(spec, card) == route
+    assert _first(spec, card, reconstruct=True) == route
+    # the CPU keeps repro's order: the plain pipeline loop wins there
+    assert _first(spec, torch.device("cpu")) == "pipeline"
+
+
+@pytest.mark.parametrize("reconstruct", [False, True])
+def test_window_too_large_to_stream_stays_on_the_resident_kernel(card,
+                                                                  reconstruct):
+    """A horizon of 60000 cells is past the 227 KB of shared memory
+    ``kernel_tiled``'s ring may take; at n = 2^23 (a 67 MB working set,
+    past the budget) ``kernel_blocked`` keeps the spec, so it never falls
+    to a host-looped route. Below the cap the budget decides as before."""
+    spec = tdp.LinearSpec(offsets=(60000, 1), op="min", n=2 ** 23,
+                          init=np.zeros(60000, np.float32))
+    assert kernels._linear_vmem_bytes(spec) > L2_BYTES
+    assert not tdp.backends.get("kernel_tiled").supports(spec, card)
+    assert _first(spec, card, reconstruct) == "kernel_blocked"
+    streams = tdp.LinearSpec(offsets=(50000, 1), op="min", n=2 ** 23,
+                             init=np.zeros(50000, np.float32))
+    assert not tdp.backends.get("kernel_blocked").supports(streams, card)
+    assert _first(streams, card, reconstruct) == "kernel_tiled"
+
+
+@pytest.mark.parametrize("name", ["edit_distance", "lcs", "viterbi",
+                                  "unbounded_knapsack"])
+@pytest.mark.parametrize("size", [5, 40, 300])
+def test_no_one_cell_problem_dispatches_to_a_host_loop_on_the_card(card, name,
+                                                                   size):
+    spec = tdp.get_problem(name).encode(**_instances(name, 1, size)[0])
+    assert int(spec.offsets[-1]) == 1           # B = 1: one cell per step
+    for reconstruct in (False, True):
+        assert tdp.routing._best(spec, card, reconstruct).kernel, (name, size)
+    # the plain routes stay reachable by name
+    assert tdp.routing.resolve_backend(spec, "pipeline", device="cpu").name == "pipeline"
+
+
+def _ranking_specs():
+    """Linear and triangular specs on both sides of two budgets: ``(label,
+    budget, repro spec, port spec)``."""
+    cases = []
+    for budget in (2 ** 20, L2_BYTES):
+        for n in (2 ** 14, 2 ** 16, 2 ** 20, 2 ** 23):
+            for weighted in (False, True):
+                offs = (1030, 1029, 1025) if weighted else tuple(range(2048, 1024, -1))
+                kw = dict(offsets=offs, op="min", n=n,
+                          init=np.zeros(offs[0], np.float32),
+                          weights=np.zeros((1, 1), np.float32) if weighted else None)
+                cases.append((f"linear-{n}-{weighted}-{budget}", budget,
+                              jdp.LinearSpec(**kw), tdp.LinearSpec(**kw)))
+        for n in (8, 40, 80, 160, 256, 290, 297, 1024):
+            w = np.zeros((1, 1), np.float32)
+            cases.append((f"triangular-{n}-{budget}", budget,
+                          jdp.TriangularSpec(n=n, weights=w),
+                          tdp.TriangularSpec(n=n, weights=w)))
+    return cases
+
+
+@pytest.mark.parametrize("label,budget,jspec,tspec",
+                         [pytest.param(*c, id=c[0]) for c in _ranking_specs()])
+def test_kernel_ranking_matches_reference_pallas_mode(monkeypatch, label,
+                                                      budget, jspec, tspec):
+    """Among the four kernel routes, the port's ranking on a card whose L2
+    holds ``budget`` bytes equals ``repro``'s with ``REPRO_KERNELS=pallas``
+    and ``REPRO_VMEM_BUDGET`` at the same bytes (ranking only)."""
+    from repro_torch import kernels
+
+    monkeypatch.setenv("REPRO_KERNELS", "pallas")
+    monkeypatch.setenv("REPRO_VMEM_BUDGET", str(budget))
+    monkeypatch.setattr(kernels, "on_chip_budget", lambda device: budget)
+    want = [b.name for b in jdp.backends.candidates(jspec)
+            if b.name in KERNEL_ROUTES]
+    got = [b.name for b in tdp.backends.candidates(tspec, torch.device("cuda"))
+           if b.name in KERNEL_ROUTES]
+    assert got == want
+    assert len(got) in (1, 2)
+
+
+def test_on_chip_budget_is_no_gate_on_the_cpu():
+    from repro_torch import kernels
+
+    assert kernels.on_chip_budget(torch.device("cpu")) is None
+    big = tdp.TriangularSpec(n=4096, weights=np.zeros((1, 1), np.float32))
+    assert tdp.backends.get("kernel_wavefront").supports(big, torch.device("cpu"))
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):

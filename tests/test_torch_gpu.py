@@ -15,6 +15,8 @@ from repro_torch import dp  # noqa: E402
 from repro_torch.core.mcm import num_cells  # noqa: E402
 from repro_torch.kernels import grid_pipeline as k6  # noqa: E402
 from repro_torch.kernels import mcm_pipeline as k2  # noqa: E402
+from repro_torch.kernels import mcm_tiled as k4  # noqa: E402
+from repro_torch.kernels import sdp_chunked as k3  # noqa: E402
 from repro_torch.kernels import sdp_pipeline as k1  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -103,6 +105,95 @@ def test_mcm_kernel_bit_equal_to_plain(cuda, n, batch):
     assert torch.equal(k2.mcm_pipeline(w, n), wt)
 
 
+@pytest.mark.parametrize("offsets,n,block", [
+    ((5, 3, 1), 640, 16), ((30, 4, 2), 573, 3), ((3, 2, 1), 4100, 512),
+    ((40, 33, 32), 5000, 512), ((29, 8, 3), 900, 512), ((2, 1), 9, 1),
+    ((5, 3, 1), 4, 512), (tuple(range(560, 520, -1)), 3000, 512),
+])
+@pytest.mark.parametrize("op", ["min", "max", "add"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_sdp_chunked_kernel_bit_equal_to_plain(cuda, offsets, n, block, op,
+                                               weighted):
+    """Both K3 twins, batched; where a_1 + B is a multiple of 32 the ring
+    is tight (R = a_1 + B) and wraps every step or two; k = 40 at B = 512
+    stages the weights in three tiles."""
+    rng = np.random.default_rng(n + len(offsets))
+    init = torch.tensor(rng.normal(size=(3, offsets[0])), dtype=torch.float32,
+                        device=cuda)
+    w = None
+    if weighted:
+        w = torch.tensor(rng.normal(size=(3, n, len(offsets))) * 0.1,
+                         dtype=torch.float32, device=cuda)
+    got = k3.sdp_chunked(init, offsets, op, n, block=block, weights=w)
+    want = k3.sdp_chunked_plain(init, offsets, op, n, block=block, weights=w)
+    assert torch.equal(got, want)
+    if op != "add":
+        gt, ga = k3.sdp_chunked_with_args(init, offsets, op, n, block=block,
+                                          weights=w)
+        wt, wa = k3.sdp_chunked_plain(init, offsets, op, n, block=block,
+                                      weights=w, with_args=True)
+        assert torch.equal(gt, wt) and torch.equal(ga, wa)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_sdp_chunked_window_beyond_48k_shared_memory(cuda, weighted):
+    """a_1 = 2^14: a 67.6 KB ring (opt-in above 48 KB), 87 KB weighted."""
+    offsets, n = (2 ** 14, 2 ** 13 + 1), 40000
+    assert k3.smem_bytes(offsets, weighted) > 48 * 1024
+    rng = np.random.default_rng(14)
+    init = torch.tensor(rng.normal(size=(2, offsets[0])), dtype=torch.float32,
+                        device=cuda)
+    w = (torch.tensor(rng.normal(size=(2, n, 2)), dtype=torch.float32, device=cuda)
+         if weighted else None)
+    gt, ga = k3.sdp_chunked_with_args(init, offsets, "min", n, weights=w)
+    wt, wa = k3.sdp_chunked_plain(init, offsets, "min", n, weights=w, with_args=True)
+    assert torch.equal(gt, wt) and torch.equal(ga, wa)
+
+
+def _k4_equals_plain(w, n):
+    gt, ga, gn = k4.mcm_tiled_fused(w, n)
+    wt, wa, wn = k4.mcm_tiled_plain(w, n, fused=True)
+    assert torch.equal(gt, wt) and torch.equal(ga, wa)
+    assert all(torch.equal(a, b) for a, b in zip(gn, wn))
+    st, ar = k4.mcm_tiled_with_args(w, n)
+    assert torch.equal(st, wt) and torch.equal(ar, wa)
+    assert torch.equal(k4.mcm_tiled(w, n), wt)
+    k2t, k2a = k2.mcm_pipeline_with_args(w, n)          # and K2's tables
+    assert torch.equal(k2t, wt) and torch.equal(k2a, wa)
+
+
+@pytest.mark.parametrize("n,batch", [(1, 2), (2, 2), (3, 2), (33, 3),
+                                     (100, 2), (300, 1), (1100, 1)])
+def test_mcm_tiled_kernel_bit_equal_to_plain(cuda, n, batch):
+    """All three K4 twins against the plain version (and K2); small integer
+    weights make ties; n = 1100 has more rows than one tile."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    w = torch.randint(0, 50, (batch, num_cells(n), max(n - 1, 1)), generator=g,
+                      dtype=torch.float32, device=cuda)
+    _k4_equals_plain(w, n)
+
+
+@pytest.mark.parametrize("n", [257, 258, 65, 66, 129, 130, 513, 514])
+def test_mcm_tiled_kernel_at_tile_edges(cuda, n):
+    """Bands exactly whole tiles long (n - 1 a multiple of T = 256 or of
+    E = 64) and one row or split past them."""
+    assert k4.tile_plan(n)[1] == 64
+    g = torch.Generator(device=cuda).manual_seed(n)
+    w = torch.randint(0, 9, (2, num_cells(n), n - 1), generator=g,
+                      dtype=torch.float32, device=cuda)
+    _k4_equals_plain(w, n)
+
+
+def test_streaming_kernels_reject_bad_inputs(cuda):
+    with pytest.raises(ValueError):
+        k3.sdp_chunked(torch.zeros(3, dtype=torch.float64, device=cuda),
+                       (3, 1), "min", 10)
+    with pytest.raises(ValueError, match="shared memory"):   # window > 227 KB
+        k3.sdp_chunked(torch.zeros(60000, device=cuda), (60000, 1), "min", 70000)
+    with pytest.raises(ValueError):
+        k4.mcm_tiled(torch.zeros((6, 3), device=cuda), 4)    # wrong rows
+
+
 def grid_arrs(spec, device, batch=None):
     """A spec's ``device_arrays()`` as tensors on ``device``; with ``batch``,
     that many distinct instances (each copy's weights shifted by 0.25)."""
@@ -177,7 +268,8 @@ def test_main_path_on_the_card_matches_cpu(cuda, name):
     prob = dp.get_problem(name)
     rng = np.random.default_rng(7)
     inst = prob.sample(rng, 24)
-    before = dict(k1.LAUNCHES, **k2.LAUNCHES, **k6.LAUNCHES)
+    before = dict(k1.LAUNCHES, **k2.LAUNCHES, **k3.LAUNCHES, **k4.LAUNCHES,
+                  **k6.LAUNCHES)
     got = dp.solve(name, reconstruct=True, device=cuda, **inst)
     want = dp.solve(name, backend=dp.dispatch(name, reconstruct=True,
                                               device=cuda, **inst).name,
@@ -185,5 +277,35 @@ def test_main_path_on_the_card_matches_cpu(cuda, name):
     np.testing.assert_array_equal(got.table, want.table)
     np.testing.assert_array_equal(got.args, want.args)
     assert got.solution == want.solution
-    after = dict(k1.LAUNCHES, **k2.LAUNCHES, **k6.LAUNCHES)
+    after = dict(k1.LAUNCHES, **k2.LAUNCHES, **k3.LAUNCHES, **k4.LAUNCHES,
+                 **k6.LAUNCHES)
     assert sum(after.values()) > sum(before.values())
+
+
+@pytest.mark.parametrize("name", ["sdp", "edit_distance", "lcs", "viterbi",
+                                  "unbounded_knapsack", "mcm", "optimal_bst",
+                                  "polygon_triangulation"])
+def test_streaming_routes_on_the_card_match_cpu(cuda, name):
+    """``kernel_tiled`` / ``kernel_tiled_wavefront`` (fused) on the card
+    against the same route's plain version on the CPU, one solve and a
+    batch of two."""
+    prob = dp.get_problem(name)
+    route = "kernel_tiled" if prob.geometry == "linear" else "kernel_tiled_wavefront"
+    rng = np.random.default_rng(11)
+    inst = prob.sample(rng, 24)
+    key = prob.encode(**inst).shape_key()
+    insts = [inst]
+    while len(insts) < 2:
+        cand = prob.sample(rng, 24)
+        if prob.encode(**cand).shape_key() == key:
+            insts.append(cand)
+    before = sum(dict(k3.LAUNCHES, **k4.LAUNCHES).values())
+    got = dp.batch_solve(name, insts, backend=route, reconstruct=True, device=cuda)
+    got.append(dp.solve(name, backend=route, reconstruct=True, device=cuda, **inst))
+    want = dp.batch_solve(name, insts, backend=route, reconstruct=True, device="cpu")
+    want.append(want[0])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.table, w.table)
+        np.testing.assert_array_equal(g.args, w.args)
+        assert g.solution == w.solution
+    assert sum(dict(k3.LAUNCHES, **k4.LAUNCHES).values()) - before == 2

@@ -137,7 +137,7 @@ def test_edge_specs_carry_over_digest_equal(spec):
     carried = tdp.spec_from_reference(ref)
     assert tdp.spec_digest(carried) == tdp.spec_digest(spec) == jdp.spec_digest(ref)
     assert carried.shape_key() == ref.shape_key()
-    assert tdp.backends.get("kernel_grid").supports(carried)
+    assert tdp.backends.get("kernel_grid").supports(carried, torch.device("cpu"))
 
 
 def test_grid_spec_validation_errors():
