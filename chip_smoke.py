@@ -25,7 +25,17 @@ and then the grid family's path through the same entry points:
     problems, against edit_distance and lcs;
   * cky on a 64-token sentence with 32 nonterminals, a vocabulary of 512
     and 1024 binary rules;
-  * a batch of 8 needleman_wunsch pairs of length 1024 (one launch).
+  * a batch of 8 needleman_wunsch pairs of length 1024 (one launch);
+
+and last the blocked MCM route (``backend="blocked_mcm"``), whose split
+combine over middle tiles is the tropical GEMM kernel K5:
+
+  * MCM n = 1024 on the main path's dims with reconstruction, its table
+    against K4's, and a batch of 8 at n = 256;
+  * the head-to-head with ``kernel_tiled_wavefront`` at n = 1024: the
+    shared encode, each route's solve, and under ``torch.profiler`` the
+    device time of K5, K4, copies and the other kernels (the boundary
+    wavefront's), with the device's idle share.
 
 Each answer is checked against the numpy oracle (or, where that is too slow,
 against the plain route on the card and the oracle at a reduced size), its
@@ -57,6 +67,7 @@ from repro_torch.kernels import mcm_pipeline as k2  # noqa: E402
 from repro_torch.kernels import mcm_tiled as k4  # noqa: E402
 from repro_torch.kernels import sdp_chunked as k3  # noqa: E402
 from repro_torch.kernels import sdp_pipeline as k1  # noqa: E402
+from repro_torch.kernels import semiring_matmul as k5  # noqa: E402
 
 SEED = 0
 SDP_N, SDP_K = 2 ** 20, 2 ** 10
@@ -72,6 +83,8 @@ VITERBI_CHECK = (64, 256)
 ALIGN_N, ALIGN_BATCH_N, ALIGN_BATCH, ALIGN_ORACLE_N = 4096, 1024, 8, 512
 CKY = {"n": 64, "P": 32, "V": 512, "rules": 1024}
 CKY_ORACLE = {"n": 16, "P": 8, "V": 512, "rules": 64}
+#: blocked MCM: the route's tile, and K5's square check (M = K = N)
+BLOCKED_TILE, K5_SQUARE = 16, 1024
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 #: float32 tables (sums along chains of up to ~2k cells) against float64
@@ -109,13 +122,15 @@ def bound_ms(nbytes: float, ops: float) -> tuple:
 
 
 def reset_launches() -> None:
-    for counts in (k1.LAUNCHES, k2.LAUNCHES, k3.LAUNCHES, k4.LAUNCHES, k6.LAUNCHES):
+    for counts in (k1.LAUNCHES, k2.LAUNCHES, k3.LAUNCHES, k4.LAUNCHES, k5.LAUNCHES,
+                   k6.LAUNCHES):
         for key in counts:
             counts[key] = 0
 
 
 def launches() -> dict:
-    return {**k1.LAUNCHES, **k2.LAUNCHES, **k3.LAUNCHES, **k4.LAUNCHES, **k6.LAUNCHES}
+    return {**k1.LAUNCHES, **k2.LAUNCHES, **k3.LAUNCHES, **k4.LAUNCHES,
+            **k5.LAUNCHES, **k6.LAUNCHES}
 
 
 _PEAKS: list = []
@@ -486,8 +501,9 @@ EXPECTED_ROUTES = {"edit_distance": "kernel_blocked", "lcs": "kernel_blocked",
                    "polygon_triangulation": "kernel_tiled_wavefront"}
 
 
-def phase_main_path(rng, cuda, sdp: dict, dims: np.ndarray) -> None:
-    """The main path through the public entry points on the card."""
+def phase_main_path(rng, cuda, sdp: dict, dims: np.ndarray) -> np.ndarray:
+    """The main path through the public entry points on the card; returns
+    K4's MCM n = 1024 table (for the blocked path)."""
     t_all = time.perf_counter()
     print(f"on-chip budget (the L2 size the card reports): "
           f"{tkernels.on_chip_budget(cuda)} bytes")
@@ -547,6 +563,7 @@ def phase_main_path(rng, cuda, sdp: dict, dims: np.ndarray) -> None:
             "the plain wavefront route on the card")
     require(check_decoded("mcm", {"dims": dims}, ans), f"mcm n={MCM_N} tree "
             "recomputes to the optimum")
+    mcm_table = ans.table
     del mcm_spec, ref
 
     insts = [{"dims": mcm_dims(rng, MCM_BATCH_N)} for _ in range(MCM_BATCH)]
@@ -635,6 +652,7 @@ def phase_main_path(rng, cuda, sdp: dict, dims: np.ndarray) -> None:
     require(check_decoded("edit_distance", long, ans), f"edit_distance {EDIT_BIG_N}^2 "
             "script turns x into y at its cost")
     print(f"main path: {time.perf_counter() - t_all:.2f} s")
+    return mcm_table
 
 
 # ---------------------------------------------------------------------------
@@ -855,6 +873,155 @@ def phase_grid(cuda) -> None:
     print(f"grid path: {time.perf_counter() - t_all:.2f} s")
 
 
+# ---------------------------------------------------------------------------
+# The blocked MCM route (K5)
+# ---------------------------------------------------------------------------
+def k5_path_operands(cuda, dims: np.ndarray) -> tuple:
+    """Operands at the blocked route's largest K5 launch for MCM n = 1024
+    (block diagonal D = nt / 2: nt - D blocks of (T x K) by (K x T), K =
+    (D - 1) T): table values random integers, weights the dims as the
+    route slices them."""
+    T = BLOCKED_TILE
+    nt = MCM_N // T
+    D = nt // 2
+    nb, K = nt - D, (D - 1) * T
+    rng = np.random.default_rng(SEED)
+    p = torch.from_numpy(dims).float().to(cuda)
+    a = torch.from_numpy(rng.integers(0, 10 ** 7, (nb, T, K)).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.integers(0, 10 ** 7, (nb, K, T)).astype(np.float32)).to(cuda)
+    av = p[:nb * T].reshape(nb, T)
+    gv = p[T + 1:].unfold(0, K, T)[:nb].contiguous()
+    bv = p[D * T + 1:D * T + 1 + nb * T].reshape(nb, T)
+    return f"MCM n={MCM_N} D={D}: {nb} x ({T} x {K}) by ({K} x {T})", (a, b, av, gv, bv)
+
+
+def phase_semiring_kernels(cuda, dims: np.ndarray) -> list:
+    """K5 against its plain version on the same CUDA tensors, bit for bit:
+    at the blocked path's largest launch and at one weighted 1024^3
+    square."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    m = K5_SQUARE
+    square = tuple(torch.from_numpy(x.astype(np.float32)).to(cuda) for x in (
+        rng.normal(size=(m, m)), rng.normal(size=(m, m)), rng.uniform(1, 3, m),
+        rng.uniform(1, 3, m), rng.uniform(1, 3, m)))
+    records = []
+    for name, (label, args) in (("tropical_matmul", k5_path_operands(cuda, dims)),
+                                ("tropical_matmul_square",
+                                 (f"weighted {m}^3", square))):
+        got = k5.tropical_matmul(*args)
+        want, plain = timed_once(lambda: k5.tropical_matmul_plain(*args))
+        require(torch.equal(got, want), f"{name} {label}: bit-equal to plain")
+        ms = cuda_ms(lambda: k5.tropical_matmul(*args), reps=5)
+        _, host_ms, groups = device_profile(
+            lambda: [k5.tropical_matmul(*args) for _ in range(5)])
+        describe_profile(f"{name}: 5 launches", host_ms, groups)
+        a, b = args[0], args[1]
+        bt = a.shape[0] if a.dim() == 3 else 1
+        mm, kk, nn = a.shape[-2], a.shape[-1], b.shape[-1]
+        # bytes: every operand read once, C written once; operations: per
+        # candidate an add, a fused multiply-add (2) and a min, plus av*gv
+        nbytes = 4 * bt * (mm * kk + kk * nn + mm + kk + nn + mm * nn)
+        ops = bt * (4 * mm * kk * nn + mm * kk)
+        records.append(kernel_record(name, "src/repro_torch/csrc/semiring_matmul.cu",
+                                     "src/repro/kernels/semiring_matmul.py:57",
+                                     max_err(got, want), ms, plain, nbytes, ops))
+        del got, want
+    print(f"semiring kernels phase: {time.perf_counter() - t0:.2f} s")
+    return records
+
+
+def device_profile(fn) -> tuple:
+    """``(fn(), host ms, {group: device ms})`` of one call under
+    ``torch.profiler``: the CUDA activity it recorded, summed by name into
+    K5 (``tropical_matmul``), K4 (``mcm_tiled``), copies (``memcpy``) and
+    other kernels. An empty dict means the profiler saw no device
+    activity (not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    groups: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.lower()
+            key = next((k for k in ("tropical_matmul", "mcm_tiled", "memcpy") if k in name),
+                       "other kernels")
+            groups[key] = groups.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
+    return out, host_ms, groups
+
+
+def describe_profile(label: str, host_ms: float, groups: dict) -> None:
+    if not groups:
+        print(f"{label}: host {host_ms:.3f} ms under the profiler; device time not "
+              "measured (the profiler recorded no CUDA activity)")
+        return
+    busy = sum(groups.values())
+    parts = ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(groups.items()))
+    print(f"{label}: host {host_ms:.3f} ms under the profiler; device busy "
+          f"{busy:.3f} ms ({parts}); device idle share {1 - busy / host_ms:.4f}")
+
+
+def phase_blocked(cuda, dims: np.ndarray, k4_table: np.ndarray) -> None:
+    """The blocked MCM route through the public entry points on the card:
+    the main path's MCM n = 1024 against K4's table, a batch of 8 at
+    n = 256, and the head-to-head with ``kernel_tiled_wavefront``."""
+    t_all = time.perf_counter()
+    prob = dp.get_problem("mcm")
+    t0 = time.perf_counter()
+    spec = prob.encode(dims=dims)
+    encode_s = time.perf_counter() - t0
+    ranking = [b.name for b in dp.backends.candidates(spec, cuda)]
+    print(f"mcm n={MCM_N} ranking on the card: {ranking}")
+    plain = [r for r in ranking if not dp.backends.get(r).kernel]
+    require(plain[:2] == ["blocked_mcm", "wavefront"] and ranking[0] == "kernel_tiled_wavefront",
+            f"mcm n={MCM_N}: blocked_mcm ranks behind the kernel routes, ahead of wavefront")
+    ans = measured(f"solve mcm n={MCM_N} via blocked_mcm reconstruct (encode included)",
+                   lambda: dp.solve("mcm", dims=dims, backend="blocked_mcm",
+                                    reconstruct=True, device=cuda))
+    print(f"  value {ans.value}")
+    require(np.array_equal(ans.table, k4_table), f"blocked_mcm n={MCM_N} table bit-equal "
+            "to kernel_tiled_wavefront's")
+    require(check_decoded("mcm", {"dims": dims}, ans), f"blocked_mcm n={MCM_N} tree "
+            "recomputes to the optimum")
+
+    rng = np.random.default_rng(SEED + 1)
+    insts = [{"dims": mcm_dims(rng, MCM_SMALL_N)} for _ in range(MCM_BATCH)]
+    before = k5.LAUNCHES["tropical_matmul"]
+    answers = measured(f"batch_solve mcm {MCM_BATCH} x n={MCM_SMALL_N} via blocked_mcm "
+                       "reconstruct",
+                       lambda: dp.batch_solve("mcm", insts, backend="blocked_mcm",
+                                              reconstruct=True, device=cuda))
+    require(k5.LAUNCHES["tropical_matmul"] - before == MCM_SMALL_N // BLOCKED_TILE - 2,
+            "mcm blocked batch: one K5 launch per block diagonal past the first")
+    refs = dp.batch_solve_specs([prob.encode(**i) for i in insts], backend="wavefront",
+                                device=cuda)
+    require(all(np.array_equal(a.table, r) for a, r in zip(answers, refs)),
+            f"mcm blocked batch n={MCM_SMALL_N} tables bit-equal to the plain wavefront route")
+    require(all(check_decoded("mcm", i, a) for i, a in zip(insts, answers)),
+            f"mcm blocked batch n={MCM_SMALL_N} trees recompute to their optima")
+
+    # head-to-head at n = 1024: the two routes' solves after one shared
+    # encode, then each under the profiler (device time by kernel group)
+    tables = {}
+    for name in ("kernel_tiled_wavefront", "blocked_mcm"):
+        t0 = time.perf_counter()
+        tables[name] = dp.solve_spec(spec, backend=name, device=cuda)
+        print(f"head-to-head mcm n={MCM_N}: route {name} {time.perf_counter() - t0:.3f} s "
+              f"(host, after the shared encode of {encode_s:.3f} s)")
+        _, host_ms, groups = device_profile(
+            lambda: dp.solve_spec(spec, backend=name, device=cuda))
+        describe_profile(f"  route {name} under the profiler", host_ms, groups)
+    require(np.array_equal(tables["blocked_mcm"], tables["kernel_tiled_wavefront"]),
+            "blocked_mcm and kernel_tiled_wavefront routes agree bit for bit")
+    print(f"blocked path: {time.perf_counter() - t_all:.2f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -873,10 +1040,11 @@ def main() -> int:
     records, sdp, dims = phase_kernels(rng, cuda)
     records += phase_streaming_kernels(cuda, sdp)
     grid_records = phase_grid_kernels(cuda)
+    blocked_records = phase_semiring_kernels(cuda, dims)
 
     torch.cuda.reset_peak_memory_stats(cuda)
     reset_launches()
-    phase_main_path(rng, cuda, sdp, dims)
+    k4_table = phase_main_path(rng, cuda, sdp, dims)
     counts = launches()
     print(f"launches on the main path: {counts}")
     print("streaming kernels' launches on the main path: "
@@ -897,6 +1065,18 @@ def main() -> int:
         require(rec["launches"] > 0, f"{rec['name']} launched on the grid path")
     print(f"peak device memory on the grid path: {path_peak_gib():.3f} GiB")
     records += grid_records
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    reset_launches()
+    phase_blocked(cuda, dims, k4_table)
+    counts = launches()
+    print(f"launches on the blocked path: {counts}")
+    for rec in blocked_records:
+        rec["launches"] = counts["tropical_matmul"]
+        require(rec["launches"] > 0, f"{rec['name']} launched on the blocked path")
+    print(f"peak device memory on the blocked path: {path_peak_gib():.3f} GiB")
+    records += blocked_records
 
     if _failures:
         print(f"chip_smoke: {len(_failures)} check(s) failed", file=sys.stderr)

@@ -13,8 +13,22 @@ to the same shape with other weights (see ``repro_torch.dp.zoo``).
 
 The tensor solvers take a weight table of shape ``(cells, n-1)`` or
 ``(batch, cells, n-1)`` and run on its device.
+
+**The paper's Fig.-8 pipeline and its hazard.** The pipeline assigns
+candidate slot ``j`` of cell ``c`` (executed at step ``c + j``) to split
+``s = i + j``. Theorem 1 proves that the cells written in one step are
+distinct, but not that a slot's operands are final when it reads them:
+slot 0's right operand ``(i+1, j)`` still needs ``d-2`` candidates. For
+``n ≥ 5`` the paper's order gives inflated results
+(:func:`solve_pipeline_np` counts the violations). ``order="safe"`` (the
+default) keeps the machinery — skewed head, one candidate per cell per
+step, cell ``c`` final at step ``c + k_c - 1`` — and permutes each cell's
+candidates by the step their operands are ready; cells per step stay
+distinct, reads may repeat.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -31,6 +45,14 @@ __all__ = [
     "solve_wavefront_tab_with_args",
     "triangular_args_np",
     "triangular_traceback_np",
+    "PipelineTables",
+    "build_tables",
+    "build_pipeline_tables",
+    "tables_from_weight_array",
+    "pipeline_num_steps",
+    "solve_pipeline",
+    "solve_mcm_pipeline",
+    "solve_pipeline_np",
 ]
 
 
@@ -179,7 +201,160 @@ def triangular_traceback_np(args: np.ndarray, n: int) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Backend registration (repro_torch.dp): the triangular route.
+# The paper's pipeline (Fig. 8): per-(cell, slot) index tables (the l/r/w
+# maps of equation (2)), then one gather/gather/f/min-scatter per outer
+# step, vectorized over the n-1 stages.
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class PipelineTables:
+    """Per-(cell, slot) index maps. O(n³/2) entries — paper-scale only."""
+
+    n: int
+    order: str
+    left: np.ndarray    # (cells, n-1) linear index of the slot's left operand
+    right: np.ndarray   # (cells, n-1) linear index of the slot's right operand
+    weight: np.ndarray  # (cells, n-1) the slot's split weight
+    k: np.ndarray       # (cells,) candidate count (= diagonal of the cell)
+    feasible: bool      # every slot's operands finalized before its read step
+
+
+def build_tables(n: int, weight_fn, order: str = "safe") -> PipelineTables:
+    """Pipeline tables for any canonical triangular DP,
+
+        m[i, j] = min_{0≤e<d} ( m[i, i+e] + m[i+e+1, j] + weight_fn(i, i+e, j) ),
+
+    d = j - i, diagonal-0 cells preset to 0. ``order="paper"``: Fig.-8 slot
+    j ↔ split i+j (has the hazard above); ``order="safe"``: each cell's
+    candidates sorted by the step their operands are ready (exact)."""
+    cells = num_cells(n)
+    maxk = max(n - 1, 1)
+    left = np.zeros((cells, maxk), dtype=np.int64)
+    right = np.zeros((cells, maxk), dtype=np.int64)
+    weight = np.zeros((cells, maxk), dtype=np.float64)
+    kk = np.zeros((cells,), dtype=np.int64)
+
+    # finalize step of each cell: c + k_c - 1 (diag-0 cells are preset)
+    final = np.full(cells, -(10**9), dtype=np.int64)
+    for d in range(1, n):
+        for i in range(n - d):
+            c = lin_index(i, d, n)
+            final[c] = c + d - 1
+
+    feasible = True
+    for d in range(1, n):
+        for i in range(n - d):
+            c = lin_index(i, d, n)
+            kk[c] = d
+            cand = []
+            for e in range(d):  # split s = i + e; left diag e, right diag d-e-1
+                s = i + e
+                L = lin_index(i, e, n)
+                R = lin_index(s + 1, d - e - 1, n)
+                ready = max(final[L], final[R]) + 1
+                cand.append((ready, L, R, weight_fn(i, s, i + d)))
+            if order == "safe":
+                cand.sort(key=lambda x: x[0])
+            elif order != "paper":
+                raise ValueError(order)
+            for jc, (ready, L, R, w) in enumerate(cand):
+                if c + jc < ready:
+                    feasible = False
+                left[c, jc], right[c, jc], weight[c, jc] = L, R, w
+    return PipelineTables(n=n, order=order, left=left, right=right,
+                          weight=weight, k=kk, feasible=feasible)
+
+
+def build_pipeline_tables(dims, order: str = "safe") -> PipelineTables:
+    """MCM tables: :func:`build_tables` with the MCM weight."""
+    n = len(np.asarray(dims)) - 1
+    return build_tables(n, mcm_weight_fn(dims), order=order)
+
+
+def tables_from_weight_array(wtab: np.ndarray, n: int,
+                             order: str = "safe") -> PipelineTables:
+    """Pipeline tables for a dense (cells, n-1) split-major weight array."""
+    return build_tables(
+        n, lambda i, s, j: wtab[lin_index(i, j - i, n), s - i], order=order)
+
+
+def pipeline_num_steps(n: int) -> int:
+    """Outer steps of Fig. 8: head sweeps cells n..cells-1 plus (n-2) drain."""
+    return num_cells(n) + (n - 1) - 1 - n
+
+
+def solve_pipeline(left, right, weight, k, n: int) -> torch.Tensor:
+    """Run the pipeline on (possibly permuted) tables, on their device.
+    Substeps 1–4 of Fig. 8: gather l, gather r, f = (l + r) + w,
+    min-accumulate (slot 0 overwrites). The cells written in a step are
+    consecutive, hence distinct (Theorem 1)."""
+    cells = num_cells(n)
+    maxk = left.shape[1]
+    js = torch.arange(maxk, device=weight.device)
+    st = torch.zeros((cells,), dtype=weight.dtype, device=weight.device)
+    for t in range(n, cells + maxk - 1):
+        c = t - js                                           # (maxk,) cells
+        cc = c.clamp(0, cells - 1)
+        active = (c >= n) & (c < cells) & (js < k[cc])
+        v_l = st[left[cc, js].clamp(0, cells - 1)]           # substep 1
+        v_r = st[right[cc, js].clamp(0, cells - 1)]          # substep 2
+        v_s = v_l + v_r + weight[cc, js]                     # substep 3
+        new = torch.where(js == 0, v_s, torch.minimum(st[cc], v_s))  # substep 4
+        st[c[active]] = new[active]
+    return st
+
+
+def _pipeline_tensors(t: PipelineTables, device):
+    return (torch.from_numpy(t.left).to(device), torch.from_numpy(t.right).to(device),
+            torch.from_numpy(t.weight.astype(np.float32)).to(device),
+            torch.from_numpy(t.k).to(device))
+
+
+def solve_mcm_pipeline(dims, order: str = "safe") -> np.ndarray:
+    """Tables + the tensor pipeline (on the CPU) -> linearized float32
+    table."""
+    t = build_pipeline_tables(dims, order=order)
+    return solve_pipeline(*_pipeline_tensors(t, "cpu"), t.n).numpy()
+
+
+def solve_pipeline_np(dims, order: str = "safe", check_conflicts: bool = False):
+    """Host step-by-step pipeline (float64). Returns ``(st, stats)`` with
+    stats = dict(max_read_dup, max_write_dup, dependency_violations)
+    measured per substep — Theorem 1 says write dup must be 1; the safe
+    order may raise read dup."""
+    t = build_pipeline_tables(dims, order=order)
+    n, cells = t.n, num_cells(t.n)
+    maxk = t.left.shape[1]
+    st = np.zeros(cells)
+    final = {lin_index(i, d, n): lin_index(i, d, n) + d - 1
+             for d in range(1, n) for i in range(n - d)}
+    stats = {"max_read_dup": 1, "max_write_dup": 1, "dependency_violations": 0}
+    for step in range(n, cells + maxk - 1):
+        js = np.arange(maxk)
+        c = step - js
+        ok = (c >= n) & (c < cells)
+        cc = np.where(ok, c, 0)
+        active = ok & (js < t.k[cc])
+        if check_conflicts and active.any():
+            for name, addr in (("read", t.left[cc, js][active]),
+                               ("read", t.right[cc, js][active]),
+                               ("write", c[active])):
+                _, counts = np.unique(addr, return_counts=True)
+                key = f"max_{name}_dup"
+                stats[key] = max(stats[key], int(counts.max()))
+            for src in (t.left[cc, js][active], t.right[cc, js][active]):
+                for a in src:
+                    if a in final and final[a] >= step:
+                        stats["dependency_violations"] += 1
+        snap = st.copy()
+        v = snap[t.left[cc, js]] + snap[t.right[cc, js]] + t.weight[cc, js]
+        for j in np.nonzero(active)[0]:
+            ci = c[j]
+            st[ci] = v[j] if j == 0 else min(st[ci], v[j])
+    return st, stats
+
+
+# ---------------------------------------------------------------------------
+# Backend registration (repro_torch.dp): the triangular routes.
 # ---------------------------------------------------------------------------
 from repro_torch.dp import backends as _dp_backends  # noqa: E402
 
@@ -188,3 +363,18 @@ _dp_backends.register(_dp_backends.triangular_tab_backend(
     cost=lambda s, device: _dp_backends.triangular_costs(s)["wavefront"],
     arg_fn=solve_wavefront_tab_with_args,
     doc="dense per-diagonal combine (n-1 vectorized steps)"))
+
+
+def _pipeline_run(spec, device) -> np.ndarray:
+    t = tables_from_weight_array(np.asarray(spec.weights), spec.n)
+    return solve_pipeline(*_pipeline_tensors(t, device), t.n).cpu().numpy()
+
+
+_dp_backends.register(_dp_backends.Backend(
+    name="mcm_pipeline", geometry="triangular",
+    run=_pipeline_run,
+    cost=lambda s, device: _dp_backends.triangular_costs(s)["mcm_pipeline"],
+    supports=lambda s, device: True,
+    # the tables are built on the host per instance: the batch loops
+    batch_run=lambda specs, device: [_pipeline_run(s, device) for s in specs],
+    doc="paper Fig.-8 pipeline (order=safe); O(n²) outer steps"))

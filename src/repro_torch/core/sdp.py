@@ -17,8 +17,10 @@ The tensor solvers take a leading batch axis — ``init`` of shape
                                gather/⊗/scatter per outer step.
   * :func:`solve_blocked`    — ``B = min(a_k, block)`` outputs per step as a
                                (k×B) gather + tree reduce.
+  * :func:`solve_companion_scan` — log-depth prefix products of the
+                               recurrence's companion matrices (small a_1).
 
-Each builds its table in place, one step at a time.
+The first four build their table in place, one step at a time.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ __all__ = [
     "solve_tournament",
     "solve_pipeline",
     "solve_blocked",
+    "solve_companion_scan",
     "solve_tournament_with_args",
     "solve_blocked_with_args",
     "linear_traceback_steps",
@@ -241,6 +244,78 @@ def solve_blocked_with_args(init, offsets, op: str, n: int, block: int = 512,
 
 
 # ---------------------------------------------------------------------------
+# Companion-matrix scan. S-DP with a semigroup drawn from a semiring is a
+# semiring-linear recurrence: the state v_i = (ST[i-1], …, ST[i-a_1])
+# evolves by a companion matrix M (row 0: one — or the step's weight — at
+# column a_j - 1 for every offset; one on the subdiagonal; zero elsewhere).
+# Prefix products of the matrices give every cell from the presets in
+# log depth, with O(n·a_1³) work.
+# ---------------------------------------------------------------------------
+def _companion_shift(a1: int, ring) -> np.ndarray:
+    """The shift structure shared by every companion matrix: semiring
+    ``one`` on the subdiagonal, ``zero`` elsewhere."""
+    m = np.full((a1, a1), ring.zero, dtype=np.float64)
+    for r in range(1, a1):
+        m[r, r - 1] = ring.one
+    return m
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    out = even.new_empty((even.shape[0] + odd.shape[0],) + even.shape[1:])
+    out[0::2] = even
+    out[1::2] = odd
+    return out
+
+
+def associative_scan(combine, elems: torch.Tensor) -> torch.Tensor:
+    """Inclusive scan along axis 0 with the combination tree of
+    ``jax.lax.associative_scan`` (odd/even recursion): pair neighbours,
+    scan the pairs, fill in the even positions, interleave. ``combine``
+    must be associative; the tree fixes where a non-exact one rounds."""
+    n = elems.shape[0]
+    if n < 2:
+        return elems
+    odd = associative_scan(combine, combine(elems[0:-1:2], elems[1::2]))
+    if n % 2 == 0:
+        even = combine(odd[:-1], elems[2::2])
+    else:
+        even = combine(odd, elems[2::2])
+    return _interleave(torch.cat([elems[:1], even]), odd)
+
+
+def solve_companion_scan(init, offsets, op: str, n: int, weights=None):
+    """The table from prefix products ``P_t = M_t ⊙ … ⊙ M_0`` of the
+    companion matrices: ``ST[a_1 + t] = (P_t ⊙ v_0)[0]`` with ``v_0 =
+    (ST[a_1-1], …, ST[0])``. The scan combines in ``repro``'s tree, so
+    min/max tables are bit-equal to ``repro``'s; ``op="add"`` multiplies
+    with ``torch.matmul``, which sums in another order than XLA's dot."""
+    a = _check_offsets(offsets)
+    ring = SEMIGROUP_TO_SEMIRING[op]
+    init, weights, squeeze = _batched(init, weights)
+    a1 = int(a[0])
+    steps = n - a1
+    if steps <= 0:
+        return _out(init[:, :n], squeeze)
+    dtype = torch.promote_types(init.dtype, torch.float32)
+    dev, bt = init.device, init.shape[0]
+    shift = torch.as_tensor(_companion_shift(a1, ring), dtype=dtype, device=dev)
+    mats = shift.expand(steps, bt, a1, a1).clone()        # (steps, batch, a1, a1)
+    cols = torch.as_tensor(a - 1, device=dev)
+    if weights is None:
+        mats[:, :, 0, cols] = ring.one
+    else:
+        # step t computes ST[a1+t]: row 0 carries w[a1+t, j] at column a_j-1
+        row0 = torch.full((steps, bt, a1), ring.zero, dtype=dtype, device=dev)
+        row0[:, :, cols] = weights[:, a1:n].to(dtype).transpose(0, 1)
+        mats[:, :, 0, :] = row0
+    prefix = associative_scan(lambda x, y: ring.matmul(y, x), mats)
+    v0 = init.flip(1).to(dtype)                           # (batch, a1)
+    tail = ring.matvec(prefix[:, :, :1, :], v0)[..., 0]   # (steps, batch)
+    st = torch.cat([init, tail.transpose(0, 1).to(init.dtype)], dim=1)
+    return _out(st, squeeze)
+
+
+# ---------------------------------------------------------------------------
 # Traceback on the host: follow the winning lanes from a start cell down into
 # the preset region (every step retreats by ≥ a_k).
 # ---------------------------------------------------------------------------
@@ -302,11 +377,15 @@ def _register_backends() -> None:
          "the paper's Fig.-2 skewed pipeline, vectorized over stages"),
         ("blocked", solve_blocked, solve_blocked_with_args,
          "blocked pipeline: min(a_k, B) outputs per step"),
+        ("companion_scan", solve_companion_scan, None,
+         "log-depth associative scan over companion matrices (small a_1)"),
     ]
     for name, fn, arg_fn, doc in table:
         _dp_backends.register(_dp_backends.linear_backend(
             name, fn,
             cost=lambda s, device, _n=name: _dp_backends.linear_costs(s)[_n],
+            supports=((lambda s, device: int(s.offsets[0]) <= 16)
+                      if name == "companion_scan" else None),
             arg_fn=arg_fn, doc=doc))
 
 

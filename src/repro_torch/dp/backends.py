@@ -1,7 +1,8 @@
 """Solver-route registry and the batched run paths.
 
-``repro_torch.core.sdp``, ``repro_torch.core.mcm``, ``repro_torch.core.grid``
-and ``repro_torch.kernels`` register their routes here at import time;
+``repro_torch.core.sdp``, ``repro_torch.core.mcm``,
+``repro_torch.core.blocked_mcm``, ``repro_torch.core.grid`` and
+``repro_torch.kernels`` register their routes here at import time;
 :func:`ensure_registered` pulls them in lazily. The dispatcher
 (``repro_torch.dp.routing``) ranks the routes that support a spec on a
 device by ``(cost(spec, device), name)``. On a CUDA device every kernel
@@ -55,7 +56,11 @@ class Backend:
     returning ``(tables, argss, paths)``: the tracebacks walked inside the
     solve's launch. ``cost(spec, device)`` is the analytical step-count
     prior and ``supports(spec, device)`` the route's gate on that device;
-    ``kernel`` marks a route that runs a hand-written kernel on the card.
+    ``kernel`` marks a route whose solve is one hand-written kernel launch
+    per bucket on the card. ``blocked_mcm`` launches its GEMM kernel but
+    loops on the host over the boundary-wavefront steps, so it is not a
+    kernel route: on the card it ranks behind the kernel routes and, among
+    the plain ones, by cost (ahead of ``wavefront`` from n = 64 on).
     ``schedule`` stays None until the static schedule gate is ported."""
 
     name: str
@@ -111,7 +116,8 @@ def ensure_registered() -> None:
     if _LOADED:
         return
     import repro_torch.core.sdp  # noqa: F401  (linear routes)
-    import repro_torch.core.mcm  # noqa: F401  (triangular route)
+    import repro_torch.core.mcm  # noqa: F401  (triangular routes)
+    import repro_torch.core.blocked_mcm  # noqa: F401  (tropical-GEMM route)
     import repro_torch.core.grid  # noqa: F401  (grid route)
     import repro_torch.kernels  # noqa: F401  (kernel routes)
     _LOADED = True

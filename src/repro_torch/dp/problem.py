@@ -83,8 +83,9 @@ def _log2(x: float) -> float:
 _SMALL_N = 16
 #: per-route fixed-overhead floors, in 'vectorized device steps'
 _LINEAR_OVERHEAD = {"sequential": 0.0, "tournament": 8.0, "pipeline": 8.0,
-                    "blocked": 6.0}
-_TRIANGULAR_OVERHEAD = {"wavefront": 0.0, "tiled_wavefront": 0.0}
+                    "blocked": 6.0, "companion_scan": 16.0}
+_TRIANGULAR_OVERHEAD = {"wavefront": 0.0, "mcm_pipeline": 64.0,
+                        "blocked_mcm": 24.0, "tiled_wavefront": 0.0}
 _GRID_OVERHEAD = {"grid_wavefront": 0.0}
 
 
@@ -171,6 +172,8 @@ class LinearSpec:
             "tournament": float(n * (1.0 + _log2(k))),
             "pipeline": float(n + k - a1 - 1),
             "blocked": blocked_steps * (1.0 + _log2(k)),
+            # log-depth scan, O(n·a1³) work spread over the vector units
+            "companion_scan": _log2(n) * (a1 ** 3) / 64.0 + a1,
         }
         return _floored(costs, _LINEAR_OVERHEAD, n)
 
@@ -249,9 +252,12 @@ class TriangularSpec:
     def route_costs(self) -> dict:
         """Step-count cost model of the triangular routes; units and floors
         as in :meth:`LinearSpec.route_costs`."""
-        n = self.n
+        n, cells = self.n, num_cells(self.n)
         costs = {
             "wavefront": float(n),              # one masked combine/diagonal
+            "mcm_pipeline": float(cells + n),   # Fig.-8 skewed head + drain
+            # O(n) wavefront depth with GEMM-fed combines: favored past n ≈ 64
+            "blocked_mcm": float(n) * 0.75 + 16.0,
             # O(n) depth over banded tiles, plus a flat streaming-setup term
             "tiled_wavefront": float(n) * 0.85 + 24.0,
         }

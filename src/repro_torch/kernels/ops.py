@@ -11,6 +11,14 @@ from repro_torch.kernels.mcm_tiled import (mcm_tiled as _mcm_tiled,
 from repro_torch.kernels.sdp_chunked import (sdp_chunked as _sdp_chunked,
                                              sdp_chunked_with_args as _sdp_chunked_with_args)
 from repro_torch.kernels.sdp_pipeline import sdp_pipeline, sdp_pipeline_with_args
+from repro_torch.kernels.semiring_matmul import tropical_matmul as _tropical_matmul
+
+
+def tropical_matmul(a, b, av=None, gv=None, bv=None):
+    """Weighted (min,+) product through the ``semiring_matmul`` kernel:
+    ``C[.., i, j] = min_k (A[i,k] + B[k,j] + av[i]·gv[k]·bv[j])``, with an
+    optional leading batch axis."""
+    return _tropical_matmul(a, b, av, gv, bv)
 
 
 def sdp_blocked(init, offsets, op: str, n: int, block: int = 512,

@@ -160,24 +160,43 @@ def test_reference_specs_solve_identically(name):
             jdp.solve_spec(jspec, backend=route))
 
 
+@pytest.mark.parametrize("geometry", ["linear", "triangular", "grid"])
+def test_route_sets_match_reference(geometry):
+    assert tdp.backends.names(geometry) == jdp.backends.names(geometry)
+
+
 @pytest.mark.parametrize("name", PROBLEMS)
-@pytest.mark.parametrize("size", [5, 40])
+@pytest.mark.parametrize("size", [5, 40, 100])
 def test_dispatch_order_matches_reference(monkeypatch, name, size):
-    """The port's analytical ranking equals ``repro``'s (ref mode, CPU)
-    restricted to the routes the port has."""
+    """The port's analytical ranking equals ``repro``'s (ref mode, CPU),
+    route for route: at size 100 mcm reaches ``blocked_mcm``, and most
+    linear problems ``companion_scan``."""
     monkeypatch.setenv("REPRO_KERNELS", "ref")
     inst = _instances(name, count=1, size=size)[0]
     jspec = jdp.get_problem(name).encode(**inst)
     tspec = tdp.get_problem(name).encode(**inst)
-    ported = set(tdp.backends.names(jspec.geometry))
-    want = [b.name for b in jdp.backends.candidates(jspec) if b.name in ported]
+    want = [b.name for b in jdp.backends.candidates(jspec)]
     got = [b.name for b in tdp.backends.candidates(tspec, torch.device("cpu"))]
     assert got == want
     for reconstruct in (False, True):
-        jname = jdp.dispatch(jspec, reconstruct=reconstruct).name
-        if jname in ported:
-            assert tdp.dispatch(tspec, reconstruct=reconstruct,
-                                device="cpu").name == jname
+        assert (tdp.dispatch(tspec, reconstruct=reconstruct, device="cpu").name
+                == jdp.dispatch(jspec, reconstruct=reconstruct).name)
+
+
+@pytest.mark.parametrize("size", [40, 100])
+def test_default_dispatch_value_bit_equal_to_reference(monkeypatch, size):
+    """Weighted max-plus knapsack: both packages dispatch to
+    ``companion_scan`` and agree bit for bit (``repro``'s own ``blocked``
+    route differs from its ``companion_scan`` by up to 4.6e-5 here,
+    ROADMAP queue 3)."""
+    monkeypatch.setenv("REPRO_KERNELS", "ref")
+    name = "unbounded_knapsack"
+    inst = _instances(name, count=1, size=size)[0]
+    want = jdp.solve(name, **inst)
+    got = tdp.solve(name, device="cpu", **inst)
+    assert np.float32(got) == np.float32(want), (got, want)
+    spec = tdp.get_problem(name).encode(**inst)
+    assert tdp.dispatch(spec, device="cpu").name == "companion_scan"
 
 
 @pytest.fixture
@@ -313,6 +332,28 @@ def test_kernel_ranking_matches_reference_pallas_mode(monkeypatch, label,
            if b.name in KERNEL_ROUTES]
     assert got == want
     assert len(got) in (1, 2)
+
+
+@pytest.mark.parametrize("n", [40, 64, 100])
+def test_blocked_mcm_ranks_as_in_reference_pallas_mode(monkeypatch, n):
+    """On the card ``blocked_mcm`` (not a kernel route: it loops on the
+    host over its boundary steps) ranks behind the kernel routes and, from
+    n = 64 on (a cost tie broken by name), ahead of ``wavefront`` —
+    ``repro``'s whole triangular ranking under ``REPRO_KERNELS=pallas``
+    (ranking only)."""
+    from repro_torch import kernels
+
+    monkeypatch.setenv("REPRO_KERNELS", "pallas")
+    monkeypatch.setenv("REPRO_VMEM_BUDGET", str(L2_BYTES))
+    monkeypatch.setattr(kernels, "on_chip_budget", lambda device: L2_BYTES)
+    inst = _instances("mcm", count=1, size=n)[0]
+    jspec = jdp.get_problem("mcm").encode(**inst)
+    tspec = tdp.get_problem("mcm").encode(**inst)
+    want = [b.name for b in jdp.backends.candidates(jspec)]
+    got = [b.name for b in tdp.backends.candidates(tspec, torch.device("cuda"))]
+    assert got == want
+    plain = [name for name in got if not tdp.backends.get(name).kernel]
+    assert plain[0] == ("blocked_mcm" if n >= 64 else "wavefront")
 
 
 def test_on_chip_budget_is_no_gate_on_the_cpu():

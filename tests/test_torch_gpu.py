@@ -18,6 +18,7 @@ from repro_torch.kernels import mcm_pipeline as k2  # noqa: E402
 from repro_torch.kernels import mcm_tiled as k4  # noqa: E402
 from repro_torch.kernels import sdp_chunked as k3  # noqa: E402
 from repro_torch.kernels import sdp_pipeline as k1  # noqa: E402
+from repro_torch.kernels import semiring_matmul as k5  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -309,3 +310,60 @@ def test_streaming_routes_on_the_card_match_cpu(cuda, name):
         np.testing.assert_array_equal(g.args, w.args)
         assert g.solution == w.solution
     assert sum(dict(k3.LAUNCHES, **k4.LAUNCHES).values()) - before == 2
+
+
+@pytest.mark.parametrize("m,k,n,batch", [(1, 1, 1, None), (7, 13, 5, None),
+                                         (16, 16, 16, 3), (33, 100, 17, 2),
+                                         (128, 128, 128, None), (16, 992, 16, 62)])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_tropical_matmul_kernel_bit_equal_to_plain(cuda, m, k, n, batch, weighted):
+    """K5 against its plain version: ragged shapes (no tile divides them),
+    a batch axis, and a shape past the blocked route's extremes at MCM 1024
+    (T = 16: 62 blocks, as at D = 2, each with K = 992, as at D = 63)."""
+    g = torch.Generator(device=cuda).manual_seed(m * k * n)
+    lead = () if batch is None else (batch,)
+    a = torch.randn(lead + (m, k), generator=g, device=cuda)
+    b = torch.randn(lead + (k, n), generator=g, device=cuda)
+    w = [None] * 3
+    if weighted:
+        w = [torch.rand(lead + (x,), generator=g, device=cuda) * 2 + 1
+             for x in (m, k, n)]
+    before = k5.LAUNCHES["tropical_matmul"]
+    got = k5.tropical_matmul(a, b, *w)
+    assert k5.LAUNCHES["tropical_matmul"] == before + 1
+    assert torch.equal(got, k5.tropical_matmul_plain(a, b, *w))
+
+
+def test_tropical_matmul_kernel_infinities_and_nan(cuda):
+    a = torch.tensor([[float("inf"), 1.0], [float("nan"), 2.0]], device=cuda)
+    b = torch.tensor([[0.0, float("inf")], [3.0, -1.0]], device=cuda)
+    got = k5.tropical_matmul(a, b)
+    want = k5.tropical_matmul_plain(a, b)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    with pytest.raises(ValueError):
+        k5.tropical_matmul(a.double(), b.double())
+
+
+@pytest.mark.parametrize("n,batch", [(32, 1), (64, 2), (96, 3), (256, 1)])
+def test_blocked_mcm_on_the_card(cuda, n, batch):
+    """``blocked_mcm`` on the card: bit-equal to its CPU version for
+    integer and non-integer dims, and with integer dims (every candidate an
+    exact float32 sum) to ``kernel_tiled_wavefront``'s tables; K5 launches
+    once per block diagonal past the first."""
+    rng = np.random.default_rng(n)
+    for integer in (True, False):
+        dims = [rng.integers(1, 61, n + 1).astype(np.float64) if integer
+                else rng.uniform(0.5, 5.0, n + 1) for _ in range(batch)]
+        specs = [dp.get_problem("mcm").encode(dims=d) for d in dims]
+        before = k5.LAUNCHES["tropical_matmul"]
+        got = dp.batch_solve_specs(specs, backend="blocked_mcm", device=cuda)
+        assert k5.LAUNCHES["tropical_matmul"] - before == n // 16 - 2
+        want = dp.batch_solve_specs(specs, backend="blocked_mcm", device="cpu")
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        if integer:
+            k4_tables = dp.batch_solve_specs(specs, backend="kernel_tiled_wavefront",
+                                             device=cuda)
+            for g, w in zip(got, k4_tables):
+                np.testing.assert_array_equal(g, w)
