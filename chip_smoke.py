@@ -35,7 +35,25 @@ combine over middle tiles is the tropical GEMM kernel K5:
   * the head-to-head with ``kernel_tiled_wavefront`` at n = 1024: the
     shared encode, each route's solve, and under ``torch.profiler`` the
     device time of K5, K4, copies and the other kernels (the boundary
-    wavefront's), with the device's idle share.
+    wavefront's), with the device's idle share;
+
+then the LM serving path, whose prefill runs the flash-attention kernel K7:
+
+  * qwen3-14b at its published width (40 layers, d 5120, 40 heads, 8 kv
+    heads, head dim 128, vocabulary 151936, bf16), weights from seed 0 on
+    the card, serving 8 requests with prompts of 300-2000 tokens (seeded
+    lengths) and 16 new tokens each through ``serving.Engine`` (4 slots,
+    2064 positions) and ``Scheduler``: per-request prefill seconds,
+    decode-step ms, tokens/s and peak memory; K7 launches exactly once per
+    layer and prefill (320), decode never;
+  * K7 at one served prompt's tensors (bf16 and float32), the prefill
+    logits through K7 against the plain version, K7 at one layer of
+    prefill_32k (S = 32768) and at head dims 16, 96 and 160 with GQA, each
+    against its plain version and timed beside
+    ``scaled_dot_product_attention`` (the yardstick, not on the path);
+
+and last the gated linear scan K8 through ``ops.linear_scan`` at
+T = 32768, D = 2048, bit-equal to its plain version.
 
 Each answer is checked against the numpy oracle (or, where that is too slow,
 against the plain route on the card and the oracle at a reduced size), its
@@ -47,11 +65,15 @@ device record.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import gc
 import json
 import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -68,6 +90,14 @@ from repro_torch.kernels import mcm_tiled as k4  # noqa: E402
 from repro_torch.kernels import sdp_chunked as k3  # noqa: E402
 from repro_torch.kernels import sdp_pipeline as k1  # noqa: E402
 from repro_torch.kernels import semiring_matmul as k5  # noqa: E402
+from repro_torch.kernels import chunked_scan as k8  # noqa: E402
+from repro_torch.kernels import flash_attention as k7  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models.attention import _project_qkv  # noqa: E402
+from repro_torch.models.layers import rmsnorm  # noqa: E402
+from repro_torch.models.model import CausalLM  # noqa: E402
+from repro_torch.serving import Engine, Request, Scheduler  # noqa: E402
 
 SEED = 0
 SDP_N, SDP_K = 2 ** 20, 2 ** 10
@@ -85,8 +115,23 @@ CKY = {"n": 64, "P": 32, "V": 512, "rules": 1024}
 CKY_ORACLE = {"n": 16, "P": 8, "V": 512, "rules": 64}
 #: blocked MCM: the route's tile, and K5's square check (M = K = N)
 BLOCKED_TILE, K5_SQUARE = 16, 1024
-#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s
-HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+#: LM path: the arch served at its published width, the traffic (requests,
+#: new tokens each, prompt lengths drawn from the seed in this range), the
+#: engine's slots and cache length; K7 timed at one layer of prefill_32k
+LM_ARCH, LM_REQUESTS, LM_NEW, LM_PROMPT = "qwen3-14b", 8, 16, (300, 2000)
+LM_BATCH, LM_MAX_LEN, LONG_S = 4, 2064, 32768
+#: K8's check: prefill_32k's length by rwkv6-1.6b's width
+SCAN_T, SCAN_D = 32768, 2048
+#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s and the
+#: dense bf16 tensor-core rate (K7's bound)
+HBM_BYTES_PER_S, F32_OPS_PER_S, BF16_OPS_PER_S = 3.35e12, 67e12, 989e12
+#: K7 against its plain version on the card: float32 sums in another order
+#: (and exp2 against exp), bf16 outputs rounded to 8 bits
+#: (tests/test_kernels.py's bound)
+K7_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+#: the prefill logits through K7 against the plain version, as a share of
+#: the plain logits' max abs (held in float32 compute, see phase_lm)
+LOGITS_RTOL = 3e-2
 #: float32 tables (sums along chains of up to ~2k cells) against float64
 #: oracles and recomputations of a decoded solution
 RTOL = 1e-4
@@ -114,23 +159,25 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple:
+def bound_ms(nbytes: float, ops: float, peak: float = F32_OPS_PER_S) -> tuple:
     """Least time for the work: the larger of bytes over the HBM rate and
-    float32 operations over the peak rate."""
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    operations over the peak rate for their type (float32 by default)."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+_COUNTERS = (k1.LAUNCHES, k2.LAUNCHES, k3.LAUNCHES, k4.LAUNCHES, k5.LAUNCHES,
+             k6.LAUNCHES, k7.LAUNCHES, k8.LAUNCHES)
+
+
 def reset_launches() -> None:
-    for counts in (k1.LAUNCHES, k2.LAUNCHES, k3.LAUNCHES, k4.LAUNCHES, k5.LAUNCHES,
-                   k6.LAUNCHES):
+    for counts in _COUNTERS:
         for key in counts:
             counts[key] = 0
 
 
 def launches() -> dict:
-    return {**k1.LAUNCHES, **k2.LAUNCHES, **k3.LAUNCHES, **k4.LAUNCHES,
-            **k5.LAUNCHES, **k6.LAUNCHES}
+    return {k: v for counts in _COUNTERS for k, v in counts.items()}
 
 
 _PEAKS: list = []
@@ -158,14 +205,16 @@ def path_peak_gib() -> float:
     return peak / 2 ** 30
 
 
-def kernel_record(name, source, replaces, err, ms, plain_ms, nbytes, ops) -> dict:
-    b, by = bound_ms(nbytes, ops)
-    print(f"{name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+def kernel_record(name, source, replaces, err, ms, plain_ms, nbytes, ops,
+                  peak: float = F32_OPS_PER_S, library_ms=None) -> dict:
+    b, by = bound_ms(nbytes, ops, peak)
+    lib = "" if library_ms is None else f", library {library_ms:.3f} ms"
+    print(f"{name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms{lib}, bound "
           f"{b:.4f} ms ({by}), max_abs_err {err}")
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": 0, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-            "library_ms": None}
+            "library_ms": library_ms}
 
 
 def timed_once(fn) -> tuple:
@@ -931,12 +980,21 @@ def phase_semiring_kernels(cuda, dims: np.ndarray) -> list:
     return records
 
 
-def device_profile(fn) -> tuple:
+#: device-time groups of the blocked path's profile: group -> name parts
+BLOCKED_GROUPS = {"tropical_matmul": ("tropical_matmul",), "mcm_tiled": ("mcm_tiled",),
+                  "memcpy": ("memcpy",)}
+#: the LM path's: K7, the matrix products (cuBLAS names: gemm, nvjet,
+#: xmma, cutlass), copies
+LM_GROUPS = {"flash_attention (K7)": ("flash_attention",),
+             "matmul": ("gemm", "nvjet", "xmma", "cutlass"), "memcpy": ("memcpy",)}
+
+
+def device_profile(fn, keys: dict = BLOCKED_GROUPS) -> tuple:
     """``(fn(), host ms, {group: device ms})`` of one call under
     ``torch.profiler``: the CUDA activity it recorded, summed by name into
-    K5 (``tropical_matmul``), K4 (``mcm_tiled``), copies (``memcpy``) and
-    other kernels. An empty dict means the profiler saw no device
-    activity (not measured)."""
+    the groups of ``keys`` (a group takes a kernel whose lower-case name
+    holds one of its parts) and other kernels. An empty dict means the
+    profiler saw no device activity (not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -950,7 +1008,7 @@ def device_profile(fn) -> tuple:
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             name = e.name.lower()
-            key = next((k for k in ("tropical_matmul", "mcm_tiled", "memcpy") if k in name),
+            key = next((k for k, parts in keys.items() if any(p in name for p in parts)),
                        "other kernels")
             groups[key] = groups.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
     return out, host_ms, groups
@@ -1022,6 +1080,247 @@ def phase_blocked(cuda, dims: np.ndarray, k4_table: np.ndarray) -> None:
     print(f"blocked path: {time.perf_counter() - t_all:.2f} s")
 
 
+# ---------------------------------------------------------------------------
+# The LM serving path (K7) and the linear scan (K8)
+# ---------------------------------------------------------------------------
+def k7_record(name: str, q, k, v, reps: int) -> dict:
+    """K7 against its plain version on (B, Hq, S, D) q and GQA k, v, with
+    the times of the kernel, the plain version (one call) and
+    ``scaled_dot_product_attention`` (the yardstick: one PyTorch call, used
+    nowhere in the port). Bound: q, k, v read and o written once; 4·D
+    FLOP per unmasked (query, key) pair over the bf16 tensor-core peak."""
+    got = k7.flash_attention(q, k, v)
+    want, plain = timed_once(lambda: k7.flash_attention_plain(q, k, v))
+    err = max_err(got, want)
+    require(err <= K7_TOL[q.dtype], f"{name} {tuple(q.shape)} by {tuple(k.shape)} "
+            f"{q.dtype}: max_abs_err {err} within {K7_TOL[q.dtype]} of plain")
+    del got, want
+    ms = cuda_ms(lambda: k7.flash_attention(q, k, v), reps)
+    lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), reps)
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    nbytes = q.element_size() * d * s * b * (2 * hq + 2 * hkv)
+    flops = 4 * d * b * hq * s * (s + 1) // 2
+    print(f"{name}: {flops / ms / 1e9:.2f} TFLOP/s achieved, SDPA {flops / lib / 1e9:.2f}")
+    return kernel_record(name, "src/repro_torch/csrc/flash_attention.cu",
+                         "src/repro/kernels/flash_attention.py:68", err, ms, plain,
+                         nbytes, flops, peak=BF16_OPS_PER_S, library_ms=lib)
+
+
+@contextlib.contextmanager
+def compute_dtype(model, dtype):
+    """Run ``model`` with another compute dtype on the same weights (each
+    matmul casts its weight as it goes); None leaves it as it is."""
+    cfg = model.cfg
+    if dtype is not None:
+        new = dataclasses.replace(cfg, compute_dtype=dtype)
+        for m in (model, *model.layers):
+            m.cfg = new
+    try:
+        yield
+    finally:
+        for m in (model, *model.layers):
+            m.cfg = cfg
+
+
+def heads_major(x):
+    """(B, S, H, D) -> the (B, H, S, D) view the model hands to K7."""
+    return x.transpose(1, 2)
+
+
+def phase_lm(cuda) -> tuple:
+    """The LM serving path through the port's entry points: qwen3-14b at its
+    published width from seed 0 on the card, 8 requests through the
+    Engine and Scheduler. K7's counter is zeroed before the traffic and
+    read after it; the checks after it (K7 at a served prompt's tensors,
+    the prefill logits through the kernel against the plain version) run
+    outside that count. Returns (records, launches of the traffic)."""
+    t_all = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    model = CausalLM.from_seed(cfg, seed=SEED, device=cuda)
+    torch.cuda.synchronize()
+    gib = sum(p.numel() * p.element_size() for p in model.parameters()) / 2 ** 30
+    print(f"lm: {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads, "
+          f"{cfg.n_kv_heads} kv heads, hd {cfg.hd}, vocab {cfg.vocab_size}): "
+          f"{cfg.param_count()} parameters, {gib:.2f} GiB {cfg.param_dtype}, "
+          f"init from seed {SEED} on the card in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(SEED)
+    lengths = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, size=LM_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in lengths]
+    require(any(n % 64 for n in lengths), f"lm prompt lengths {lengths.tolist()}: "
+            "at least one not a multiple of 64")
+
+    engine = Engine(model, max_batch=LM_BATCH, max_len=LM_MAX_LEN)
+    sched = Scheduler(engine)
+    prefill_s, step_ms = {}, []
+    admit, step = engine.admit, engine.step
+
+    def timed_admit(req):   # the prefill ends in a host read of its token
+        t0 = time.perf_counter()
+        out = admit(req)
+        prefill_s[req.rid] = time.perf_counter() - t0
+        return out
+
+    def timed_step():       # the step ends in a host read of its tokens
+        t0 = time.perf_counter()
+        out = step()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    engine.admit, engine.step = timed_admit, timed_step
+    for i, p in enumerate(prompts):
+        sched.submit(Request(rid=i, prompt=p, max_new_tokens=LM_NEW))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    reset_launches()
+    t0 = time.perf_counter()
+    done = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated(cuda) / 2 ** 30
+    engine.admit, engine.step = admit, step
+
+    done = sorted(done, key=lambda r: r.rid)
+    new_tokens = sum(len(r.out) for r in done)
+    for r in done:
+        print(f"  request {r.rid}: prompt {len(r.prompt)} tokens, prefill "
+              f"{prefill_s[r.rid]:.3f} s, {len(r.out)} tokens {r.out[:6]}...")
+    print(f"lm traffic: {len(done)} requests, {new_tokens} new tokens and "
+          f"{int(lengths.sum())} prompt tokens in {wall:.3f} s "
+          f"({new_tokens / wall:.2f} new tokens/s, "
+          f"{(new_tokens + int(lengths.sum())) / wall:.2f} tokens/s in all); "
+          f"{engine.steps_run} decode steps, mean {np.mean(step_ms):.3f} ms, median "
+          f"{np.median(step_ms):.3f} (min {min(step_ms):.3f}, max {max(step_ms):.3f}); prefill "
+          f"{sum(prefill_s.values()):.3f} s in all; peak device memory {peak:.3f} GiB")
+    require(len(done) == LM_REQUESTS and all(len(r.out) == LM_NEW for r in done),
+            f"lm: all {LM_REQUESTS} requests finished with {LM_NEW} tokens")
+    require(all(0 <= t < cfg.vocab_size for r in done for t in r.out),
+            "lm: every token lies in the vocabulary")
+    require(counts["flash_attention"] == cfg.n_layers * LM_REQUESTS,
+            f"lm: K7 launched {counts['flash_attention']} times on the traffic, "
+            f"{cfg.n_layers} x {LM_REQUESTS} prefills (decode launches none)")
+
+    # K7 at one served prompt's real tensors (layer 0), bf16 and float32
+    rid = next(i for i, n in enumerate(lengths) if n % 64)
+    s = int(lengths[rid])
+    tokens = torch.as_tensor(prompts[rid], dtype=torch.int64, device=cuda)[None]
+    with torch.no_grad():
+        blk = model.layers[0]
+        h = rmsnorm(model.embed_tokens(tokens), blk.ln1, cfg.norm_eps)
+        q, k, v = (heads_major(t) for t in _project_qkv(
+            blk.mixer, cfg, h, torch.arange(s, device=cuda)[None]))
+    records = [k7_record("flash_attention", q, k, v, reps=10)]
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    e32 = max_err(k7.flash_attention(qf, kf, vf), k7.flash_attention_plain(qf, kf, vf))
+    require(e32 <= K7_TOL[torch.float32], f"flash_attention float32 at request {rid}'s "
+            f"tensors (S {s}): max_abs_err {e32} within {K7_TOL[torch.float32]}")
+    del q, k, v, qf, kf, vf
+
+    # the prefill logits of that request through K7 and through the plain
+    # version. In bf16, rounding through 40 random layers spreads the plain
+    # version against itself (KV chunk 512 against 128) by more than 3e-2
+    # of max|logit|, so the bound is held in float32 compute on the same
+    # weights, where it measures K7; the bf16 numbers are printed beside
+    # that floor, and the argmax must agree wherever the plain logits'
+    # top-2 margin exceeds the bound.
+    def logits_via(attention):
+        with mock.patch.object(ops, "flash_attention", attention):
+            return model.prefill(tokens)[0]
+
+    def plain_at(chunk):
+        return (lambda q, k, v, causal=True:
+                k7.flash_attention_plain(q, k, v, causal=causal, chunk=chunk))
+
+    logits_k = logits_via(ops.flash_attention)
+    require(int(logits_k[0].argmax()) == done[rid].out[0],
+            f"lm request {rid}: served first token equals the prefill's argmax")
+    for label, dtype in (("bf16 as served", None), ("float32 compute", torch.float32)):
+        with compute_dtype(model, dtype):
+            lk = logits_via(ops.flash_attention) if dtype else logits_k
+            lp = logits_via(plain_at(k7.PLAIN_CHUNK))
+            floor = max_err(lp, logits_via(plain_at(128)))
+        tol = LOGITS_RTOL * float(lp.abs().max())
+        err = max_err(lk, lp)
+        print(f"lm prefill logits, {label} (request {rid}, S {s}): max |logit| "
+              f"{float(lp.abs().max())}; K7 vs plain max_abs_err {err}, mean "
+              f"{float((lk - lp).abs().mean())}; plain chunk 512 vs 128 {floor}")
+        if dtype is not None:
+            require(err <= tol, f"lm prefill logits, {label}: K7 vs plain max_abs_err "
+                    f"{err} within {tol}")
+        top2 = lp[0].topk(2).values
+        margin = float(top2[0] - top2[1])
+        if margin > tol:
+            require(int(lk[0].argmax()) == int(lp[0].argmax()),
+                    f"lm prefill argmax agrees, {label} (plain top-2 margin {margin} > {tol})")
+        else:
+            print(f"lm prefill, {label}: plain top-2 margin {margin} within {tol}; "
+                  "argmax not compared")
+    del lk, lp
+
+    # where the time goes: one prefill and one decode step of the 4 slots
+    _, host_ms, groups = device_profile(lambda: model.prefill(tokens), LM_GROUPS)
+    describe_profile(f"lm prefill S {s} (request {rid})", host_ms, groups)
+    tok = torch.zeros((LM_BATCH, 1), dtype=torch.int64, device=cuda)
+    pos = torch.as_tensor(engine.pos, dtype=torch.int64, device=cuda)
+    _, host_ms, groups = device_profile(lambda: model.decode_step(tok, engine.cache, pos),
+                                        LM_GROUPS)
+    describe_profile(f"lm decode step, batch {LM_BATCH}, positions {engine.pos.tolist()}",
+                     host_ms, groups)
+
+    del model, engine, sched, logits_k, tokens, h, tok, pos
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # K7 at one layer of prefill_32k (B 1, S 32768), and at the other head
+    # dims with GQA in both dtypes
+    g = torch.Generator(device=cuda).manual_seed(SEED)
+    q, k, v = (heads_major(torch.randn((1, LONG_S, hh, cfg.hd), generator=g, device=cuda)
+                           .to(torch.bfloat16)) for hh in (cfg.n_heads, cfg.n_kv_heads,
+                                                           cfg.n_kv_heads))
+    records.append(k7_record("flash_attention_32k", q, k, v, reps=2))
+    del q, k, v
+    for d in (16, 96, 160):
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (heads_major(torch.randn((2, 999, hh, d), generator=g, device=cuda)
+                                   .to(dt)) for hh in (12, 3, 3))
+            e = max_err(k7.flash_attention(q, k, v), k7.flash_attention_plain(q, k, v))
+            require(e <= K7_TOL[dt], f"flash_attention hd {d} GQA 12/3 S 999 {dt}: "
+                    f"max_abs_err {e} within {K7_TOL[dt]}")
+    torch.cuda.empty_cache()
+    print(f"lm path: {time.perf_counter() - t_all:.2f} s")
+    return records, counts
+
+
+def phase_scan(cuda) -> dict:
+    """K8 through its entry point ``ops.linear_scan`` at T = 32768 (the
+    prefill_32k length) by D = 2048 (rwkv6-1.6b's width), float32, its
+    counter zeroed before the call and read after; then bit-equal to the
+    plain version and timed."""
+    g = torch.Generator(device=cuda).manual_seed(SEED)
+    x = torch.randn((SCAN_T, SCAN_D), generator=g, device=cuda)
+    decay = torch.rand((SCAN_T, SCAN_D), generator=g, device=cuda) * 0.2 + 0.8
+    h0 = torch.randn((SCAN_D,), generator=g, device=cuda)
+    reset_launches()
+    got_all, got_last = ops.linear_scan(x, decay, h0)
+    torch.cuda.synchronize()
+    count = launches()["linear_scan"]
+    (want_all, want_last), plain = timed_once(lambda: k8.chunked_scan_plain(x, decay, h0))
+    require(torch.equal(got_all, want_all) and torch.equal(got_last, want_last),
+            f"linear_scan T={SCAN_T} D={SCAN_D}: bit-equal to plain")
+    err = max(max_err(got_all, want_all), max_err(got_last, want_last))
+    del got_all, got_last, want_all, want_last
+    ms = cuda_ms(lambda: k8.chunked_scan(x, decay, h0), reps=5)
+    rec = kernel_record("linear_scan", "src/repro_torch/csrc/chunked_scan.cu",
+                        "src/repro/kernels/chunked_scan.py:52", err, ms, plain,
+                        4 * (3 * SCAN_T * SCAN_D + 2 * SCAN_D), 2 * SCAN_T * SCAN_D)
+    rec["launches"] = count
+    require(count > 0, "linear_scan launched through ops.linear_scan")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1077,6 +1376,17 @@ def main() -> int:
         require(rec["launches"] > 0, f"{rec['name']} launched on the blocked path")
     print(f"peak device memory on the blocked path: {path_peak_gib():.3f} GiB")
     records += blocked_records
+
+    del k4_table
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    lm_records, counts = phase_lm(cuda)
+    print(f"launches on the lm path's traffic: {counts}")
+    for rec in lm_records:
+        rec["launches"] = counts["flash_attention"]
+        require(rec["launches"] > 0, f"{rec['name']} launched on the lm path")
+    records += lm_records
+    records.append(phase_scan(cuda))
 
     if _failures:
         print(f"chip_smoke: {len(_failures)} check(s) failed", file=sys.stderr)

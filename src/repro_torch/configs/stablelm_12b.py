@@ -1,0 +1,20 @@
+"""stablelm-12b [dense] — GQA kv=8, wide heads (head_dim=160).
+
+[hf:stabilityai/stablelm-2-1_6b; hf]. 40L, d_model=5120, 32H (GQA kv=8),
+d_ff=13824, vocab=100352. head_dim=160 (not a multiple of 128) is the
+widest head the port's attention kernel takes.
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="stablelm-12b",
+    family="dense",
+    n_layers=40,
+    d_model=5120,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=13824,
+    vocab_size=100352,
+    head_dim=160,
+    source="hf:stabilityai/stablelm-2-1_6b; hf",
+)

@@ -13,6 +13,13 @@ version, and their registration as dispatchable routes.
   * ``grid_pipeline`` — frontier-major wavefront pipeline for the grid
                         family (antidiag/spandiag), replacing ``repro``'s
                         Pallas K6
+  * ``semiring_matmul`` — weighted tropical (min,+) product, the split
+                          combine of blocked MCM, replacing K5
+  * ``flash_attention`` — causal online-softmax attention with GQA read in
+                          place, the prefill of the LM path
+                          (``ops.flash_attention``), replacing K7
+  * ``chunked_scan``  — gated linear scan behind ``ops.linear_scan``,
+                        replacing K8
 
 Routes: ``kernel_blocked`` (K1) and ``kernel_tiled`` (K3) for the linear
 family, ``kernel_wavefront`` (K2) and ``kernel_tiled_wavefront`` (K4, with

@@ -3,6 +3,8 @@ data decides the path: the CUDA kernel for a CUDA tensor, the kernel's plain
 PyTorch version for a CPU tensor — there is no mode knob and no fallback."""
 from __future__ import annotations
 
+from repro_torch.kernels.chunked_scan import chunked_scan as _chunked_scan
+from repro_torch.kernels.flash_attention import flash_attention as _flash_attention
 from repro_torch.kernels.grid_pipeline import grid_pipeline, grid_pipeline_with_args
 from repro_torch.kernels.mcm_pipeline import mcm_pipeline, mcm_pipeline_with_args
 from repro_torch.kernels.mcm_tiled import (mcm_tiled as _mcm_tiled,
@@ -90,3 +92,16 @@ def grid_blocked(arrs, meta: tuple):
 def grid_blocked_with_args(arrs, meta: tuple):
     """``grid_blocked`` + the winning move / packed-split table."""
     return grid_pipeline_with_args(arrs, meta)
+
+
+def linear_scan(x, decay, h0, chunk: int = 128):
+    """``h_t = decay_t ⊙ h_{t-1} + x_t`` through the ``chunked_scan`` kernel;
+    returns ``(h_all, h_final)``."""
+    return _chunked_scan(x, decay, h0, chunk=chunk)
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """q: (B, Hq, S, D); k, v: (B, Hkv, S, D). Returns (B, Hq, S, D) through
+    the ``flash_attention`` kernel (GQA read in place, any S, the causal
+    mask aligned at the end)."""
+    return _flash_attention(q, k, v, causal=causal)

@@ -19,6 +19,8 @@ from repro_torch.kernels import mcm_tiled as k4  # noqa: E402
 from repro_torch.kernels import sdp_chunked as k3  # noqa: E402
 from repro_torch.kernels import sdp_pipeline as k1  # noqa: E402
 from repro_torch.kernels import semiring_matmul as k5  # noqa: E402
+from repro_torch.kernels import chunked_scan as k8  # noqa: E402
+from repro_torch.kernels import flash_attention as k7  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -367,3 +369,90 @@ def test_blocked_mcm_on_the_card(cuda, n, batch):
                                              device=cuda)
             for g, w in zip(got, k4_tables):
                 np.testing.assert_array_equal(g, w)
+
+
+#: K7 against its plain version on the card: float32 sums in another order
+#: and exp2 against exp; bfloat16 outputs round to 8 bits
+K7_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("d", [16, 96, 128, 160])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (6, 1)])
+@pytest.mark.parametrize("s", [1, 65, 333])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda, d, hq, hkv, s, dtype):
+    """K7 at the head dims of the dense configs (16 reduced, 96 phi3, 128
+    qwen3/granite, 160 stablelm), MHA, GQA and MQA, ragged S (no whole
+    64-row tile), q, k, v as the heads-major views the model passes."""
+    g = torch.Generator(device=cuda).manual_seed(d * s + hq)
+    q, k, v = (torch.randn((2, s, h, d), generator=g, device=cuda).to(dtype).transpose(1, 2)
+               for h in (hq, hkv, hkv))
+    before = k7.LAUNCHES["flash_attention"]
+    got = k7.flash_attention(q, k, v)
+    assert k7.LAUNCHES["flash_attention"] == before + 1
+    want = k7.flash_attention_plain(q, k, v)
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=K7_TOL[dtype],
+                               atol=K7_TOL[dtype])
+
+
+@pytest.mark.parametrize("sq,sk,causal", [(64, 64, False), (37, 200, True),
+                                          (1, 130, True), (70, 70, False)])
+def test_flash_attention_kernel_end_aligned_and_non_causal(cuda, sq, sk, causal):
+    g = torch.Generator(device=cuda).manual_seed(sq * sk)
+    q = torch.randn((1, 4, sq, 64), generator=g, device=cuda)
+    k, v = (torch.randn((1, 2, sk, 64), generator=g, device=cuda) for _ in range(2))
+    torch.testing.assert_close(k7.flash_attention(q, k, v, causal=causal),
+                               k7.flash_attention_plain(q, k, v, causal=causal),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_flash_attention_kernel_rejects_bad_inputs(cuda):
+    q = torch.zeros((1, 4, 8, 16), device=cuda)
+    k = torch.zeros((1, 3, 8, 16), device=cuda)
+    with pytest.raises(ValueError, match="Hq=4"):
+        k7.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        k7.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros((1, 1, 8, 272), device=cuda)
+        k7.flash_attention(big, big, big)
+
+
+@pytest.mark.parametrize("t,d", [(1, 1), (100, 33), (4097, 2048)])
+def test_linear_scan_kernel_bit_equal_to_plain(cuda, t, d):
+    g = torch.Generator(device=cuda).manual_seed(t + d)
+    x = torch.randn((t, d), generator=g, device=cuda)
+    decay = torch.rand((t, d), generator=g, device=cuda) * 0.2 + 0.8
+    h0 = torch.randn((d,), generator=g, device=cuda)
+    before = k8.LAUNCHES["linear_scan"]
+    got_all, got_last = k8.chunked_scan(x, decay, h0)
+    assert k8.LAUNCHES["linear_scan"] == before + 1
+    want_all, want_last = k8.chunked_scan_plain(x, decay, h0)
+    assert torch.equal(got_all, want_all) and torch.equal(got_last, want_last)
+
+
+def test_reduced_engine_on_the_card_matches_cpu(cuda):
+    """The reduced qwen3-14b served on the card (prefill through K7) gives
+    the CPU engine's tokens, from the same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import CausalLM
+    from repro_torch.serving import Engine, Request, Scheduler
+
+    cfg = get_config("qwen3-14b").reduced()
+    cpu_model = CausalLM.from_seed(cfg, seed=0, device="cpu")
+    card_model = CausalLM(cfg, device=cuda)
+    card_model.load_state_dict(cpu_model.state_dict())
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (5, 70, 9, 130, 3)]
+    outs = []
+    for model in (cpu_model, card_model):
+        before = k7.LAUNCHES["flash_attention"]
+        sched = Scheduler(Engine(model, max_batch=3, max_len=160))
+        for i, p in enumerate(prompts):
+            sched.submit(Request(rid=i, prompt=p, max_new_tokens=6))
+        outs.append({r.rid: r.out for r in sched.run()})
+    assert outs[1] == outs[0] and len(outs[0]) == len(prompts)
+    # the card's prefills, one launch per layer and prompt; decode has none
+    assert k7.LAUNCHES["flash_attention"] - before == cfg.n_layers * len(prompts)

@@ -22,6 +22,8 @@ FORBIDDEN = re.compile(
 
 def test_importing_the_port_loads_no_jax_and_no_repro():
     code = ("import sys, repro_torch, repro_torch.dp, repro_torch.kernels.ops; "
+            "import repro_torch.configs, repro_torch.models, repro_torch.serving; "
+            "import repro_torch.models.convert, repro_torch.launch.serve; "
             "from repro_torch import dp; dp.backends.ensure_registered(); "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
@@ -37,6 +39,19 @@ def test_sources_have_no_jax_or_repro_imports():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) >= 15
     for f in files:
+        hits = FORBIDDEN.findall(f.read_text())
+        assert not hits, f"{f.relative_to(ROOT)} imports {hits}"
+
+
+def test_lm_sources_are_scanned_on_their_own():
+    """The LM slice's modules exist and hold no JAX or ``repro`` import."""
+    lm = [PORT / p for p in (
+        "configs/__init__.py", "configs/base.py", "configs/qwen3_14b.py",
+        "models/layers.py", "models/attention.py", "models/transformer.py",
+        "models/model.py", "models/convert.py", "serving/engine.py",
+        "serving/scheduler.py", "launch/serve.py", "kernels/flash_attention.py",
+        "kernels/chunked_scan.py")]
+    for f in lm + sorted((PORT / "configs").glob("*.py")):
         hits = FORBIDDEN.findall(f.read_text())
         assert not hits, f"{f.relative_to(ROOT)} imports {hits}"
 

@@ -1,0 +1,172 @@
+"""The plain versions of the LM kernels — flash attention (K7) and the gated
+linear scan (K8) — against ``repro`` on the same inputs, made with numpy
+from a seed (CPU).
+
+K7's plain version ports ``ops._flash_ref_chunked``: float32 within 2e-5
+of it and of ``ref.attention_ref`` (float32 sums in another order),
+bfloat16 within 2e-2 (the output rounds to bfloat16), the tolerances of
+``tests/test_kernels.py``. Against the interpreted Pallas kernel only
+``Sq == Sk`` is compared: its causal mask is aligned at the start.
+
+K8's plain version rounds ``decay·h`` and ``+ x`` separately, as the CUDA
+kernel does; XLA's CPU compiler contracts the reference's ``d*h + x`` into
+one fused multiply-add, so the two agree within 2e-5, and the contracted
+rounding (``core.semiring.fma_f32``) equals the reference bit for bit.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.chunked_scan import chunked_scan_pallas  # noqa: E402
+from repro.kernels.flash_attention import flash_attention_pallas  # noqa: E402
+from repro_torch.core.semiring import fma_f32  # noqa: E402
+from repro_torch.kernels import chunked_scan as k8  # noqa: E402
+from repro_torch.kernels import flash_attention as k7  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+
+F32_TOL, BF16_TOL = 2e-5, 2e-2
+
+
+def _tol(dtype) -> float:
+    return BF16_TOL if dtype == "bfloat16" else F32_TOL
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same values as a JAX array and a torch tensor of ``dtype``."""
+    j = jnp.asarray(a, getattr(jnp, dtype))
+    return j, torch.from_numpy(np.array(j.astype(jnp.float32))).to(getattr(torch, dtype))
+
+
+def _close(got: torch.Tensor, want, tol: float) -> None:
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# K7
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("s,d,bq,bk", [(128, 64, 64, 64), (256, 32, 128, 128),
+                                       (128, 128, 128, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k7_plain_against_pallas_interpret(s, d, bq, bk, causal, dtype):
+    rng = np.random.default_rng(s + d + bq)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng.normal(size=(3, s, d)), dtype)
+                                    for _ in range(3))
+    want = flash_attention_pallas(jq, jk, jv, causal=causal, bq=bq, bk=bk,
+                                  interpret=True)
+    got = k7.flash_attention_plain(tq[None], tk[None], tv[None], causal=causal)[0]
+    assert got.dtype == tq.dtype
+    _close(got, want, _tol(dtype))
+
+
+@pytest.mark.parametrize("s", [5, 7, 130])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (6, 2), (4, 1)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k7_plain_against_chunked_reference_and_oracle(s, hq, hkv, causal, dtype):
+    """Ragged S (no whole chunk or tile), MHA, GQA and MQA: the port's
+    ``ops.flash_attention`` on the CPU against ``_flash_ref_chunked`` at
+    its default chunk (after the reference's GQA broadcast) and against
+    the exact-softmax oracle."""
+    rng = np.random.default_rng(s * 10 + hq + hkv)
+    jq, tq = _pair(rng.normal(size=(2, hq, s, 16)), dtype)
+    jk, tk = _pair(rng.normal(size=(2, hkv, s, 16)), dtype)
+    jv, tv = _pair(rng.normal(size=(2, hkv, s, 16)), dtype)
+    jk, jv = jops._gqa_broadcast(jk, hq), jops._gqa_broadcast(jv, hq)
+    got = ops.flash_attention(tq, tk, tv, causal=causal)
+    _close(got, jops._flash_ref_chunked(jq, jk, jv, causal=causal), _tol(dtype))
+    _close(got, jref.attention_ref(jq, jk, jv, causal=causal), _tol(dtype))
+
+
+@pytest.mark.parametrize("sq,sk", [(3, 7), (1, 130), (64, 600)])
+def test_k7_plain_end_aligned_causal_mask(sq, sk):
+    """Fewer queries than keys: query i sees keys up to i + sk - sq, as in
+    ``_flash_ref_chunked`` and both packages' oracles (600 keys span two
+    chunks of the plain version)."""
+    rng = np.random.default_rng(sq + sk)
+    jq, tq = _pair(rng.normal(size=(1, 2, sq, 16)), "float32")
+    jk, tk = _pair(rng.normal(size=(1, 2, sk, 16)), "float32")
+    jv, tv = _pair(rng.normal(size=(1, 2, sk, 16)), "float32")
+    got = ops.flash_attention(tq, tk, tv, causal=True)
+    _close(got, jops._flash_ref_chunked(jq, jk, jv, causal=True), F32_TOL)
+    _close(got, jref.attention_ref(jq, jk, jv, causal=True), F32_TOL)
+    _close(tref.attention_ref(tq, tk, tv, causal=True),
+           jref.attention_ref(jq, jk, jv, causal=True), F32_TOL)
+
+
+def test_k7_rejects_indivisible_heads_and_keyless_rows():
+    k = torch.zeros((1, 3, 8, 4))
+    with pytest.raises(ValueError, match=r"Hq=7.*Hkv=3"):
+        ops.flash_attention(torch.zeros((1, 7, 8, 4)), k, k)
+    with pytest.raises(ValueError, match=r"Hq=7.*Hkv=3"):
+        jops._gqa_broadcast(jnp.zeros((1, 3, 8, 4)), 7)
+    assert k7.gqa_broadcast(k, 6).shape == (1, 6, 8, 4)
+    with pytest.raises(ValueError, match="without keys"):
+        ops.flash_attention(torch.zeros((1, 3, 9, 4)), k, k, causal=True)
+
+
+def test_k7_gqa_reads_kv_head_h_over_group():
+    """Query head h attends with kv head h // (Hq/Hkv) (``jnp.repeat``)."""
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.normal(size=(1, 6, 9, 8)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(1, 2, 9, 8)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(1, 2, 9, 8)).astype(np.float32))
+    got = ops.flash_attention(q, k, v)
+    for h in range(6):
+        want = tref.attention_ref(q[:, h:h + 1], k[:, h // 3:h // 3 + 1],
+                                  v[:, h // 3:h // 3 + 1])
+        torch.testing.assert_close(got[:, h:h + 1], want, rtol=F32_TOL, atol=F32_TOL)
+
+
+# ---------------------------------------------------------------------------
+# K8
+# ---------------------------------------------------------------------------
+def _scan_inputs(t: int, d: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(t, d)).astype(np.float32),
+            rng.uniform(0.8, 1.0, size=(t, d)).astype(np.float32),
+            rng.normal(size=(d,)).astype(np.float32))
+
+
+@pytest.mark.parametrize("t,d,chunk,bd", [(64, 32, 16, 32), (128, 64, 32, 32),
+                                          (256, 16, 128, 16)])
+def test_k8_plain_against_pallas_interpret_and_oracle(t, d, chunk, bd):
+    x, dec, h0 = _scan_inputs(t, d, t + d)
+    jx, jdec, jh0 = (jnp.asarray(a) for a in (x, dec, h0))
+    got_all, got_last = ops.linear_scan(torch.from_numpy(x), torch.from_numpy(dec),
+                                        torch.from_numpy(h0), chunk=chunk)
+    for want_all, want_last in (
+            chunked_scan_pallas(jx, jdec, jh0, chunk=chunk, bd=bd, interpret=True),
+            jref.chunked_scan_ref(jx, jdec, jh0)):
+        _close(got_all, want_all, F32_TOL)
+        _close(got_last, want_last, F32_TOL)
+    oracle_all, oracle_last = tref.chunked_scan_ref(
+        torch.from_numpy(x), torch.from_numpy(dec), torch.from_numpy(h0))
+    assert torch.equal(got_all, oracle_all) and torch.equal(got_last, oracle_last)
+
+
+@pytest.mark.parametrize("t,d", [(64, 32), (256, 16)])
+def test_k8_reference_rounds_as_one_fused_multiply_add(t, d):
+    """Why the tolerance: the reference's scan equals the FMA-contracted
+    recurrence bit for bit (XLA on the CPU), the port rounds twice."""
+    x, dec, h0 = _scan_inputs(t, d, t * d)
+    want_all, _ = jref.chunked_scan_ref(jnp.asarray(x), jnp.asarray(dec), jnp.asarray(h0))
+    h, rows = torch.from_numpy(h0), []
+    for i in range(t):
+        h = fma_f32(torch.from_numpy(dec[i]), h, torch.from_numpy(x[i]))
+        rows.append(h)
+    assert np.array_equal(torch.stack(rows).numpy(), np.asarray(want_all))
+
+
+def test_k8_rejects_bad_shapes_and_chunk():
+    x = torch.zeros((8, 4))
+    with pytest.raises(ValueError, match="expected"):
+        ops.linear_scan(x, torch.zeros((8, 3)), torch.zeros(4))
+    with pytest.raises(ValueError, match="chunk"):
+        ops.linear_scan(x, x, torch.zeros(4), chunk=0)
