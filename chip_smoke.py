@@ -50,7 +50,11 @@ then the LM serving path, whose prefill runs the flash-attention kernel K7:
     logits through K7 against the plain version, K7 at one layer of
     prefill_32k (S = 32768) and at head dims 16, 96 and 160 with GQA, each
     against its plain version and timed beside
-    ``scaled_dot_product_attention`` (the yardstick, not on the path);
+    ``scaled_dot_product_attention`` (the yardstick, not on the path). The
+    served bf16 tensors take K7's tensor-core body (all 320 launches of
+    the traffic must), float32 its CUDA-core body; at the served prompt
+    and at S = 32768 the CUDA-core body is also run on the same bf16
+    tensors, for the two bodies' times and errors side by side;
 
 and last the gated linear scan K8 through ``ops.linear_scan`` at
 T = 32768, D = 2048, bit-equal to its plain version.
@@ -358,6 +362,9 @@ def phase_build() -> None:
         for line in info["log"].splitlines():
             if "Used" in line or "spill" in line or "Compiling entry" in line:
                 print("  " + line.strip())
+    smem = _build.load("flash_attention_tc").flash_attention_tc_smem_bytes
+    print("flash_attention_tc dynamic shared memory by head dim: " + ", ".join(
+        f"hd {d} {smem(d)} bytes" for d in (16, 64, 96, 128, 160, 256)))
 
 
 def phase_kernels(rng, cuda) -> tuple:
@@ -1084,26 +1091,39 @@ def phase_blocked(cuda, dims: np.ndarray, k4_table: np.ndarray) -> None:
 # The LM serving path (K7) and the linear scan (K8)
 # ---------------------------------------------------------------------------
 def k7_record(name: str, q, k, v, reps: int) -> dict:
-    """K7 against its plain version on (B, Hq, S, D) q and GQA k, v, with
-    the times of the kernel, the plain version (one call) and
+    """K7 against its plain version on bf16 (B, Hq, S, D) q and GQA k, v,
+    which its rule sends to the tensor-core body, with the times of the
+    kernel, the plain version (one call) and
     ``scaled_dot_product_attention`` (the yardstick: one PyTorch call, used
-    nowhere in the port). Bound: q, k, v read and o written once; 4·D
-    FLOP per unmasked (query, key) pair over the bf16 tensor-core peak."""
+    nowhere in the port); then the CUDA-core body on the same tensors, its
+    error and time printed beside. Bound: q, k, v read and o written once;
+    4·D FLOP per unmasked (query, key) pair over the bf16 tensor-core
+    peak."""
+    require(k7.body_for(q, k, v) == k7.TENSOR_CORES,
+            f"{name}: bf16 q, k, v take the tensor-core body")
     got = k7.flash_attention(q, k, v)
     want, plain = timed_once(lambda: k7.flash_attention_plain(q, k, v))
     err = max_err(got, want)
     require(err <= K7_TOL[q.dtype], f"{name} {tuple(q.shape)} by {tuple(k.shape)} "
             f"{q.dtype}: max_abs_err {err} within {K7_TOL[q.dtype]} of plain")
-    del got, want
+    old = k7._launch(q, k, v, True, k7.CUDA_CORES)
+    old_err = max_err(old, want)
+    require(old_err <= K7_TOL[q.dtype], f"{name}: CUDA-core body on the same tensors, "
+            f"max_abs_err {old_err} within {K7_TOL[q.dtype]} of plain")
+    del got, want, old
     ms = cuda_ms(lambda: k7.flash_attention(q, k, v), reps)
     lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), reps)
+    old_ms = cuda_ms(lambda: k7._launch(q, k, v, True, k7.CUDA_CORES), max(1, reps // 5))
     b, hq, s, d = q.shape
     hkv = k.shape[1]
     nbytes = q.element_size() * d * s * b * (2 * hq + 2 * hkv)
     flops = 4 * d * b * hq * s * (s + 1) // 2
-    print(f"{name}: {flops / ms / 1e9:.2f} TFLOP/s achieved, SDPA {flops / lib / 1e9:.2f}")
-    return kernel_record(name, "src/repro_torch/csrc/flash_attention.cu",
+    print(f"{name}: tensor-core body {ms:.4f} ms, {flops / ms / 1e9:.2f} TFLOP/s, "
+          f"max_abs_err {err}; CUDA-core body {old_ms:.4f} ms, "
+          f"{flops / old_ms / 1e9:.2f} TFLOP/s, max_abs_err {old_err}; SDPA {lib:.4f} ms, "
+          f"{flops / lib / 1e9:.2f} TFLOP/s")
+    return kernel_record(name, "src/repro_torch/csrc/flash_attention_tc.cu",
                          "src/repro/kernels/flash_attention.py:68", err, ms, plain,
                          nbytes, flops, peak=BF16_OPS_PER_S, library_ms=lib)
 
@@ -1202,6 +1222,9 @@ def phase_lm(cuda) -> tuple:
     require(counts["flash_attention"] == cfg.n_layers * LM_REQUESTS,
             f"lm: K7 launched {counts['flash_attention']} times on the traffic, "
             f"{cfg.n_layers} x {LM_REQUESTS} prefills (decode launches none)")
+    require(counts["flash_attention_tc"] == counts["flash_attention"],
+            f"lm: {counts['flash_attention_tc']} of K7's {counts['flash_attention']} "
+            "launches on the traffic ran the tensor-core body (all must)")
 
     # K7 at one served prompt's real tensors (layer 0), bf16 and float32
     rid = next(i for i, n in enumerate(lengths) if n % 64)
@@ -1286,9 +1309,14 @@ def phase_lm(cuda) -> tuple:
         for dt in (torch.float32, torch.bfloat16):
             q, k, v = (heads_major(torch.randn((2, 999, hh, d), generator=g, device=cuda)
                                    .to(dt)) for hh in (12, 3, 3))
+            body = k7.body_for(q, k, v)
+            before = k7.LAUNCHES["flash_attention_tc"]
             e = max_err(k7.flash_attention(q, k, v), k7.flash_attention_plain(q, k, v))
-            require(e <= K7_TOL[dt], f"flash_attention hd {d} GQA 12/3 S 999 {dt}: "
-                    f"max_abs_err {e} within {K7_TOL[dt]}")
+            ran_tc = k7.LAUNCHES["flash_attention_tc"] - before == 1
+            require(ran_tc == (dt == torch.bfloat16) == (body == k7.TENSOR_CORES),
+                    f"flash_attention hd {d} {dt}: ran the {body} body")
+            require(e <= K7_TOL[dt], f"flash_attention hd {d} GQA 12/3 S 999 {dt} "
+                    f"({body} body): max_abs_err {e} within {K7_TOL[dt]}")
     torch.cuda.empty_cache()
     print(f"lm path: {time.perf_counter() - t_all:.2f} s")
     return records, counts

@@ -8,9 +8,10 @@
 // kernel walks (C x bd) chunks in order and carries the state in scratch;
 // here one thread per feature walks all T rows with its state in a
 // register, so the chunk has no role (the wrapper keeps the argument for
-// the reference's signature). Each step rounds decay*h and then + x
-// (__fmul_rn, __fadd_rn, no FMA), as the plain version does, so the two
-// are bit-equal.
+// the reference's signature). Each step rounds decay*h + x once
+// (__fmaf_rn), as XLA's CPU compiler contracts the reference's d*h + x and
+// as the plain version computes it (core.semiring.fma_f32), so kernel,
+// plain version and reference are bit-equal.
 //
 // Mapping: blocks of 32 threads, one warp over 32 neighbouring features,
 // so a row's loads and stores are one 128-byte line per warp and D/32
@@ -38,7 +39,7 @@ chunked_scan_kernel(const float* __restrict__ x, const float* __restrict__ decay
   long long idx = d;
 #pragma unroll 16
   for (int t = 0; t < T; ++t, idx += D) {
-    h = __fadd_rn(__fmul_rn(decay[idx], h), x[idx]);
+    h = __fmaf_rn(decay[idx], h, x[idx]);
     h_all[idx] = h;
   }
   h_last[d] = h;

@@ -1,0 +1,673 @@
+// Causal flash attention on the tensor cores, hand-written for Hopper: the
+// bfloat16 body of K7.
+//
+// Replaces the Pallas TPU kernel
+//   src/repro/kernels/flash_attention.py::flash_attention_pallas (body:
+//   _kernel) for bfloat16 inputs, with the semantics of
+//   csrc/flash_attention.cu (the float32 CUDA-core body, which takes every
+//   other input; kernels/flash_attention.py::body_for picks):
+//
+//   o[b,h,i,:] = sum_j softmax_j(q[b,h,i,:] . k[b,h/g,j,:] / sqrt(D)) v[b,h/g,j,:]
+//
+// over the keys j < Sk with, when causal, j <= i + (Sk - Sq) (the mask
+// aligned at the end); any Sq, Sk, ragged tails masked; query head h reads
+// kv head h / g in place; the output bfloat16.
+//
+// What bounds it on this card: the two products, 4·D FLOP per unmasked
+// (query, key) pair, against 989 TFLOP/s of dense bf16 on the tensor cores;
+// the softmax's exp2 (16 per clock per SM) comes second. So both products
+// are wgmma, fed from shared memory that TMA fills, and the CUDA cores only
+// scale, mask and exponentiate:
+//
+//   * A CTA takes 128 query rows of one (batch entry, query head) in three
+//     warpgroups. Warpgroup 0 is the producer: it gives up registers
+//     (setmaxnreg 40) and one of its threads issues every TMA load: Q once,
+//     then K and V tiles of BK keys into a ring of STAGES stages, each with
+//     a full barrier per operand and one empty barrier, which the eight
+//     consumer warps arrive on once both products have read the stage.
+//     Warpgroups 1 and 2 are the consumers (setmaxnreg 232), 64 query rows
+//     each; while one exponentiates, the other's products run.
+//   * S = Q K^T: wgmma m64nBKk16 bf16 x bf16 -> float32, A (Q) and B (K,
+//     K-major) read from shared memory, the k-loop stopping at ceil(D/16).
+//     The float32 scores are scaled by log2(e)/sqrt(D) there (Q is not
+//     pre-scaled or re-rounded), masked only on tiles that cross the
+//     diagonal or the ragged edge, and folded into the running max m and
+//     sum l of each row (two rows per thread, reduced over the 4 threads
+//     of a quad).
+//   * O += P V: P = exp2(S·scale - m) is rounded to bfloat16 in registers
+//     and used as wgmma's register A operand (the m64nNk16 accumulator
+//     layout of S is the A layout of the next product, 16 keys a slice);
+//     V is the B operand, read transposed from its [key][d] tile
+//     (MN-major). l sums the float32 P, before that rounding, as the plain
+//     version does; the rounding adds ~2^-9 relative error to O.
+//   * Tiles are 128-byte-swizzled boxes of 64 head-dim columns (one box per
+//     64 of the padded D, 1024-byte aligned), as TMA writes them and wgmma's
+//     descriptors read them. The tensor maps are 4-D, (D, S, H, B) with the
+//     strides of the caller's (B, H, S, D) view, so the model's transposed
+//     views load in place; TMA's zero fill covers the ragged S tail and a
+//     head dim below the padded one.
+//   * D is padded at compile time to DP = 64, 128, 192 or 256, with BK =
+//     128, 128, 64, 64 keys per tile and a ring of 3, 3, 3, 2 stages, so Q
+//     and the ring fit 227 KB. Every instance compiles without a spill
+//     (ptxas -v, CUDA 12.9); the barrier wait has no timeout, because a
+//     trap path in it made ptxas spill up to 5 KB of the accumulators. The
+//     heaviest causal tiles launch first: the query tile is the grid's
+//     slowest index, reversed.
+//
+// Built with --fmad=false like the other sources: the scaling uses explicit
+// __fmaf_rn.
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BQ = 128;       // query rows per CTA: two consumer warpgroups
+constexpr int THREADS = 384;  // warpgroup 0 loads, 1 and 2 compute
+constexpr int MAP_ERROR = 10000;  // + CUresult: a tensor map was refused
+
+template <int DP>
+struct Tile {
+  // keys per K/V tile and the ring's depth (shared memory: 113, 225, 193
+  // and 193 KB at DP = 64, 128, 192, 256)
+  static constexpr int BK = DP <= 128 ? 128 : 64;
+  static constexpr int STAGES = DP == 256 ? 2 : 3;
+  static constexpr int BOXES = DP / 64;  // 128-byte swizzle boxes per row
+  static constexpr int Q_BYTES = BQ * DP * 2;
+  static constexpr int KV_BYTES = BK * DP * 2;  // one K or V stage
+  static constexpr int BAR_OFF = Q_BYTES + 2 * STAGES * KV_BYTES;
+  // the barriers: Q full, K full, V full and empty per stage; + alignment
+  static constexpr int SMEM = 1024 + BAR_OFF + 8 * (1 + 3 * STAGES);
+};
+
+// ---- device primitives: mbarrier, TMA, wgmma, register budget ----
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ uint32_t mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done;
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  while (!mbar_try_wait(bar, parity)) {
+  }
+}
+
+// One box of `map` at coordinates (c0, c1, c2, c3) into shared memory at
+// `dst`; its bytes count against `bar`'s transaction count.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of wgmma's registers across
+// an asynchronous product: they belong to it until the wait.
+template <int N>
+__device__ __forceinline__ void hold(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int M, int N>
+__device__ __forceinline__ void hold(uint32_t (&r)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void regs_down() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void regs_up() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// D (64 x 64) = or += A (64 x 16, shared) * B (64 x 16, shared, K-major)
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 128) = or += A (64 x 16, shared) * B (128 x 16, shared, K-major)
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 64) += A (64 x 16, registers) * B (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// D (64 x 128) += A (64 x 16, registers) * B (16 x 128, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// D (64 x 192) += A (64 x 16, registers) * B (16 x 192, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[96], const uint32_t (&a)[4],
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// D (64 x 256) += A (64 x 16, registers) * B (16 x 256, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4],
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// ---- end of device primitives ----
+
+// wgmma's shared-memory descriptor of a 128-byte-swizzled operand at
+// shared address `addr` (1024-byte-aligned atoms of 8 rows x 128 bytes);
+// `lbo` and `sbo` in bytes (a K-major operand ignores lbo).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap,
+                          __nv_bfloat16* __restrict__ o, int group, int Sq, int Sk,
+                          int D, float qscale, int causal) {
+  using T = Tile<DP>;
+  constexpr int BK = T::BK;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t sQ = raw + ((1024 - (raw & 1023)) & 1023);  // [box][BQ][64]
+  const uint32_t sK = sQ + T::Q_BYTES;                       // [stage][box][BK][64]
+  const uint32_t sV = sK + T::STAGES * T::KV_BYTES;          // [stage][box][BK][64]
+  const uint32_t q_full = sQ + T::BAR_OFF;
+  const uint32_t k_full = q_full + 8;                 // + 8 * stage
+  const uint32_t v_full = k_full + 8 * T::STAGES;
+  const uint32_t empty = v_full + 8 * T::STAGES;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
+  const int shift = Sk - Sq;
+  // keys the tile needs: up to its last row's position when causal
+  const int kend = causal ? min(Sk, min(q0 + BQ, Sq) + shift) : Sk;
+  const int ntiles = (kend + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < T::STAGES; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // warp-uniform as the compiler sees it, so that setmaxnreg's register
+  // budgets apply to each role's code
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (wg == 0) {  // producer
+    regs_down<40>();
+    if (threadIdx.x == 0) {
+      const int hk = h / group;
+      mbar_expect_tx(q_full, T::Q_BYTES);
+      for (int x = 0; x < T::BOXES; ++x)
+        tma_load(sQ + x * BQ * 128, &qmap, q_full, 64 * x, q0, h, b);
+      for (int n = 0; n < ntiles; ++n) {
+        const int s = n % T::STAGES;
+        mbar_wait(empty + 8 * s, ((n / T::STAGES) & 1) ^ 1);
+        mbar_expect_tx(k_full + 8 * s, T::KV_BYTES);
+        for (int x = 0; x < T::BOXES; ++x)
+          tma_load(sK + s * T::KV_BYTES + x * BK * 128, &kmap, k_full + 8 * s,
+                   64 * x, n * BK, hk, b);
+        mbar_expect_tx(v_full + 8 * s, T::KV_BYTES);
+        for (int x = 0; x < T::BOXES; ++x)
+          tma_load(sV + s * T::KV_BYTES + x * BK * 128, &vmap, v_full + 8 * s,
+                   64 * x, n * BK, hk, b);
+      }
+    }
+  } else {  // consumers
+    regs_up<232>();
+    const int t = threadIdx.x - 128 * wg;
+    const int lane = t % 32;
+    const int first_row = q0 + 64 * (wg - 1);  // the warpgroup's rows
+    // this thread's rows row0 and row0 + 8, columns 8 j + col0 + {0, 1}
+    const int row0 = first_row + 16 * (t / 32) + lane / 4;
+    const int col0 = 2 * (lane % 4);
+    const int nks = (D + 15) / 16;  // QK^T k-slices
+    const uint32_t qa = sQ + 64 * (wg - 1) * 128;
+
+    float acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+
+    mbar_wait(q_full, 0);
+    for (int n = 0; n < ntiles; ++n) {
+      const int s = n % T::STAGES;
+      const uint32_t parity = (n / T::STAGES) & 1;
+      const int k0 = n * BK;
+
+      // S = Q K^T (float32 in registers: element 4 j + 2 i + c is row
+      // row0 + 8 i, key k0 + 8 j + col0 + c)
+      float sc[BK / 2];
+      mbar_wait(k_full + 8 * s, parity);
+      hold(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        if (kk < nks)
+          wgmma_ss(sc, sw128_desc(qa + (kk / 4) * (BQ * 128) + (kk % 4) * 32, 16, 1024),
+                   sw128_desc(sK + s * T::KV_BYTES + (kk / 4) * (BK * 128) + (kk % 4) * 32,
+                              16, 1024),
+                   kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      hold(sc);
+
+      if (k0 + BK > Sk || (causal && k0 + BK - 1 > first_row + shift)) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int last = causal ? min(Sk - 1, row0 + 8 * i + shift) : Sk - 1;
+#pragma unroll
+          for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+            for (int c = 0; c < 2; ++c)
+              if (k0 + 8 * j + col0 + c > last) sc[4 * j + 2 * i + c] = -INFINITY;
+        }
+      }
+
+      // online softmax in base 2 on the scaled scores
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+          mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * i], sc[4 * j + 2 * i + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[i], __fmul_rn(mx, qscale));
+        // a row that has seen no key yet keeps m = -inf: exponentiate from 0
+        const float base = m_new == -INFINITY ? 0.0f : m_new;
+        const float alpha = exp2f(__fsub_rn(m[i], base));
+        m[i] = m_new;
+        float sum = 0.0f;
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float p = exp2f(__fmaf_rn(sc[4 * j + 2 * i + c], qscale, -base));
+            sc[4 * j + 2 * i + c] = p;
+            sum = __fadd_rn(sum, p);
+          }
+        l[i] = __fmaf_rn(alpha, l[i], sum);
+#pragma unroll
+        for (int j = 0; j < DP / 8; ++j) {
+          acc[4 * j + 2 * i] = __fmul_rn(acc[4 * j + 2 * i], alpha);
+          acc[4 * j + 2 * i + 1] = __fmul_rn(acc[4 * j + 2 * i + 1], alpha);
+        }
+      }
+
+      // P as wgmma's A operand: 16 keys per slice, the S layout's registers
+      // 8 kk .. 8 kk + 7 in pairs
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+
+      // O += P V
+      mbar_wait(v_full + 8 * s, parity);
+      hold(acc);
+      hold(pa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs(acc, pa[kk],
+                 sw128_desc(sV + s * T::KV_BYTES + kk * 16 * 128, BK * 128, 1024), 1);
+      wgmma_commit();
+      wgmma_wait_all();
+      hold(acc);
+      hold(pa);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] = __fadd_rn(l[i], __shfl_xor_sync(0xffffffffu, l[i], 1));
+      l[i] = __fadd_rn(l[i], __shfl_xor_sync(0xffffffffu, l[i], 2));
+    }
+    __nv_bfloat16* ob = o + (static_cast<long long>(b) * gridDim.x + h) * Sq * D;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      if (row >= Sq) continue;
+      const float li = fmaxf(l[i], 1e-30f);
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int col = 8 * j + col0;
+        if (col < D)
+          *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<long long>(row) * D + col) =
+              __floats2bfloat162_rn(__fdiv_rn(acc[4 * j + 2 * i], li),
+                                    __fdiv_rn(acc[4 * j + 2 * i + 1], li));
+      }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, found through the runtime (no link
+// against libcuda); null if the installed libcuda lacks it.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The 4-D map (D, S, H, B) of a bfloat16 (B, H, S, D) tensor with element
+// strides st = {b, h, s} (unit stride along D), in boxes of 64 x rows.
+CUresult make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int H,
+                  int S, int D, const long long* st, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * 2,
+                                 static_cast<cuuint64_t>(st[1]) * 2,
+                                 static_cast<cuuint64_t>(st[0]) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <int DP>
+int launch_dp(const void* q, const void* k, const void* v, void* o, int B, int Hq,
+              int Hkv, int Sq, int Sk, int D, const long long* st, float qscale,
+              int causal, cudaStream_t stream) {
+  using T = Tile<DP>;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return MAP_ERROR + CUDA_ERROR_NOT_FOUND;
+  CUtensorMap maps[3];
+  CUresult r = make_map(encode, &maps[0], q, B, Hq, Sq, D, st, BQ);
+  if (r == CUDA_SUCCESS) r = make_map(encode, &maps[1], k, B, Hkv, Sk, D, st + 3, T::BK);
+  if (r == CUDA_SUCCESS) r = make_map(encode, &maps[2], v, B, Hkv, Sk, D, st + 6, T::BK);
+  if (r != CUDA_SUCCESS) return MAP_ERROR + static_cast<int>(r);
+  auto kern = flash_attention_tc_kernel<DP>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(Hq, B, (Sq + BQ - 1) / BQ);
+  kern<<<grid, THREADS, T::SMEM, stream>>>(maps[0], maps[1], maps[2],
+                                           static_cast<__nv_bfloat16*>(o), Hq / Hkv,
+                                           Sq, Sk, D, qscale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Shared memory (bytes) a launch at head dim D takes.
+extern "C" int flash_attention_tc_smem_bytes(int D) {
+  if (D <= 64) return Tile<64>::SMEM;
+  if (D <= 128) return Tile<128>::SMEM;
+  return D <= 192 ? Tile<192>::SMEM : Tile<256>::SMEM;
+}
+
+// flash_attention_launch's interface (csrc/flash_attention.cu): q (B, Hq,
+// Sq, D), k and v (B, Hkv, Sk, D) with unit stride along D and element
+// strides st = {q: b, h, s; k: b, h, s; v: b, h, s}; o (B, Hq, Sq, D)
+// contiguous; qscale = log2(e)/sqrt(D). Here dtype must be 1 (bfloat16),
+// D % 8 == 0, D <= 256 and every stride and pointer a multiple of 16
+// bytes. Returns the launch's cudaError_t, or MAP_ERROR + libcuda's
+// CUresult when a tensor map cannot be made.
+extern "C" int flash_attention_tc_launch(const void* q, const void* k, const void* v,
+                                         void* o, int dtype, int B, int Hq, int Hkv,
+                                         int Sq, int Sk, int D, const long long* strides,
+                                         float qscale, int causal, void* stream) {
+  if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
+  if (dtype != 1 || Hkv <= 0 || Hq % Hkv || D < 8 || D > 256 || D % 8 || Sk <= 0 ||
+      B > 65535 || Hq > 65535 || (Sq + BQ - 1) / BQ > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D <= 64)
+    return launch_dp<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, strides, qscale, causal, s);
+  if (D <= 128)
+    return launch_dp<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, strides, qscale, causal, s);
+  if (D <= 192)
+    return launch_dp<192>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, strides, qscale, causal, s);
+  return launch_dp<256>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, strides, qscale, causal, s);
+}

@@ -22,7 +22,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = ("sdp_pipeline", "mcm_pipeline", "grid_pipeline", "sdp_chunked",
-           "mcm_tiled", "semiring_matmul", "flash_attention", "chunked_scan")
+           "mcm_tiled", "semiring_matmul", "flash_attention", "flash_attention_tc",
+           "chunked_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "--fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

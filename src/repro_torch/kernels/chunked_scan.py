@@ -3,10 +3,11 @@ its plain PyTorch version.
 
 Port of ``repro/kernels/chunked_scan.py`` (``chunked_scan_pallas``). x and
 decay ``(T, D)``, h0 ``(D,)``; returns ``(h_all (T, D), h_last (D,))``.
-Each step rounds ``decay·h`` and then ``+ x`` (no fused multiply-add), in
-the kernel (``__fmul_rn``, ``__fadd_rn``) and in the plain version alike,
-so the two are bit-equal on the card. A CPU tensor goes through
-:func:`chunked_scan_plain`; a CUDA tensor launches
+Each step rounds ``decay·h + x`` once, as a fused multiply-add, in the
+kernel (``__fmaf_rn``) and in the plain version (``core.semiring.fma_f32``)
+alike: XLA's CPU compiler contracts the reference's ``d*h + x`` into one
+FMA, so kernel, plain version and reference are bit-equal. A CPU tensor
+goes through :func:`chunked_scan_plain`; a CUDA tensor launches
 ``csrc/chunked_scan.cu`` (float32), one launch per call. ``chunk`` is the
 reference's chunk length; both versions walk the rows one at a time, so it
 does not change the result and is only checked.
@@ -17,6 +18,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core.semiring import fma_f32
 from repro_torch.kernels import _build
 
 #: kernel launches per wrapper (incremented only where a kernel launches)
@@ -38,8 +40,7 @@ def chunked_scan_plain(x, decay, h0):
     h_all = torch.empty_like(x)
     h = h0.to(x.dtype)
     for t in range(x.shape[0]):
-        h = decay[t] * h
-        h = h + x[t]
+        h = fma_f32(decay[t], h, x[t])
         h_all[t] = h
     return h_all, h
 

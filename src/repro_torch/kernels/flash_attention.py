@@ -17,8 +17,17 @@ which equals ``ref.attention_ref``:
 
 A CPU tensor goes through :func:`flash_attention_plain` (KV chunks of 512
 with an online softmax, as ``_flash_ref_chunked``); a CUDA tensor launches
-``csrc/flash_attention.cu``, one launch per call, reading the kv heads in
-place (no repeat) through the strides of q, k and v.
+one of two bodies, one launch per call, reading the kv heads in place (no
+repeat) through the strides of q, k and v. :func:`body_for` picks it by a
+rule on dtype, head dim and alignment, never by trying:
+
+  * ``csrc/flash_attention_tc.cu`` (:data:`TENSOR_CORES`): bfloat16 with
+    ``D % 8 == 0`` and every pointer and (B, H, S) stride a multiple of 16
+    bytes, as TMA requires — both products as bf16 ``wgmma`` with float32
+    accumulators, K and V brought in by TMA;
+  * ``csrc/flash_attention.cu`` (:data:`CUDA_CORES`): everything else
+    (float32, odd head dims, unaligned views), all in float32 FMAs. Float32
+    stays there, off TF32, to keep its 1e-4 bound.
 """
 from __future__ import annotations
 
@@ -29,8 +38,11 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: kernel launches per wrapper (incremented only where a kernel launches)
-LAUNCHES = {"flash_attention": 0}
+#: kernel launches per wrapper (incremented only where a kernel launches):
+#: every K7 launch, and those of them that ran the tensor-core body
+LAUNCHES = {"flash_attention": 0, "flash_attention_tc": 0}
+#: the two CUDA bodies, as :func:`body_for` names them
+TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
 #: KV chunk of the plain version (the reference's default)
 PLAIN_CHUNK = 512
 #: widest head the kernel takes (its tiles fill the shared memory there)
@@ -91,7 +103,26 @@ def flash_attention_plain(q, k, v, causal: bool = True, chunk: int = PLAIN_CHUNK
     return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 
-def _launch(q, k, v, causal: bool):
+def body_for(q, k, v) -> str:
+    """The CUDA body that K7 launches for (B, H, S, D) inputs q, k, v that
+    its checks accept: :data:`TENSOR_CORES` for bfloat16 with ``D % 8 ==
+    0`` and every data pointer and every stride of the B, H and S dims a
+    multiple of 16 bytes (TMA's alignment); :data:`CUDA_CORES` otherwise.
+    Pure: reads dtypes, shapes, strides and pointers only, on any device."""
+    tensors = (q, k, v)
+    aligned = all(t.data_ptr() % 16 == 0
+                  and all(t.stride(i) * t.element_size() % 16 == 0 for i in range(3))
+                  for t in tensors)
+    if (all(t.dtype == torch.bfloat16 for t in tensors) and q.shape[-1] % 8 == 0
+            and q.shape[-1] <= MAX_HEAD_DIM and aligned):
+        return TENSOR_CORES
+    return CUDA_CORES
+
+
+def _launch(q, k, v, causal: bool, body: str):
+    """Launch ``body`` (:data:`TENSOR_CORES` or :data:`CUDA_CORES`) on
+    CUDA tensors after the checks; :func:`flash_attention` passes
+    :func:`body_for`'s choice."""
     name = "flash_attention"
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"{name}: q, k, v must be 4-D (B, H, S, D)")
@@ -118,8 +149,8 @@ def _launch(q, k, v, causal: bool):
         raise ValueError(f"{name}: no keys")
     strides = (ctypes.c_longlong * 9)(*(t.stride(i) for t in (q, k, v)
                                         for i in range(3)))
-    lib = _build.load("flash_attention")
-    fn = lib.flash_attention_launch
+    lib = "flash_attention_tc" if body == TENSOR_CORES else name
+    fn = getattr(_build.load(lib), f"{lib}_launch")   # one C interface for both
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -129,8 +160,10 @@ def _launch(q, k, v, causal: bool):
                 ctypes.cast(strides, ctypes.c_void_p),
                 math.log2(math.e) / math.sqrt(d), int(causal),
                 torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(rc, name)
+    _build.check(rc, lib)
     LAUNCHES[name] += 1
+    if lib != name:
+        LAUNCHES[lib] += 1
     return o
 
 
@@ -142,5 +175,5 @@ def flash_attention(q, k, v, causal: bool = True):
         raise ValueError(f"flash_attention: causal with Sq={q.shape[2]} > "
                          f"Sk={k.shape[2]} leaves query rows without keys")
     if q.is_cuda:
-        return _launch(q, k, v, causal)
+        return _launch(q, k, v, causal, body_for(q, k, v))
     return flash_attention_plain(q, k, v, causal=causal)

@@ -28,10 +28,11 @@ def tropical_matmul_ref(a, b, av=None, gv=None, bv=None):
 
 def chunked_scan_ref(x, decay, h0):
     """``h_t = decay_t ⊙ h_{t-1} + x_t`` over the rows of x, decay: (T, D);
-    h0: (D,). Returns (h_all (T, D), h_final (D,))."""
+    h0: (D,), each step rounded once (the reference's jitted scan contracts
+    it into a fused multiply-add). Returns (h_all (T, D), h_final (D,))."""
     h, rows = h0, []
     for t in range(x.shape[0]):
-        h = decay[t] * h + x[t]
+        h = fma_f32(decay[t], h, x[t])
         rows.append(h)
     return torch.stack(rows), h
 

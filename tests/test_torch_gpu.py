@@ -378,18 +378,24 @@ K7_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 @pytest.mark.parametrize("d", [16, 96, 128, 160])
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (6, 1)])
-@pytest.mark.parametrize("s", [1, 65, 333])
+@pytest.mark.parametrize("s", [1, 65, 127, 128, 129, 333, 1746])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, d, hq, hkv, s, dtype):
     """K7 at the head dims of the dense configs (16 reduced, 96 phi3, 128
     qwen3/granite, 160 stablelm), MHA, GQA and MQA, ragged S (no whole
-    64-row tile), q, k, v as the heads-major views the model passes."""
+    64-row tile; one row short of, at and past the tensor-core body's
+    128-row tile; a served prompt's 1746), q, k, v as the heads-major views
+    the model passes. bfloat16 runs the tensor-core body, float32 the
+    CUDA-core one (their counters say which ran)."""
     g = torch.Generator(device=cuda).manual_seed(d * s + hq)
     q, k, v = (torch.randn((2, s, h, d), generator=g, device=cuda).to(dtype).transpose(1, 2)
                for h in (hq, hkv, hkv))
-    before = k7.LAUNCHES["flash_attention"]
+    tc = dtype == torch.bfloat16
+    assert k7.body_for(q, k, v) == (k7.TENSOR_CORES if tc else k7.CUDA_CORES)
+    before = dict(k7.LAUNCHES)
     got = k7.flash_attention(q, k, v)
-    assert k7.LAUNCHES["flash_attention"] == before + 1
+    assert k7.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert k7.LAUNCHES["flash_attention_tc"] == before["flash_attention_tc"] + tc
     want = k7.flash_attention_plain(q, k, v)
     assert got.dtype == dtype and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), rtol=K7_TOL[dtype],
@@ -398,13 +404,36 @@ def test_flash_attention_kernel_matches_plain(cuda, d, hq, hkv, s, dtype):
 
 @pytest.mark.parametrize("sq,sk,causal", [(64, 64, False), (37, 200, True),
                                           (1, 130, True), (70, 70, False)])
-def test_flash_attention_kernel_end_aligned_and_non_causal(cuda, sq, sk, causal):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_end_aligned_and_non_causal(cuda, sq, sk, causal, dtype):
+    """Fewer queries than keys (the mask aligned at the end) and no mask,
+    in both bodies."""
     g = torch.Generator(device=cuda).manual_seed(sq * sk)
-    q = torch.randn((1, 4, sq, 64), generator=g, device=cuda)
-    k, v = (torch.randn((1, 2, sk, 64), generator=g, device=cuda) for _ in range(2))
-    torch.testing.assert_close(k7.flash_attention(q, k, v, causal=causal),
-                               k7.flash_attention_plain(q, k, v, causal=causal),
-                               rtol=1e-4, atol=1e-4)
+    q = torch.randn((1, 4, sq, 64), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((1, 2, sk, 64), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    before = k7.LAUNCHES["flash_attention_tc"]
+    got = k7.flash_attention(q, k, v, causal=causal)
+    assert k7.LAUNCHES["flash_attention_tc"] == before + (dtype == torch.bfloat16)
+    torch.testing.assert_close(got.float(),
+                               k7.flash_attention_plain(q, k, v, causal=causal).float(),
+                               rtol=K7_TOL[dtype], atol=K7_TOL[dtype])
+
+
+@pytest.mark.parametrize("s", [65, 333])
+def test_flash_attention_kernel_unaligned_bf16_takes_cuda_cores(cuda, s):
+    """bfloat16 rows 68 elements apart (136 bytes, not a multiple of 16):
+    TMA cannot address them, so by the rule the CUDA-core body runs."""
+    g = torch.Generator(device=cuda).manual_seed(s)
+    q, k, v = (torch.randn((1, h, s, 68), generator=g, device=cuda)
+               .to(torch.bfloat16)[..., :64] for h in (8, 2, 2))
+    assert k7.body_for(q, k, v) == k7.CUDA_CORES
+    before = dict(k7.LAUNCHES)
+    got = k7.flash_attention(q, k, v)
+    assert k7.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert k7.LAUNCHES["flash_attention_tc"] == before["flash_attention_tc"]
+    torch.testing.assert_close(got.float(), k7.flash_attention_plain(q, k, v).float(),
+                               rtol=K7_TOL[torch.bfloat16], atol=K7_TOL[torch.bfloat16])
 
 
 def test_flash_attention_kernel_rejects_bad_inputs(cuda):

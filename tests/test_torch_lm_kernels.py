@@ -8,15 +8,19 @@ bfloat16 within 2e-2 (the output rounds to bfloat16), the tolerances of
 ``tests/test_kernels.py``. Against the interpreted Pallas kernel only
 ``Sq == Sk`` is compared: its causal mask is aligned at the start.
 
-K8's plain version rounds ``decay·h`` and ``+ x`` separately, as the CUDA
-kernel does; XLA's CPU compiler contracts the reference's ``d*h + x`` into
-one fused multiply-add, so the two agree within 2e-5, and the contracted
-rounding (``core.semiring.fma_f32``) equals the reference bit for bit.
+K8's plain version rounds ``decay·h + x`` once (``core.semiring.fma_f32``),
+as the CUDA kernel does (``__fmaf_rn``) and as XLA's CPU compiler contracts
+the reference's ``d*h + x`` into one fused multiply-add: it equals the
+jitted reference and the interpreted Pallas kernel bit for bit.
+
+K7's body rule (:func:`flash_attention.body_for`), which picks the CUDA
+body for a card's tensors, is pure and is checked here on CPU tensors.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
@@ -124,6 +128,45 @@ def test_k7_gqa_reads_kv_head_h_over_group():
         torch.testing.assert_close(got[:, h:h + 1], want, rtol=F32_TOL, atol=F32_TOL)
 
 
+@pytest.mark.parametrize("d", [16, 96, 100, 128, 160, 256])
+@pytest.mark.parametrize("view", ["contiguous", "heads_major"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k7_body_rule(d, view, dtype):
+    """The tensor-core body takes bfloat16 with D % 8 == 0 and 16-byte
+    aligned pointers and strides, whether q, k, v are contiguous or the
+    model's heads-major views of (B, S, H, D); every other input takes the
+    float32 CUDA-core body."""
+    def make(h):
+        if view == "contiguous":
+            return torch.zeros((2, h, 5, d), dtype=dtype)
+        return torch.zeros((2, 5, h, d), dtype=dtype).transpose(1, 2)
+
+    q, k, v = make(6), make(2), make(2)
+    want = (k7.TENSOR_CORES if dtype == torch.bfloat16 and d % 8 == 0
+            else k7.CUDA_CORES)
+    assert k7.body_for(q, k, v) == want
+
+
+@pytest.mark.parametrize("breaks", ["pointer", "s_stride", "h_stride", "kv_only"])
+def test_k7_body_rule_unaligned_bf16_takes_cuda_cores(breaks):
+    """A bfloat16 view that TMA cannot address (a pointer or a stride not a
+    multiple of 16 bytes) takes the CUDA-core body."""
+    d = 64
+    aligned = torch.zeros((1, 4, 9, d), dtype=torch.bfloat16)
+    if breaks == "pointer":       # offset by one element: 2 bytes
+        t = torch.zeros(aligned.numel() + 1, dtype=torch.bfloat16)[1:].view(1, 4, 9, d)
+        q = k = v = t
+    elif breaks == "s_stride":    # rows of 68 elements: 136 bytes
+        q = k = v = torch.zeros((1, 4, 9, 68), dtype=torch.bfloat16)[..., :d]
+    elif breaks == "h_stride":    # heads 9 * 68 elements apart
+        q = k = v = torch.zeros((1, 9, 4, 68), dtype=torch.bfloat16)[..., :d].transpose(1, 2)
+    else:                         # q aligned, k and v sliced
+        q = aligned
+        k = v = torch.zeros((1, 4, 9, 68), dtype=torch.bfloat16)[..., :d]
+    assert k7.body_for(aligned, aligned, aligned) == k7.TENSOR_CORES
+    assert k7.body_for(q, k, v) == k7.CUDA_CORES
+
+
 # ---------------------------------------------------------------------------
 # K8
 # ---------------------------------------------------------------------------
@@ -143,9 +186,9 @@ def test_k8_plain_against_pallas_interpret_and_oracle(t, d, chunk, bd):
                                         torch.from_numpy(h0), chunk=chunk)
     for want_all, want_last in (
             chunked_scan_pallas(jx, jdec, jh0, chunk=chunk, bd=bd, interpret=True),
-            jref.chunked_scan_ref(jx, jdec, jh0)):
-        _close(got_all, want_all, F32_TOL)
-        _close(got_last, want_last, F32_TOL)
+            jax.jit(jref.chunked_scan_ref)(jx, jdec, jh0)):
+        assert np.array_equal(got_all.numpy(), np.asarray(want_all))
+        assert np.array_equal(got_last.numpy(), np.asarray(want_last))
     oracle_all, oracle_last = tref.chunked_scan_ref(
         torch.from_numpy(x), torch.from_numpy(dec), torch.from_numpy(h0))
     assert torch.equal(got_all, oracle_all) and torch.equal(got_last, oracle_last)
@@ -153,8 +196,8 @@ def test_k8_plain_against_pallas_interpret_and_oracle(t, d, chunk, bd):
 
 @pytest.mark.parametrize("t,d", [(64, 32), (256, 16)])
 def test_k8_reference_rounds_as_one_fused_multiply_add(t, d):
-    """Why the tolerance: the reference's scan equals the FMA-contracted
-    recurrence bit for bit (XLA on the CPU), the port rounds twice."""
+    """Why the port rounds once: the reference's scan equals the
+    FMA-contracted recurrence bit for bit (XLA on the CPU)."""
     x, dec, h0 = _scan_inputs(t, d, t * d)
     want_all, _ = jref.chunked_scan_ref(jnp.asarray(x), jnp.asarray(dec), jnp.asarray(h0))
     h, rows = torch.from_numpy(h0), []
