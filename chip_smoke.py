@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # everything below
+    python3 chip_smoke.py --sdp-shapes    # K1 and K3 at the main path's shapes
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc, at first
 use), holds each kernel against its plain PyTorch version on the card at the
@@ -59,6 +60,12 @@ then the LM serving path, whose prefill runs the flash-attention kernel K7:
 and last the gated linear scan K8 through ``ops.linear_scan`` at
 T = 32768, D = 2048, bit-equal to its plain version.
 
+K1 and K3 are also timed at every shape they launch on the main path (the
+new shapes held against the plain version, or K3 against K1 at
+viterbi 64 x 2048 and edit_distance 2048²), each kernel's ``path_ms``
+summed over its path launches, and every DP kernel's launches on the main
+and grid paths timed by CUDA events.
+
 Each answer is checked against the numpy oracle (or, where that is too slow,
 against the plain route on the card and the oracle at a reduced size), its
 decoded solution is recomputed to the optimum, and the kernels' launch
@@ -93,6 +100,7 @@ from repro_torch.kernels import mcm_pipeline as k2  # noqa: E402
 from repro_torch.kernels import mcm_tiled as k4  # noqa: E402
 from repro_torch.kernels import sdp_chunked as k3  # noqa: E402
 from repro_torch.kernels import sdp_pipeline as k1  # noqa: E402
+from repro_torch.kernels import sdp_walk  # noqa: E402
 from repro_torch.kernels import semiring_matmul as k5  # noqa: E402
 from repro_torch.kernels import chunked_scan as k8  # noqa: E402
 from repro_torch.kernels import flash_attention as k7  # noqa: E402
@@ -382,6 +390,10 @@ def phase_kernels(rng, cuda) -> tuple:
     offsets, n = sdp["offsets"], sdp["n"]
     a1, k = offsets[0], len(offsets)
     init = torch.from_numpy(sdp["init"]).to(cuda)[None]
+    k1_plan = sdp_walk.plan(offsets, False, ring=False)
+    k1_c = sdp_walk.cluster_size("sdp_pipeline", offsets, k1_plan, "min", False, False, cuda)
+    print(f"sdp_pipeline at sdp n={n}: {k1_plan}, cluster size {k1_c} (CTAs per "
+          f"instance, {sdp_walk.threads(k1_plan, k1_c)} threads each)")
     for with_args in (False, True):
         name = "sdp_pipeline_with_args" if with_args else "sdp_pipeline"
         fn = k1.sdp_pipeline_with_args if with_args else k1.sdp_pipeline
@@ -494,8 +506,10 @@ def phase_streaming_kernels(cuda, sdp: dict) -> list:
     offsets, n = sdp["offsets"], SDP_BIG_N
     a1, k = offsets[0], len(offsets)
     init = torch.from_numpy(sdp["init"]).to(cuda)[None]
-    print(f"sdp_chunked window (B, R, J) = {k3.window_plan(offsets)}, shared memory "
-          f"{k3.smem_bytes(offsets, False)} bytes")
+    C = k3.cluster_size(offsets, "min", False, False, cuda)
+    print(f"sdp_chunked at sdp n={n}: {k3.plan(offsets, False)}, cluster size {C} "
+          f"(CTAs per instance, {sdp_walk.threads(k3.plan(offsets, False), C)} threads "
+          f"each), shared memory {k3.smem_bytes(offsets, False, C)} bytes per CTA")
     (pt, pa), plain = timed_once(lambda: k3.sdp_chunked_plain(init, offsets, "min", n,
                                                               with_args=True))
     records = []
@@ -549,6 +563,152 @@ def phase_streaming_kernels(cuda, sdp: dict) -> list:
           f"plain {vplain:.3f} ms")
     print(f"streaming kernels phase: {time.perf_counter() - t0:.2f} s")
     return records
+
+
+@contextlib.contextmanager
+def launch_times():
+    """{launch counter: [device ms of each launch]} of the DP kernels (K1,
+    K2, K3, K4, K6) launched inside: CUDA events recorded around each
+    wrapper's ``_launch``, in stream order, so a pair brackets one launch
+    (with its wrapper's small copies and any host gap), read after a
+    synchronise; the counter that moved names the launch."""
+    pairs, times = [], {}
+
+    def timed(mod, launch):
+        def run(*args, **kw):
+            before = dict(mod.LAUNCHES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = launch(*args, **kw)
+            end.record()
+            moved = [k for k, v in mod.LAUNCHES.items() if v != before[k]]
+            if moved:
+                pairs.append((moved[0], start, end))
+            return out
+        return run
+
+    with contextlib.ExitStack() as stack:
+        for mod in (k1, k2, k3, k4, k6):
+            stack.enter_context(mock.patch.object(mod, "_launch", timed(mod, mod._launch)))
+        yield times
+        torch.cuda.synchronize()
+    for key, start, end in pairs:
+        times.setdefault(key, []).append(start.elapsed_time(end))
+
+
+def print_launch_times(path: str, times: dict) -> None:
+    print(f"DP kernels' device ms on the {path} path (CUDA events around each "
+          "launch, checks included): " + "; ".join(
+              f"{k} {sum(v):.3f} over {len(v)} launches (largest {max(v):.3f})"
+              for k, v in times.items()))
+
+
+def linear_tensors(spec, cuda) -> tuple:
+    init = torch.from_numpy(spec.init).to(cuda)
+    w = None if spec.weights is None else torch.from_numpy(spec.weights).to(cuda)
+    return init, w
+
+
+def sdp_work(spec, with_args: bool) -> tuple:
+    """(bytes, operations) of one S-DP solve: presets, offsets and weights
+    read once, the table (and args) written once; per cell past the presets
+    k - 1 compares, plus k semiring products where weighted."""
+    n, k, a1 = spec.n, len(spec.offsets), spec.offsets[0]
+    weighted = spec.weights is not None
+    nbytes = 4 * (a1 + k + n * (2 if with_args else 1) + (n * k if weighted else 0))
+    return nbytes, (n - a1) * (k - 1 + (k if weighted else 0))
+
+
+#: record name -> [(shape, launches of that shape on the main path)]: every
+#: launch K1 and K3 make on the main path (phase_main_path), by shape
+SDP_PATH_SHAPES = {
+    "sdp_pipeline": [("sdp 2^20", 1), ("edit_distance 513^2", 1)],
+    "sdp_pipeline_with_args": [("sdp 2^20", 1), ("edit_distance 513^2", 2),
+                               ("lcs 513^2", 1), ("unbounded_knapsack 4097", 1)],
+    "sdp_chunked": [("sdp 2^23", 1)],
+    "sdp_chunked_with_args": [("sdp 2^23", 1), ("viterbi 64 x 2048", 1),
+                              ("edit_distance 2048^2", 1)],
+}
+
+
+def phase_sdp_shapes(cuda, records: list) -> dict:
+    """K1 and K3 at every shape they launch on the main path: each new shape
+    held against the plain version (or, where that would take half a minute
+    or more, K3 against K1 on the same tensors), timed, and its bound; the
+    sdp shapes' times are the records'. Returns {record name: [shape
+    rows]}."""
+    t0 = time.perf_counter()
+    by_name = {r["name"]: r for r in records}
+    times = {("sdp_pipeline", "sdp 2^20"): by_name["sdp_pipeline"],
+             ("sdp_pipeline_with_args", "sdp 2^20"): by_name["sdp_pipeline_with_args"],
+             ("sdp_chunked", "sdp 2^23"): by_name["sdp_chunked"],
+             ("sdp_chunked_with_args", "sdp 2^23"): by_name["sdp_chunked_with_args"]}
+    times = {key: {"ms": r["ms"], "bound_ms": r["bound_ms"]} for key, r in times.items()}
+
+    def timed(key, spec, fn, with_args, reps, check, what):
+        ring = key[0].startswith("sdp_chunked")
+        p = sdp_walk.plan(spec.offsets, spec.weights is not None, ring)
+        print(f"{key[0]} at {key[1]}: {p}")
+        init, w = linear_tensors(spec, cuda)
+        run = lambda: fn(init, spec.offsets, spec.op, spec.n, weights=w)  # noqa: E731
+        got = run()
+        require(check(init, w, got), f"{key[0]} at {key[1]} (n={spec.n}, "
+                f"k={len(spec.offsets)}): {what}")
+        b, _ = bound_ms(*sdp_work(spec, with_args))
+        times[key] = {"ms": cuda_ms(run, reps), "bound_ms": b}
+        del got
+
+    def equals_plain(plain_fn, with_args):
+        def check(init, w, got):
+            want = plain_fn(init, None, w)
+            if with_args:
+                return torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            return torch.equal(got, want)
+        return check
+
+    others = other_instances(np.random.default_rng(SEED))
+    for name, label in (("edit_distance", "edit_distance 513^2"), ("lcs", "lcs 513^2"),
+                        ("unbounded_knapsack", "unbounded_knapsack 4097")):
+        spec = dp.get_problem(name).encode(**others[name])
+        plain = lambda init, _, w, s=spec: k1.sdp_pipeline_plain(  # noqa: E731
+            init, s.offsets, s.op, s.n, weights=w, with_args=True)
+        timed(("sdp_pipeline_with_args", label), spec, k1.sdp_pipeline_with_args,
+              True, 3, equals_plain(plain, True), "table and args bit-equal to plain")
+        if name == "edit_distance":
+            plain = lambda init, _, w, s=spec: k1.sdp_pipeline_plain(  # noqa: E731
+                init, s.offsets, s.op, s.n, weights=w)
+            timed(("sdp_pipeline", label), spec, k1.sdp_pipeline, False, 3,
+                  equals_plain(plain, False), "table bit-equal to plain")
+    def equals_k1(spec):
+        def check(init, w, got):
+            want = k1.sdp_pipeline_with_args(init, spec.offsets, spec.op, spec.n, weights=w)
+            return torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        return check
+
+    # the plain version would take ~30 s and minutes here: K3 against K1
+    # (viterbi 64 x 256 is held against the plain version above)
+    vspec = dp.get_problem("viterbi").encode(**others["viterbi"])
+    timed(("sdp_chunked_with_args", "viterbi 64 x 2048"), vspec, k3.sdp_chunked_with_args,
+          True, 3, equals_k1(vspec), "table and args bit-equal to sdp_pipeline's (K1)")
+    rs = np.random.default_rng(SEED)
+    espec = dp.get_problem("edit_distance").encode(
+        x=rs.integers(0, 4, EDIT_BIG_N), y=rs.integers(0, 4, EDIT_BIG_N))
+    timed(("sdp_chunked_with_args", "edit_distance 2048^2"), espec, k3.sdp_chunked_with_args,
+          True, 2, equals_k1(espec), "table and args bit-equal to sdp_pipeline's (K1)")
+
+    rows = {}
+    for name, shapes in SDP_PATH_SHAPES.items():
+        rows[name] = []
+        for shape, count in shapes:
+            t = times[(name, shape)]
+            rows[name].append({"shape": shape, "launches": count, **t})
+            print(f"{name} at {shape}: {t['ms']:.3f} ms x {count} on the main path, "
+                  f"bound {t['bound_ms']:.6f} ms")
+        by_name[name]["path_ms"] = sum(r["ms"] * r["launches"] for r in rows[name])
+        print(f"{name}: path_ms {by_name[name]['path_ms']:.3f}")
+    print(f"S-DP shapes phase: {time.perf_counter() - t0:.2f} s")
+    return rows
 
 
 EXPECTED_ROUTES = {"edit_distance": "kernel_blocked", "lcs": "kernel_blocked",
@@ -1349,11 +1509,34 @@ def phase_scan(cuda) -> dict:
     return rec
 
 
+def sdp_shapes_only(cuda) -> int:
+    """``--sdp-shapes``: the build, K1 and K3 at sdp 2^20 / 2^23 and
+    phase_sdp_shapes alone -- K1's and K3's times at every main-path shape,
+    for holding two trees' kernels side by side on one card."""
+    phase_build()
+    sdp = sdp_instance(np.random.default_rng(SEED))
+    init = torch.from_numpy(sdp["init"]).to(cuda)[None]
+    offsets, a1, k = sdp["offsets"], sdp["offsets"][0], len(sdp["offsets"])
+    records = []
+    for name, fn, n in (("sdp_pipeline", k1.sdp_pipeline, SDP_N),
+                        ("sdp_pipeline_with_args", k1.sdp_pipeline_with_args, SDP_N),
+                        ("sdp_chunked", k3.sdp_chunked, SDP_BIG_N),
+                        ("sdp_chunked_with_args", k3.sdp_chunked_with_args, SDP_BIG_N)):
+        ms = cuda_ms(lambda: fn(init, offsets, "min", n), reps=3)
+        nbytes = 4 * a1 + 4 * k + 4 * n * (2 if name.endswith("args") else 1)
+        records.append({"name": name, "ms": ms,
+                        "bound_ms": bound_ms(nbytes, (n - a1) * (k - 1))[0]})
+    phase_sdp_shapes(cuda, records)
+    return 1 if _failures else 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     cuda = torch.device("cuda", 0)
+    if sys.argv[1:] == ["--sdp-shapes"]:
+        return sdp_shapes_only(cuda)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip() or f"nvidia-smi failed: {smi.stderr.strip()}")
@@ -1366,12 +1549,15 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     records, sdp, dims = phase_kernels(rng, cuda)
     records += phase_streaming_kernels(cuda, sdp)
+    phase_sdp_shapes(cuda, records)
     grid_records = phase_grid_kernels(cuda)
     blocked_records = phase_semiring_kernels(cuda, dims)
 
     torch.cuda.reset_peak_memory_stats(cuda)
     reset_launches()
-    k4_table = phase_main_path(rng, cuda, sdp, dims)
+    with launch_times() as times:
+        k4_table = phase_main_path(rng, cuda, sdp, dims)
+    print_launch_times("main", times)
     counts = launches()
     print(f"launches on the main path: {counts}")
     print("streaming kernels' launches on the main path: "
@@ -1379,12 +1565,18 @@ def main() -> int:
     for rec in records:
         rec["launches"] = counts[rec["name"]]
         require(rec["launches"] > 0, f"{rec['name']} launched on the main path")
+        if rec["name"] in SDP_PATH_SHAPES:
+            want = sum(c for _, c in SDP_PATH_SHAPES[rec["name"]])
+            require(rec["launches"] == want, f"{rec['name']}: {rec['launches']} "
+                    f"launches on the main path, as its shapes count ({want})")
     print(f"peak device memory on the main path: {path_peak_gib():.3f} GiB")
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(cuda)
     reset_launches()
-    phase_grid(cuda)
+    with launch_times() as times:
+        phase_grid(cuda)
+    print_launch_times("grid", times)
     counts = launches()
     print(f"launches on the grid path: {counts}")
     for rec in grid_records:

@@ -6,7 +6,8 @@ version, and their registration as dispatchable routes.
   * ``mcm_pipeline`` — diagonal pipeline for the triangular split
                        recurrence, replacing ``repro``'s Pallas K2
   * ``sdp_chunked``  — the S-DP pipeline streamed through a shared-memory
-                       ring of the last ``a_1`` cells, replacing K3
+                       ring of the last ``a_1`` cells, replacing K3 (K1 and
+                       K3 walk the table by ``sdp_walk``'s plan)
   * ``mcm_tiled``    — the triangular recurrence over row × split tiles
                        staged in shared memory, with the traceback fused
                        into the launch, replacing K4
@@ -90,7 +91,7 @@ def _fits_smem(nbytes: int, device) -> bool:
 
 def _tiled_supports(spec, device) -> bool:
     return spec.n < 2 ** 31 and _fits_smem(
-        sdp_chunked.smem_bytes(spec.offsets, spec.weights is not None), device)
+        sdp_chunked.window_bytes(spec.offsets, spec.weights is not None), device)
 
 
 def _tiled_wavefront_supports(spec, device) -> bool:

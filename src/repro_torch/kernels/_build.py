@@ -4,8 +4,9 @@ them through ctypes.
 Each source compiles on its own into a shared library with a plain C
 interface; the first :func:`load` starts one ``nvcc`` per source, all at
 once, and waits for them together. Libraries land in the package's
-``build/`` directory (git-ignored), named by a hash of the source and the
-flags, so an edited source never loads a stale library.
+``build/`` directory (git-ignored), named by a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header never loads a stale library.
 """
 from __future__ import annotations
 
@@ -46,7 +47,8 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{tag}.so"
 

@@ -2,20 +2,22 @@
 kernel and its plain PyTorch version.
 
 Port of ``repro/kernels/sdp_pipeline.py``'s ``sdp_chunked_pallas`` and its
-arg twin. The recurrence, step geometry (``B = min(a_k, block)`` cells per
-step), fold order and arg rule are K1's (``sdp_pipeline``); what differs is
-where the table lives while it is built. A cell reads at most ``a_1`` cells
-back, so the kernel keeps only that horizon on chip: a ring of
-``R ≥ a_1 + B`` cells in shared memory, cell ``c`` in slot ``c mod R``
-(:func:`window_plan`). Finished cells also go straight to the output table,
-which nothing reads back. Weight rows of a step are staged ``J`` lanes at a
-time through a shared tile with coalesced loads.
+arg twin. The recurrence, fold order and arg rule are K1's
+(``sdp_pipeline``); what differs is where the table lives while it is
+built. A cell reads at most ``a_1`` cells back, so the kernel keeps only
+that horizon on chip: a ring of ``R ≥ a_1 + Q`` cells in shared memory,
+cell ``c`` in slot ``c mod R``, walked in chunks of ``Q`` cells
+(``csrc/sdp_walk.cuh``, planned by :func:`plan`). Finished cells also go
+straight to the output table, which nothing reads back. A plan whose lanes
+are all far and whose chunk is long runs each instance on a thread-block
+cluster (:func:`cluster_size`).
 
 Inputs carry a leading batch axis or none: ``init`` ``(a_1,)`` or
 ``(batch, a_1)``, ``weights`` ``(n, k)`` or ``(batch, n, k)``. A CPU tensor
-goes through :func:`sdp_chunked_plain`, which walks the same ring step by
-step; a CUDA tensor launches ``csrc/sdp_chunked.cu`` (one CTA per
-instance, one launch per batch). ``n ≤ a_1`` returns the clamped presets.
+goes through :func:`sdp_chunked_plain`, which walks the reference's ring
+step by step (``B = min(a_k, block)`` cells per step); a CUDA tensor
+launches ``csrc/sdp_chunked.cu`` (one CTA or one cluster per instance, one
+launch per batch). ``n ≤ a_1`` returns the clamped presets.
 """
 from __future__ import annotations
 
@@ -24,39 +26,64 @@ import ctypes
 import torch
 
 from repro_torch.core.semiring import SEMIGROUP_TO_SEMIRING
-from repro_torch.kernels import _build
-from repro_torch.kernels.sdp_pipeline import _OP_CODE, _check_args, fold_lanes
-
-#: weights staged per tile, in floats (``B·J``; 32 KB)
-WEIGHT_TILE_FLOATS = 8192
+from repro_torch.kernels import _build, sdp_walk
+from repro_torch.kernels.sdp_pipeline import _check_args, _runs_tensor, fold_lanes
 
 #: kernel launches per wrapper (incremented only where a kernel launches)
 LAUNCHES = {"sdp_chunked": 0, "sdp_chunked_with_args": 0}
 
 
-def window_plan(offsets, block: int = 512) -> tuple:
-    """``(B, R, J)``: cells per step, ring length, weight lanes per staged
-    tile. The ring holds the ``a_1``-cell horizon plus at least one step:
-    ``R`` is the smallest multiple of 32 that is ``≥ a_1 + B`` (a warp's
-    contiguous reads then stay on distinct banks across the wrap)."""
-    a1, ak, k = offsets[0], offsets[-1], len(offsets)
+def _plain_ring(offsets, block: int = 512) -> tuple:
+    """``(B, R)`` of the plain version: the reference's ``B = min(a_k,
+    block)`` cells per step and a ring of ``R`` slots, the least multiple
+    of 32 that is ``≥ a_1 + B``."""
+    a1, ak = offsets[0], offsets[-1]
     B = max(1, min(ak, block))
-    R = -(-(a1 + B) // 32) * 32
-    return B, R, min(k, max(1, WEIGHT_TILE_FLOATS // B))
+    return B, -(-(a1 + B) // 32) * 32
 
 
-def smem_bytes(offsets, weighted: bool, block: int = 512) -> int:
-    """Dynamic shared memory of one CTA: ring, offsets and (weighted) the
-    staged tile of row stride ``J | 1``."""
-    B, R, J = window_plan(offsets, block)
-    return 4 * (R + len(offsets) + (B * (J | 1) if weighted else 0))
+def window_bytes(offsets, weighted: bool, block: int = 512) -> int:
+    """The streaming route's admission rule: the shared memory of K3's first
+    design (a ring of ``_plain_ring``'s ``R`` slots, the offsets and, when
+    weighted, a staged tile of ``B·(J | 1)`` floats, ``J = min(k, 8192 //
+    B)``), kept so that the route serves the specs it served. Every spec
+    within the card's limit has a walk :func:`plan` that fits: its one-cell,
+    unstaged chunk needs no more than this ring."""
+    B, R = _plain_ring(offsets, block)
+    k = len(offsets)
+    J = min(k, max(1, 8192 // B))
+    return 4 * (R + k + (B * (J | 1) if weighted else 0))
+
+
+def plan(offsets, weighted: bool) -> sdp_walk.WalkPlan:
+    """The chunk walk with a ring (``sdp_walk.plan``); raises where not
+    even a one-cell chunk's ring fits the card's shared memory."""
+    p = sdp_walk.plan(offsets, weighted, ring=True)
+    if p is None:
+        raise ValueError(f"sdp_chunked: a window of a_1={offsets[0]} cells does "
+                         f"not fit the {_build.SMEM_OPTIN_BYTES} bytes of shared "
+                         "memory a block can use")
+    return p
+
+
+def smem_bytes(offsets, weighted: bool, C: int = 1) -> int:
+    """Dynamic shared memory of one CTA of :func:`plan`'s walk."""
+    return sdp_walk.smem_bytes(offsets, plan(offsets, weighted), C)
+
+
+def cluster_size(offsets, op: str, weighted: bool, with_args: bool, device) -> int:
+    """CTAs per instance of :func:`plan`'s walk on ``device``
+    (``sdp_walk.cluster_size``)."""
+    return sdp_walk.cluster_size("sdp_chunked", offsets, plan(offsets, weighted), op,
+                                 weighted, with_args, device)
 
 
 def sdp_chunked_plain(init, offsets, op: str, n: int, block: int = 512,
                       weights=None, with_args: bool = False):
-    """The kernel's computation in PyTorch: the same ring, the same steps
-    of ``B`` cells (vectorized per step), lanes folded in ascending ``j``
-    (min/max keep the first best lane). Returns ``st`` or ``(st, args)``."""
+    """The reference's computation in PyTorch: a ring of the last cells,
+    steps of ``B`` cells (vectorized per step), lanes folded in ascending
+    ``j`` (min/max keep the first best lane). Returns ``st`` or
+    ``(st, args)``."""
     offsets = _check_args(op, offsets, with_args)
     squeeze = init.dim() == 1
     if squeeze:
@@ -67,7 +94,7 @@ def sdp_chunked_plain(init, offsets, op: str, n: int, block: int = 512,
     if n <= a1:
         st = init[:, :n].clone()
     else:
-        B, R, _ = window_plan(offsets, block)
+        B, R = _plain_ring(offsets, block)
         mul = SEMIGROUP_TO_SEMIRING[op].mul
         offs = torch.tensor(offsets, device=dev)
         ring = torch.zeros((bt, R), dtype=init.dtype, device=dev)
@@ -111,30 +138,30 @@ def _launch(init, offsets, op, n, block, weights, with_args):
         raise ValueError(f"{name}: inputs must be contiguous")
     if n >= 2 ** 31:
         raise ValueError(f"{name}: n={n} exceeds int32 cell indices")
-    smem = smem_bytes(offsets, weights is not None, block)
-    if smem > _build.SMEM_OPTIN_BYTES:
-        raise ValueError(f"{name}: the window takes {smem} bytes of shared "
-                         f"memory, over the {_build.SMEM_OPTIN_BYTES} a block "
-                         "can use")
+    weighted = weights is not None
+    p = plan(offsets, weighted)
     dev = init.device
     if n <= a1:  # preset-only: nothing to pipeline, clamp the presets
         st = init[:, :n].clone()
         ar = torch.full((bt, n), -1, dtype=torch.int32, device=dev)
     else:
-        B, R, J = window_plan(offsets, block)
+        C = cluster_size(offsets, op, weighted, with_args, dev)
+        S = sdp_walk.splits(offsets, p, op, C)
         st = torch.empty((bt, n), dtype=torch.float32, device=dev)
         ar = (torch.empty((bt, n), dtype=torch.int32, device=dev)
               if with_args else None)
-        offs = torch.tensor(offsets, dtype=torch.int32, device=dev)
+        runs = _runs_tensor(offsets, dev)
         fn = _build.load("sdp_chunked").sdp_chunked_launch
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 13
                        + [ctypes.c_longlong, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         with torch.cuda.device(dev):
             rc = fn(init.data_ptr(), None if weights is None else weights.data_ptr(),
-                    offs.data_ptr(), st.data_ptr(),
+                    runs.data_ptr(), st.data_ptr(),
                     None if ar is None else ar.data_ptr(),
-                    bt, n, a1, k, B, R, J, _OP_CODE[op], smem,
+                    bt, n, a1, k, runs.shape[0], p.Q, p.R, p.near, int(p.stage),
+                    C, S, sdp_walk.threads(p, C, S), sdp_walk.OP_CODE[op],
+                    sdp_walk.smem_bytes(offsets, p, C, S),
                     torch.cuda.current_stream(dev).cuda_stream)
         _build.check(rc, name)
         LAUNCHES[name] += 1

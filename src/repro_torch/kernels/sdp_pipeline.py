@@ -12,7 +12,11 @@ clamped presets.
 Inputs carry a leading batch axis or none: ``init`` ``(a_1,)`` or
 ``(batch, a_1)``, ``weights`` ``(n, k)`` or ``(batch, n, k)``. A CPU tensor
 goes through :func:`sdp_pipeline_plain`; a CUDA tensor launches
-``csrc/sdp_pipeline.cu`` (one CTA per instance, one launch per batch).
+``csrc/sdp_pipeline.cu`` (one CTA or one cluster per instance, one launch
+per batch), which walks the table in chunks of its own length
+(``csrc/sdp_walk.cuh``, planned by ``sdp_walk.plan`` without a ring): the
+step geometry above is the reference's and the plain version's, and no
+result depends on it.
 """
 from __future__ import annotations
 
@@ -22,9 +26,7 @@ import torch
 
 from repro_torch.core.sdp import _check_offsets
 from repro_torch.core.semiring import SEMIGROUP_TO_SEMIRING
-from repro_torch.kernels import _build
-
-_OP_CODE = {"min": 0, "max": 1, "add": 2}
+from repro_torch.kernels import _build, sdp_walk
 
 #: kernel launches per wrapper (incremented only where a kernel launches)
 LAUNCHES = {"sdp_pipeline": 0, "sdp_pipeline_with_args": 0}
@@ -38,9 +40,15 @@ def _plan(offsets, n: int, block: int):
     return B, num_blocks, a1 + num_blocks * B
 
 
+def _runs_tensor(offsets, device) -> torch.Tensor:
+    """``sdp_walk.runs(offsets)`` as an int32 ``(runs, 4)`` tensor on
+    ``device``, the kernels' offset table."""
+    return torch.tensor(sdp_walk.runs(offsets), dtype=torch.int32, device=device)
+
+
 def _check_args(op: str, offsets, with_args: bool) -> tuple:
     offsets = tuple(int(a) for a in _check_offsets(offsets))
-    if op not in _OP_CODE:
+    if op not in sdp_walk.OP_CODE:
         raise ValueError(f"unknown op {op!r}")
     if with_args and op == "add":
         raise ValueError("argument tracking is undefined for op='add' "
@@ -125,20 +133,25 @@ def _launch(init, offsets, op, n, block, weights, with_args):
         st = init[:, :n].clone()
         ar = torch.full((bt, n), -1, dtype=torch.int32, device=dev)
     else:
-        B, num_blocks, _ = _plan(offsets, n, block)
+        weighted = weights is not None
+        p = sdp_walk.plan(offsets, weighted, ring=False)
+        C = sdp_walk.cluster_size("sdp_pipeline", offsets, p, op, weighted, with_args, dev)
+        S = sdp_walk.splits(offsets, p, op, C)
         st = torch.empty((bt, n), dtype=torch.float32, device=dev)
         ar = (torch.empty((bt, n), dtype=torch.int32, device=dev)
               if with_args else None)
-        offs = torch.tensor(offsets, dtype=torch.int32, device=dev)
-        lib = _build.load("sdp_pipeline")
-        fn = lib.sdp_pipeline_launch
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        runs = _runs_tensor(offsets, dev)
+        fn = _build.load("sdp_pipeline").sdp_pipeline_launch
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 12
+                       + [ctypes.c_longlong, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         with torch.cuda.device(dev):
             rc = fn(init.data_ptr(), None if weights is None else weights.data_ptr(),
-                    offs.data_ptr(), st.data_ptr(),
+                    runs.data_ptr(), st.data_ptr(),
                     None if ar is None else ar.data_ptr(),
-                    bt, n, a1, k, B, num_blocks, _OP_CODE[op],
+                    bt, n, a1, k, runs.shape[0], p.Q, p.near, int(p.stage), C, S,
+                    sdp_walk.threads(p, C, S), sdp_walk.OP_CODE[op],
+                    sdp_walk.smem_bytes(offsets, p, C, S),
                     torch.cuda.current_stream(dev).cuda_stream)
         _build.check(rc, name)
         LAUNCHES[name] += 1

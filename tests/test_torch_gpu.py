@@ -12,12 +12,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import dp  # noqa: E402
+from repro_torch import kernels as tkernels  # noqa: E402
 from repro_torch.core.mcm import num_cells  # noqa: E402
 from repro_torch.kernels import grid_pipeline as k6  # noqa: E402
 from repro_torch.kernels import mcm_pipeline as k2  # noqa: E402
 from repro_torch.kernels import mcm_tiled as k4  # noqa: E402
 from repro_torch.kernels import sdp_chunked as k3  # noqa: E402
 from repro_torch.kernels import sdp_pipeline as k1  # noqa: E402
+from repro_torch.kernels import sdp_walk  # noqa: E402
 from repro_torch.kernels import semiring_matmul as k5  # noqa: E402
 from repro_torch.kernels import chunked_scan as k8  # noqa: E402
 from repro_torch.kernels import flash_attention as k7  # noqa: E402
@@ -117,9 +119,8 @@ def test_mcm_kernel_bit_equal_to_plain(cuda, n, batch):
 @pytest.mark.parametrize("weighted", [False, True])
 def test_sdp_chunked_kernel_bit_equal_to_plain(cuda, offsets, n, block, op,
                                                weighted):
-    """Both K3 twins, batched; where a_1 + B is a multiple of 32 the ring
-    is tight (R = a_1 + B) and wraps every step or two; k = 40 at B = 512
-    stages the weights in three tiles."""
+    """Both K3 twins, batched, under several of the reference's step
+    geometries (``block``), on which no result of the kernel depends."""
     rng = np.random.default_rng(n + len(offsets))
     init = torch.tensor(rng.normal(size=(3, offsets[0])), dtype=torch.float32,
                         device=cuda)
@@ -140,7 +141,7 @@ def test_sdp_chunked_kernel_bit_equal_to_plain(cuda, offsets, n, block, op,
 
 @pytest.mark.parametrize("weighted", [False, True])
 def test_sdp_chunked_window_beyond_48k_shared_memory(cuda, weighted):
-    """a_1 = 2^14: a 67.6 KB ring (opt-in above 48 KB), 87 KB weighted."""
+    """a_1 = 2^14: a 68 KB ring (opt-in above 48 KB), 92 KB weighted."""
     offsets, n = (2 ** 14, 2 ** 13 + 1), 40000
     assert k3.smem_bytes(offsets, weighted) > 48 * 1024
     rng = np.random.default_rng(14)
@@ -151,6 +152,96 @@ def test_sdp_chunked_window_beyond_48k_shared_memory(cuda, weighted):
     gt, ga = k3.sdp_chunked_with_args(init, offsets, "min", n, weights=w)
     wt, wa = k3.sdp_chunked_plain(init, offsets, "min", n, weights=w, with_args=True)
     assert torch.equal(gt, wt) and torch.equal(ga, wa)
+
+
+def _walk_inputs(cuda, offsets, n, op, weighted, batch=2, ties=False,
+                 masked=False, seed=0):
+    rng = np.random.default_rng(seed)
+    a1, k = offsets[0], len(offsets)
+    if ties:          # small integers: many lanes tie, exercising the arg rule
+        init = rng.integers(0, 3, (batch, a1))
+        w = rng.integers(0, 3, (batch, n, k)) if weighted else None
+    else:
+        init = rng.normal(size=(batch, a1))
+        w = rng.normal(size=(batch, n, k)) * 0.1 if weighted else None
+    if masked:        # a third of the lanes hold the semiring zero
+        w[rng.random(w.shape) < 0.3] = np.inf if op == "min" else -np.inf
+    to = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda)  # noqa: E731
+    return to(init), None if w is None else to(w)
+
+
+def _walk_equals_plain(init, offsets, n, op, w):
+    """K1 and K3, both twins, against their plain versions, bit for bit."""
+    for kernel, kernel_args, plain in (
+            (k1.sdp_pipeline, k1.sdp_pipeline_with_args, k1.sdp_pipeline_plain),
+            (k3.sdp_chunked, k3.sdp_chunked_with_args, k3.sdp_chunked_plain)):
+        want = plain(init, offsets, op, n, weights=w)
+        assert torch.equal(kernel(init, offsets, op, n, weights=w), want)
+        if op != "add":
+            gt, ga = kernel_args(init, offsets, op, n, weights=w)
+            wt, wa = plain(init, offsets, op, n, weights=w, with_args=True)
+            assert torch.equal(gt, wt) and torch.equal(ga, wa)
+
+
+#: (offsets, n): the chunk's far/near boundary at every lane — edit_distance's
+#: (W+1, W, 1) at small W (near {1}, or near {W, 1} in the warp window),
+#: viterbi's contiguous 2S-1 .. 1 (near up to 63), all lanes far (2048, 1025),
+#: a knapsack-like scattered set, and n ≤ a_1 or not a multiple of Q
+SPLIT_WALK_CASES = [
+    ((3, 2, 1), 700), ((6, 5, 1), 1500), ((33, 32, 1), 2000), ((65, 64, 1), 3000),
+    ((701, 700, 1), 4000), (tuple(range(3, 0, -1)), 500), (tuple(range(15, 0, -1)), 900),
+    (tuple(range(63, 0, -1)), 1100), (tuple(range(127, 0, -1)), 2100),
+    ((2048, 1025), 9000), ((32, 30, 25, 17, 12, 8, 5, 3, 2, 1), 3000),
+    ((5, 3, 1), 4), ((40, 33, 32), 1057),
+]
+
+
+@pytest.mark.parametrize("offsets,n", SPLIT_WALK_CASES,
+                         ids=[f"a1={o[0]}-k={len(o)}-n={n}" for o, n in SPLIT_WALK_CASES])
+@pytest.mark.parametrize("op", ["min", "max", "add"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_split_walk_bit_equal_to_plain(cuda, offsets, n, op, weighted):
+    init, w = _walk_inputs(cuda, offsets, n, op, weighted)
+    _walk_equals_plain(init, offsets, n, op, w)
+
+
+@pytest.mark.parametrize("offsets,n", SPLIT_WALK_CASES[:10])
+@pytest.mark.parametrize("op", ["min", "max"])
+def test_split_walk_ties_and_masked_lanes(cuda, offsets, n, op):
+    """All-tie lanes from small-integer weights, and lanes masked with the
+    semiring zero (cells whose candidates are all zero take lane 0)."""
+    init, w = _walk_inputs(cuda, offsets, n, op, True, ties=True)
+    _walk_equals_plain(init, offsets, n, op, w)
+    init, w = _walk_inputs(cuda, offsets, n, op, True, masked=True)
+    _walk_equals_plain(init, offsets, n, op, w)
+
+
+@pytest.mark.parametrize("offsets,n", [((2048, 1025), 12000),
+                                       (tuple(range(2048, 1024, -1)), 7000)])
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_split_walk_cluster_path(cuda, offsets, n, batch, weighted):
+    """Wide all-far chunks run one cluster per instance (batch 1 and 3)."""
+    if not weighted:
+        assert k3.cluster_size(offsets, "min", False, True, cuda) > 1
+        plan = sdp_walk.plan(offsets, False, ring=False)
+        assert sdp_walk.cluster_size("sdp_pipeline", offsets, plan, "min", False,
+                                     True, cuda) > 1
+    init, w = _walk_inputs(cuda, offsets, n, "min", weighted, batch=batch)
+    _walk_equals_plain(init, offsets, n, "min", w)
+
+
+def test_split_walk_horizon_near_the_shared_memory_limit(cuda):
+    """a_1 = 57000 weighted: the route's window rule admits it with 4 KB to
+    spare, so the walk shrinks its chunk until the ring and the staged
+    weights fit."""
+    offsets, n = (57000, 1), 60100
+    assert tkernels._tiled_supports(dp.LinearSpec(
+        offsets=offsets, op="min", n=n, init=np.zeros(57000, np.float32),
+        weights=np.zeros((1, 1), np.float32)), cuda)
+    assert k3.smem_bytes(offsets, True) <= 232448
+    init, w = _walk_inputs(cuda, offsets, n, "min", True, batch=1)
+    _walk_equals_plain(init, offsets, n, "min", w)
 
 
 def _k4_equals_plain(w, n):

@@ -138,20 +138,112 @@ def test_k3_batch_axis_matches_single_instances():
         np.testing.assert_array_equal(ar[b].numpy(), a1.numpy())
 
 
+def _qrn(p) -> tuple:
+    return p.Q, p.R, p.near
+
+
 def test_k3_window_geometry():
-    """The ring holds the a_1-cell horizon and a whole step, its length
-    the least multiple of 32 that does; the shared memory counts ring,
-    offsets and the weight tile of odd row stride."""
+    """The walk's plan: the ring holds the a_1-cell horizon and a whole
+    chunk, its length the least multiple of 32 that does; the chunk is as
+    long as near offsets below the warp window allow, halved until shared
+    memory fits; shared memory counts ring, staged weights of odd row
+    stride and, with near lanes, the partials and the lane table."""
     for offsets in [(3, 1), (2048, 1025), (16384, 8193), (70, 69, 68, 40, 35)]:
-        B, R, J = tk3.window_plan(offsets)
-        assert R >= offsets[0] + B and R % 32 == 0
-        assert B * J <= tk3.WEIGHT_TILE_FLOATS or B == 1
-        assert tk3.smem_bytes(offsets, True) == 4 * (R + len(offsets) + B * (J | 1))
-    assert tk3.window_plan((30, 2))[:2] == (2, 32)              # tight: a_1 + B
-    assert tk3.window_plan((28, 20, 4))[:2] == (4, 32)
-    assert tk3.window_plan((31, 2))[:2] == (2, 64)
-    # the paper's top row (a_1 = 2^14): a 64 KB window, over the 48 KB default
+        p = tk3.plan(offsets, True)
+        assert p.R >= offsets[0] + p.Q and p.R % 32 == 0 and p.R - 32 < offsets[0] + p.Q
+        near = 2 * p.Q + tk3.sdp_walk.WINDOW + 1 if p.near else 0
+        assert tk3.smem_bytes(offsets, True) == 4 * (
+            p.R + 2 * p.Q * (len(offsets) | 1) + near) <= _build.SMEM_OPTIN_BYTES
+    assert _qrn(tk3.plan((30, 2), False)) == (1024, 1056, 2)     # near {30, 2}
+    assert _qrn(tk3.plan((28, 20, 4), False)) == (1024, 1056, 2)
+    assert _qrn(tk3.plan((31, 2), True)) == (1024, 1056, 2)
+    assert _qrn(tk3.plan((2050, 2049, 1), True)) == (1024, 3104, 1)   # near {1}
+    assert _qrn(tk3.plan(tuple(range(127, 0, -1)), True)) == (64, 192, 2)
+    assert _qrn(tk3.plan(tuple(range(2048, 1024, -1)), False)) == (1024, 3072, 0)
+    # the paper's top row (a_1 = 2^14): a 68 KB window, over the 48 KB default
     assert 48 * 1024 < tk3.smem_bytes((2 ** 14, 2 ** 13 + 1), False) <= _build.SMEM_OPTIN_BYTES
+
+
+#: offset sets for the planner: the zoo's shapes (edit_distance / lcs at
+#: 512 and 2048, viterbi at 64 states, knapsack), the paper's Table-I rows,
+#: the smoke's, and edges (a lone offset, the ring at the shared-memory limit)
+PLAN_OFFSETS = [
+    (1,), (2, 1), (3, 1), (514, 513, 1), (2050, 2049, 1), (65, 64, 1),
+    tuple(range(127, 0, -1)), tuple(range(3, 0, -1)), tuple(range(63, 0, -1)),
+    tuple(range(64, 0, -1)), (32, 30, 25, 17, 12, 8, 5, 3, 2, 1),
+    tuple(range(2048, 1024, -1)), (2048, 1025), (2 ** 14, 2 ** 13 + 1),
+    (60000, 1), (57000, 1), (58000, 1), (40, 33, 32), (70, 69, 68, 40, 35),
+    (1200, 700, 650, 64, 63, 2), tuple(range(600, 0, -3)),
+]
+
+
+def _old_window_bytes(offsets, weighted):
+    """The shared memory of K3's first design, which fixed the streaming
+    route's domain: ring of the least multiple of 32 >= a_1 + B cells
+    (B = min(a_k, 512)), the offsets, and a weight tile of B·(J|1) floats."""
+    a1, ak, k = offsets[0], offsets[-1], len(offsets)
+    B = max(1, min(ak, 512))
+    J = min(k, max(1, 8192 // B))
+    return 4 * (-(-(a1 + B) // 32) * 32 + k + (B * (J | 1) if weighted else 0))
+
+
+@pytest.mark.parametrize("offsets", PLAN_OFFSETS, ids=lambda o: f"a1={o[0]}-k={len(o)}")
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("ring", [False, True])
+def test_walk_plan_invariants(offsets, weighted, ring):
+    """Every far lane of a chunk reads an earlier chunk (a lane is near
+    exactly when its offset is below Q, and near offsets stay inside the
+    warp's 64-cell window); the near mode names the near set; the ring
+    holds a_1 + Q cells; shared memory fits; the plan never asks for more
+    than the first design's window where that fitted."""
+    from repro_torch.kernels import sdp_walk
+
+    p = sdp_walk.plan(offsets, weighted, ring)
+    admitted = _old_window_bytes(offsets, weighted) <= _build.SMEM_OPTIN_BYTES
+    if p is None:
+        assert ring and not admitted
+        return
+    near = [a for a in offsets if a < p.Q]
+    assert 1 <= p.Q <= sdp_walk.MAX_CHUNK and all(a < sdp_walk.WINDOW for a in near)
+    assert p.near == (0 if not near else 1 if near == [1] else 2)
+    assert p.stage <= weighted
+    if p.near == 0:                  # every lane far: no source inside the chunk
+        assert offsets[-1] >= p.Q
+    assert (p.R >= offsets[0] + p.Q and p.R % 32 == 0) if ring else p.R == 0
+    assert sdp_walk.smem_bytes(offsets, p) <= _build.SMEM_OPTIN_BYTES
+    assert sdp_walk.threads(p) >= p.Q and sdp_walk.threads(p) % 32 == 0
+    for op in ("min", "max", "add"):     # lane splits of the far fold
+        S = sdp_walk.splits(offsets, p, op)
+        assert (S == 1) if op == "add" else 1 <= S <= sdp_walk.MAX_SPLITS
+        assert sdp_walk.threads(p, 1, S) <= 1024
+        assert sdp_walk.smem_bytes(offsets, p, 1, S) <= _build.SMEM_OPTIN_BYTES
+    if p.wide:
+        for c in sdp_walk.cluster_candidates(p):
+            assert p.Q // c >= sdp_walk.CLUSTER_MIN_CELLS
+            assert sdp_walk.smem_bytes(offsets, p, c) <= sdp_walk.smem_bytes(offsets, p)
+            for op in ("min", "max", "add"):
+                S = sdp_walk.splits(offsets, p, op, c)
+                assert (S == 1) if op == "add" else 1 <= S <= sdp_walk.MAX_SPLITS
+                assert sdp_walk.threads(p, c, S) <= 1024
+    runs = sdp_walk.runs(offsets)
+    assert [a0 - t for a0, _, n, _ in runs for t in range(n)] == list(offsets)
+    assert [j0 + t for _, j0, n, _ in runs for t in range(n)] == list(range(len(offsets)))
+
+
+@pytest.mark.parametrize("offsets", PLAN_OFFSETS,
+                         ids=lambda o: f"a1={o[0]}-k={len(o)}")
+@pytest.mark.parametrize("weighted", [False, True])
+def test_tiled_supports_admits_the_specs_it_admitted(offsets, weighted):
+    """The streaming route's domain on the card is unchanged by the walk:
+    exactly the specs whose first-design window fits, each with a plan."""
+    spec = tdp.LinearSpec(offsets=offsets, op="min", n=2 * offsets[0] + 5,
+                          init=np.zeros(offsets[0], np.float32),
+                          weights=np.zeros((1, 1), np.float32) if weighted else None)
+    admitted = _old_window_bytes(offsets, weighted) <= _build.SMEM_OPTIN_BYTES
+    assert kernels._tiled_supports(spec, torch.device("cuda")) == admitted
+    assert kernels._tiled_supports(spec, torch.device("cpu"))
+    if admitted:
+        assert tk3.smem_bytes(offsets, weighted) <= _build.SMEM_OPTIN_BYTES
 
 
 def test_k3_rejects_args_for_add():
