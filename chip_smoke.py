@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py                 # everything below
-    python3 chip_smoke.py --sdp-shapes    # K1 and K3 at the main path's shapes
+    python3 chip_smoke.py --dp-shapes     # K1, K3, K4 and K6 antidiag at their paths' shapes
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc, at first
 use), holds each kernel against its plain PyTorch version on the card at the
@@ -60,11 +60,12 @@ then the LM serving path, whose prefill runs the flash-attention kernel K7:
 and last the gated linear scan K8 through ``ops.linear_scan`` at
 T = 32768, D = 2048, bit-equal to its plain version.
 
-K1 and K3 are also timed at every shape they launch on the main path (the
-new shapes held against the plain version, or K3 against K1 at
-viterbi 64 x 2048 and edit_distance 2048²), each kernel's ``path_ms``
-summed over its path launches, and every DP kernel's launches on the main
-and grid paths timed by CUDA events.
+K1, K3, K4 and K6 antidiag are also timed at every shape they launch on
+the main and grid paths (each new shape held against the plain version,
+or, where that would take minutes, K3 against K1 at viterbi 64 x 2048 and
+edit_distance 2048² and K4 against K2), each kernel's ``path_ms`` summed
+over its path launches, and every DP kernel's launches on the main and
+grid paths timed by CUDA events.
 
 Each answer is checked against the numpy oracle (or, where that is too slow,
 against the plain route on the card and the oracle at a reduced size), its
@@ -620,6 +621,23 @@ def sdp_work(spec, with_args: bool) -> tuple:
     return nbytes, (n - a1) * (k - 1 + (k if weighted else 0))
 
 
+def shape_rows(table: dict, times: dict, by_name: dict) -> dict:
+    """Each record's shapes with their times and launches, printed, and the
+    record's ``path_ms``: the sum of time x launches over its shapes."""
+    rows = {}
+    for name, shapes in table.items():
+        rows[name] = []
+        for shape, count, *path in shapes:
+            t = times[(name, shape)]
+            rows[name].append({"shape": shape, "launches": count, **t})
+            where = f" ({path[0]} path)" if path else ""
+            print(f"{name} at {shape}: {t['ms']:.3f} ms x {count}{where}, bound "
+                  f"{t['bound_ms']:.6f} ms")
+        by_name[name]["path_ms"] = sum(r["ms"] * r["launches"] for r in rows[name])
+        print(f"{name}: path_ms {by_name[name]['path_ms']:.3f}")
+    return rows
+
+
 #: record name -> [(shape, launches of that shape on the main path)]: every
 #: launch K1 and K3 make on the main path (phase_main_path), by shape
 SDP_PATH_SHAPES = {
@@ -697,17 +715,157 @@ def phase_sdp_shapes(cuda, records: list) -> dict:
     timed(("sdp_chunked_with_args", "edit_distance 2048^2"), espec, k3.sdp_chunked_with_args,
           True, 2, equals_k1(espec), "table and args bit-equal to sdp_pipeline's (K1)")
 
-    rows = {}
-    for name, shapes in SDP_PATH_SHAPES.items():
-        rows[name] = []
-        for shape, count in shapes:
-            t = times[(name, shape)]
-            rows[name].append({"shape": shape, "launches": count, **t})
-            print(f"{name} at {shape}: {t['ms']:.3f} ms x {count} on the main path, "
-                  f"bound {t['bound_ms']:.6f} ms")
-        by_name[name]["path_ms"] = sum(r["ms"] * r["launches"] for r in rows[name])
-        print(f"{name}: path_ms {by_name[name]['path_ms']:.3f}")
+    rows = shape_rows(SDP_PATH_SHAPES, times, by_name)
     print(f"S-DP shapes phase: {time.perf_counter() - t0:.2f} s")
+    return rows
+
+
+#: record name -> [(shape, launches of that shape on the main path)]: every
+#: launch K4 makes on the main path (phase_main_path), by shape
+MCM_PATH_SHAPES = {
+    "mcm_tiled": [("polygon_triangulation 511", 1)],
+    "mcm_tiled_with_args": [("optimal_bst 513", 1)],
+    "mcm_tiled_fused": [("mcm 1024", 1), (f"mcm {MCM_BATCH} x 512", 1),
+                        ("optimal_bst 513", 1), ("polygon_triangulation 511", 2)],
+}
+#: record name -> [(shape, launches, path)]: every launch K6 antidiag makes
+#: on the main and grid paths (phase_main_path, phase_grid), by shape
+GRID_PATH_SHAPES = {
+    "grid_pipeline_antidiag": [("edit_distance_grid 2049^2", 1, "main"),
+                               ("needleman_wunsch 4097^2", 1, "grid")],
+    "grid_pipeline_antidiag_with_args": [
+        ("needleman_wunsch 4097^2", 1, "grid"), ("gotoh 4097^2", 1, "grid"),
+        ("edit_distance_grid 513^2", 2, "grid"), ("lcs_grid 513^2", 2, "grid"),
+        ("needleman_wunsch 513^2", 1, "grid"), ("gotoh 513^2", 1, "grid"),
+        (f"needleman_wunsch {ALIGN_BATCH} x 1025^2", 1, "grid")],
+}
+
+
+def mcm_work(n: int, batch: int, with_args: bool, fused: bool) -> tuple:
+    """(bytes, operations) of one K4 launch: the weights the recurrence
+    reads (e < d) once, the table (and args, and nodes) written once; an
+    add, an add and a compare per candidate."""
+    needed = batch * sum((n - d) * d for d in range(1, n))
+    out = core_mcm.num_cells(n) * batch * (2 if with_args or fused else 1)
+    return 4 * needed + 4 * out + (12 * (n - 1) * batch if fused else 0), 3 * needed
+
+
+def phase_mcm_shapes(cuda, records: list) -> dict:
+    """K4 at every shape it launches on the main path: each held against K2
+    (tables and args; fused nodes against the host walk of the args),
+    timed, and its bound; MCM 1024's times are the records'. Returns
+    {record name: [shape rows]}."""
+    t0 = time.perf_counter()
+    by_name = {r["name"]: r for r in records if r["name"] in MCM_PATH_SHAPES}
+    times = {("mcm_tiled_fused", "mcm 1024"): {
+        "ms": by_name["mcm_tiled_fused"]["ms"],
+        "bound_ms": by_name["mcm_tiled_fused"]["bound_ms"]}}
+    others = other_instances(np.random.default_rng(SEED))
+    rng = np.random.default_rng(SEED)
+    weights = {
+        f"mcm {MCM_BATCH} x 512": np.stack([
+            dp.get_problem("mcm").encode(dims=mcm_dims(rng, MCM_BATCH_N)).weights
+            for _ in range(MCM_BATCH)]),
+        "optimal_bst 513": dp.get_problem("optimal_bst").encode(
+            **others["optimal_bst"]).weights[None],
+        "polygon_triangulation 511": dp.get_problem("polygon_triangulation").encode(
+            **others["polygon_triangulation"]).weights[None]}
+    fns = {"mcm_tiled": k4.mcm_tiled, "mcm_tiled_with_args": k4.mcm_tiled_with_args,
+           "mcm_tiled_fused": k4.mcm_tiled_fused}
+    for label, wt in weights.items():
+        w = torch.from_numpy(wt.astype(np.float32)).to(cuda)
+        bt, n = w.shape[0], w.shape[2] + 1
+        k2_table, k2_args = k2.mcm_pipeline_with_args(w, n)
+        for name, shapes in MCM_PATH_SHAPES.items():
+            if label not in (s for s, _ in shapes):
+                continue
+            got = fns[name](w, n)
+            table = got if name == "mcm_tiled" else got[0]
+            same = torch.equal(table, k2_table) and (
+                name == "mcm_tiled" or torch.equal(got[1], k2_args))
+            if name == "mcm_tiled_fused":
+                nodes = torch.stack(got[2], dim=-1).cpu().numpy()
+                args = got[1].cpu().numpy()
+                same = same and all(np.array_equal(
+                    nodes[b], core_mcm.triangular_traceback_np(args[b], n)) for b in range(bt))
+            require(same, f"{name} at {label} (n={n}, batch={bt}): table"
+                    f"{'' if name == 'mcm_tiled' else ' and args'} bit-equal to "
+                    f"mcm_pipeline's (K2){', nodes the host walk' if 'fused' in name else ''}")
+            b, _ = bound_ms(*mcm_work(n, bt, name != "mcm_tiled", name == "mcm_tiled_fused"))
+            times[(name, label)] = {"ms": cuda_ms(lambda: fns[name](w, n), reps=3),
+                                    "bound_ms": b}
+            del got, table
+        del w, k2_table, k2_args
+    rows = shape_rows(MCM_PATH_SHAPES, times, by_name)
+    print(f"MCM shapes phase: {time.perf_counter() - t0:.2f} s")
+    return rows
+
+
+def grid_shape_arrs(cuda) -> dict:
+    """{shape label: (arrs on the card, spec)} of every GRID_PATH_SHAPES
+    shape but gotoh 4097^2 (the records' instance)."""
+    insts = grid_instances(np.random.default_rng(SEED))
+    m = ALIGN_ORACLE_N
+    rs = np.random.default_rng(SEED)
+    long = {"x": rs.integers(0, 4, EDIT_BIG_N), "y": rs.integers(0, 4, EDIT_BIG_N)}
+    one = {"edit_distance_grid 2049^2": ("edit_distance_grid", long),
+           "needleman_wunsch 4097^2": ("needleman_wunsch", insts["needleman_wunsch"]),
+           "edit_distance_grid 513^2": ("edit_distance_grid", insts["edit_distance_grid"]),
+           "lcs_grid 513^2": ("lcs_grid", insts["lcs_grid"]),
+           "needleman_wunsch 513^2": ("needleman_wunsch",
+                                      {k: v[:m] for k, v in insts["needleman_wunsch"].items()}),
+           "gotoh 513^2": ("gotoh", {k: v[:m] for k, v in insts["gotoh"].items()})}
+    out = {}
+    for label, (name, inst) in one.items():
+        spec = dp.get_problem(name).encode(**inst)
+        out[label] = (tuple(torch.from_numpy(a).to(cuda) for a in spec.device_arrays()),
+                      spec, 1)
+    specs = [dp.get_problem("needleman_wunsch").encode(**i) for i in align_batch()]
+    out[f"needleman_wunsch {ALIGN_BATCH} x 1025^2"] = (
+        tuple(torch.from_numpy(np.stack(slot)).to(cuda)
+              for slot in zip(*(s.device_arrays() for s in specs))), specs[0], len(specs))
+    return out
+
+
+def phase_grid_shapes(cuda, records: list) -> dict:
+    """K6 antidiag at every shape it launches on the main and grid paths:
+    each held against the plain version (tables and args), timed, its
+    bound and the device memory one launch adds (outputs and scratch);
+    gotoh 4097^2's times are the records'. Returns {record name: [shape
+    rows]}."""
+    t0 = time.perf_counter()
+    by_name = {r["name"]: r for r in records if r["name"] in GRID_PATH_SHAPES}
+    times = {(name, "gotoh 4097^2"): {"ms": by_name[name]["ms"],
+                                      "bound_ms": by_name[name]["bound_ms"]}
+             for name in GRID_PATH_SHAPES}
+    fns = {"grid_pipeline_antidiag": k6.grid_pipeline,
+           "grid_pipeline_antidiag_with_args": k6.grid_pipeline_with_args}
+    for label, (arrs, spec, bt) in grid_shape_arrs(cuda).items():
+        meta = spec.static_meta()
+        want = k6.grid_pipeline_plain(arrs, meta, with_args=True)
+        P, RC, L = spec.planes, spec.cells, len(spec.moves)
+        for name, shapes in GRID_PATH_SHAPES.items():
+            if label not in (s for s, *_ in shapes):
+                continue
+            args = name.endswith("args")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            got = fns[name](arrs, meta)
+            extra = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+            table = got[0] if args else got
+            require(torch.equal(table, want[0]) and (not args or torch.equal(got[1], want[1])),
+                    f"{name} at {label}: table{' and args' if args else ''} bit-equal to plain")
+            b, _ = bound_ms(4 * bt * ((L + 2 * P) * RC + P * RC * (2 if args else 1)),
+                            2 * bt * antidiag_candidates(spec))
+            times[(name, label)] = {"ms": cuda_ms(lambda: fns[name](arrs, meta), reps=3),
+                                    "bound_ms": b}
+            print(f"{name} at {label}: one launch adds {extra:.1f} MiB of device memory")
+            del got, table
+        del arrs, want
+        torch.cuda.empty_cache()
+    rows = shape_rows(GRID_PATH_SHAPES, times, by_name)
+    print(f"grid shapes phase: {time.perf_counter() - t0:.2f} s")
     return rows
 
 
@@ -995,14 +1153,6 @@ def phase_grid_kernels(cuda) -> list:
     spec = dp.get_problem("gotoh").encode(**insts["gotoh"])
     arrs = tuple(torch.from_numpy(a).to(cuda) for a in spec.device_arrays())
     P, RC, L = spec.planes, spec.cells, len(spec.moves)
-    pos = k6.front_positions(spec.rows, spec.cols, cuda)
-    to_ms = cuda_ms(lambda: [k6.to_frontier(a, pos) for a in arrs], reps=3)
-    back = (torch.empty((1, P, RC), device=cuda),
-            torch.empty((1, P, RC), dtype=torch.int32, device=cuda))
-    back_ms = cuda_ms(lambda: [t[..., pos] for t in back], reps=3)
-    print(f"gotoh {spec.rows}x{spec.cols} layout: to frontier-major {to_ms:.3f} ms "
-          f"(weights, init, mask), back {back_ms:.3f} ms (table, args)")
-    del back
     records = k6_records("antidiag", arrs, spec.static_meta(), f"gotoh {spec.rows}^2",
                          4 * (L + 2 * P) * RC, 4 * P * RC, 2 * antidiag_candidates(spec),
                          reps=3)
@@ -1509,12 +1659,33 @@ def phase_scan(cuda) -> dict:
     return rec
 
 
-def sdp_shapes_only(cuda) -> int:
-    """``--sdp-shapes``: the build, K1 and K3 at sdp 2^20 / 2^23 and
-    phase_sdp_shapes alone -- K1's and K3's times at every main-path shape,
-    for holding two trees' kernels side by side on one card."""
+def print_plans(cuda) -> None:
+    """K4's grid and warps per cell, K6 antidiag's tiles at the paths'
+    shapes."""
+    n = MCM_N
+    G = k4.ctas(True, True, n, cuda)
+    print(f"mcm_tiled: {G} CTAs of {k4.THREADS} threads, {k4.spread_smem_bytes(n, True)} "
+          f"bytes of shared memory (fused, n={n}); warps per cell at n={n} by diagonal: "
+          + ", ".join(f"d={d} {k4.warps_per_cell(d, n - d, G)}"
+                      for d in (1, 33, 100, 300, 512, 800, 1023)))
+    for name in ("needleman_wunsch", "gotoh"):
+        spec = dp.get_problem(name).encode(x=[0, 1], y=[1, 0])
+        for with_args in (False, True):
+            plan = k6.tile_plan(spec.planes, spec.moves, with_args)
+            print(f"grid_pipeline_antidiag{'_with_args' if with_args else ''} ({name}): "
+                  f"{plan}, {k6.antidiag_ctas(spec.op, with_args, plan, 10 ** 6, cuda)} CTAs")
+
+
+def dp_shapes_only(cuda) -> int:
+    """``--dp-shapes``: the build, then K1 and K3 (sdp 2^20 / 2^23 and
+    phase_sdp_shapes), K4 (MCM 1024 and phase_mcm_shapes) and K6 antidiag
+    (gotoh 4097^2 and phase_grid_shapes) alone -- each kernel's times at
+    every shape of its paths, for holding two trees' kernels side by side
+    on one card."""
     phase_build()
-    sdp = sdp_instance(np.random.default_rng(SEED))
+    print_plans(cuda)
+    rng = np.random.default_rng(SEED)
+    sdp = sdp_instance(rng)
     init = torch.from_numpy(sdp["init"]).to(cuda)[None]
     offsets, a1, k = sdp["offsets"], sdp["offsets"][0], len(sdp["offsets"])
     records = []
@@ -1527,6 +1698,15 @@ def sdp_shapes_only(cuda) -> int:
         records.append({"name": name, "ms": ms,
                         "bound_ms": bound_ms(nbytes, (n - a1) * (k - 1))[0]})
     phase_sdp_shapes(cuda, records)
+    dims = mcm_dims(rng, MCM_N)
+    wtab = torch.from_numpy(dp.get_problem("mcm").encode(dims=dims).weights
+                            .astype(np.float32)).to(cuda)
+    cells = core_mcm.num_cells(MCM_N)
+    records = k4_records(wtab, cells, sum((MCM_N - d) * d for d in range(1, MCM_N)))
+    del wtab
+    phase_mcm_shapes(cuda, records)
+    torch.cuda.empty_cache()
+    phase_grid_shapes(cuda, phase_grid_kernels(cuda))
     return 1 if _failures else 0
 
 
@@ -1535,8 +1715,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     cuda = torch.device("cuda", 0)
-    if sys.argv[1:] == ["--sdp-shapes"]:
-        return sdp_shapes_only(cuda)
+    if sys.argv[1:] == ["--dp-shapes"]:
+        return dp_shapes_only(cuda)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip() or f"nvidia-smi failed: {smi.stderr.strip()}")
@@ -1546,11 +1726,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     phase_build()
+    print_plans(cuda)
     rng = np.random.default_rng(SEED)
     records, sdp, dims = phase_kernels(rng, cuda)
     records += phase_streaming_kernels(cuda, sdp)
     phase_sdp_shapes(cuda, records)
+    phase_mcm_shapes(cuda, records)
     grid_records = phase_grid_kernels(cuda)
+    phase_grid_shapes(cuda, grid_records)
     blocked_records = phase_semiring_kernels(cuda, dims)
 
     torch.cuda.reset_peak_memory_stats(cuda)
@@ -1562,13 +1745,14 @@ def main() -> int:
     print(f"launches on the main path: {counts}")
     print("streaming kernels' launches on the main path: "
           + ", ".join(f"{k} {counts[k]}" for k in (*k3.LAUNCHES, *k4.LAUNCHES)))
+    path_shapes = {**SDP_PATH_SHAPES, **MCM_PATH_SHAPES, **GRID_PATH_SHAPES}
     for rec in records:
         rec["launches"] = counts[rec["name"]]
         require(rec["launches"] > 0, f"{rec['name']} launched on the main path")
-        if rec["name"] in SDP_PATH_SHAPES:
-            want = sum(c for _, c in SDP_PATH_SHAPES[rec["name"]])
-            require(rec["launches"] == want, f"{rec['name']}: {rec['launches']} "
-                    f"launches on the main path, as its shapes count ({want})")
+    for name, shapes in path_shapes.items():
+        want = sum(c for _, c, *path in shapes if path in ([], ["main"]))
+        require(counts[name] == want, f"{name}: {counts[name]} launches on the main "
+                f"path, as its shapes count ({want})")
     print(f"peak device memory on the main path: {path_peak_gib():.3f} GiB")
 
     torch.cuda.empty_cache()
@@ -1582,6 +1766,10 @@ def main() -> int:
     for rec in grid_records:
         rec["launches"] = counts[rec["name"]]
         require(rec["launches"] > 0, f"{rec['name']} launched on the grid path")
+    for name, shapes in GRID_PATH_SHAPES.items():
+        want = sum(c for _, c, path in shapes if path == "grid")
+        require(counts[name] == want, f"{name}: {counts[name]} launches on the grid "
+                f"path, as its shapes count ({want})")
     print(f"peak device memory on the grid path: {path_peak_gib():.3f} GiB")
     records += grid_records
 

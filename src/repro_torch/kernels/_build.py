@@ -89,7 +89,15 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+#: cudaErrorCooperativeLaunchTooLarge: a cooperative grid larger than the
+#: card keeps resident, refused before it runs
+COOPERATIVE_TOO_LARGE = 720
+
+
 def check(rc: int, name: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launch."""
+    if rc == COOPERATIVE_TOO_LARGE:
+        raise RuntimeError(f"{name}: the grid cannot be co-resident on the card; "
+                           "the cooperative launch refused it")
     if rc:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")

@@ -6,15 +6,17 @@ its arg twin). ``arrs``/``meta`` are a ``GridSpec``'s ``device_arrays()``
 slots (as tensors, per instance or with a leading batch axis) and its
 ``static_meta()``.
 
-``antidiag`` — the buffers are permuted to *frontier-major* order: cell
-``(i, j)`` of front ``t = i + j`` sits at ``base(t) + j - c0(t)``, with
-``c0(t) = max(0, t - rows + 1)`` and ``base(t)`` the sum of the earlier
-fronts' lengths (:func:`front_base`, a closed form in three regimes). Each
-front is then one contiguous run, and the source of move ``(di, dj)`` for
-the front's lanes is a contiguous run of front ``t - di - dj``. A move whose
-source lies outside the grid contributes nothing; a preset cell takes its
-``init`` value and arg -1; a plane that no move targets keeps its initial
-value (``init`` where preset, the semiring zero elsewhere).
+``antidiag`` — the kernel runs a wavefront of ``T × T`` tiles over the
+caller's row-major planes (:func:`tile_plan`), each tile sweeping its inner
+anti-diagonals in shared memory. The plain version walks the cell fronts
+``t = i + j`` in *frontier-major* order: cell ``(i, j)`` of front ``t``
+sits at ``base(t) + j - c0(t)``, with ``c0(t) = max(0, t - rows + 1)`` and
+``base(t)`` the sum of the earlier fronts' lengths (:func:`front_base`, a
+closed form in three regimes), so each front is one contiguous run. Each
+cell's fold is the same in both. A move whose source lies outside the grid
+contributes nothing; a preset cell takes its ``init`` value and arg -1; a
+plane that no move targets keeps its initial value (``init`` where preset,
+the semiring zero elsewhere).
 
 ``spandiag`` — the table is diagonal-major per plane already. Per span
 diagonal, each (plane ``A``, lane ``i``) folds ``(left + right) + rw[r]``
@@ -27,12 +29,14 @@ declaration order — the tie rule of ``repro_torch.core.grid``'s
 ``argmin``/``argmax``, against which the CPU tests hold this module.
 
 A CPU tensor goes through :func:`grid_pipeline_plain`; a CUDA tensor
-launches ``csrc/grid_pipeline.cu`` (one CTA per instance, one launch per
-batch).
+launches ``csrc/grid_pipeline.cu`` (antidiag: a persistent cooperative grid
+over the tiles of the whole batch; spandiag: one CTA per instance; one
+launch per batch).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -45,8 +49,83 @@ LAUNCHES = {"grid_pipeline_antidiag": 0, "grid_pipeline_antidiag_with_args": 0,
             "grid_pipeline_spandiag": 0, "grid_pipeline_spandiag_with_args": 0}
 
 
+#: tile sides the antidiag plan tries, largest first, and the deepest halo
+#: it stages (longer moves read the finished table in device memory)
+TILE_SIDES = (64, 56, 48, 40, 32, 24, 16, 8, 4, 2, 1)
+HALO = 4
+#: bytes of static shared memory the antidiag kernel declares, kept free
+_STATIC_SMEM = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """The antidiag kernel's tiles: side ``T``; ``HI`` rows and ``HJ``
+    columns of halo; even row strides ``S1`` (table tile with halo) and
+    ``SW`` (weight, mask and arg tiles), so a warp's reads along an
+    anti-diagonal fall on distinct banks; ``tab`` ints of move table
+    (padded to 4); threads (one per plane and tile row) and the dynamic
+    shared memory of one CTA."""
+    T: int
+    HI: int
+    HJ: int
+    S1: int
+    SW: int
+    tab: int
+    threads: int
+    smem: int
+
+
+def _tile_smem(T: int, HI: int, HJ: int, tab: int, P: int, L: int,
+               with_args: bool) -> tuple:
+    S1, SW = -(-(T + HJ) // 2) * 2, -(-T // 2) * 2
+    planes = L + P + (P if with_args else 0)        # weights, mask, args
+    return S1, SW, 4 * (tab + P * (T + HI) * S1 + planes * T * SW)
+
+
+def tile_plan(P: int, moves, with_args: bool):
+    """The largest tile of :data:`TILE_SIDES` with a thread for each of its
+    ``P·T`` (plane, row) pairs in one CTA whose staged planes (table with
+    halo, weights, mask and, with args, the arg tile) and move table fit
+    the shared memory a block can use; None if not even a 1 × 1 tile
+    does."""
+    L = len(moves)
+    HI = min(max(int(m[2]) for m in moves), HALO)
+    HJ = min(max(int(m[3]) for m in moves), HALO)
+    tab = -(-(P + 1 + 4 * L) // 4) * 4
+    for T in (t for t in TILE_SIDES if P * t <= 1024):
+        S1, SW, smem = _tile_smem(T, HI, HJ, tab, P, L, with_args)
+        if smem <= _build.SMEM_OPTIN_BYTES - _STATIC_SMEM:
+            return TilePlan(T, HI, HJ, S1, SW, tab,
+                            -(-P * T // 32) * 32, smem)
+    return None
+
+
+_BLOCKS_PER_SM: dict = {}
+
+
+def antidiag_ctas(op: str, with_args: bool, plan: TilePlan, tiles: int, device) -> int:
+    """The antidiag grid on ``device``: every CTA the occupancy API says
+    the SMs keep resident at ``plan``'s threads and shared memory (asked
+    once per shape), at most one per tile. Raises if an SM keeps none."""
+    dev = torch.device(device)
+    key = (dev.index, op, with_args, plan.threads, plan.smem)
+    if key not in _BLOCKS_PER_SM:
+        fn = _build.load("grid_pipeline").grid_antidiag_blocks_per_sm
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_longlong]
+        fn.restype = ctypes.c_int
+        with torch.cuda.device(dev):
+            _BLOCKS_PER_SM[key] = fn(int(op == "min"), int(with_args), plan.threads,
+                                     plan.smem)
+    per_sm = _BLOCKS_PER_SM[key]
+    if per_sm < 1:
+        raise RuntimeError(f"grid_pipeline_antidiag: the card keeps no CTA of "
+                           f"{plan.threads} threads and {plan.smem} bytes of shared "
+                           "memory resident")
+    return min(tiles, per_sm * torch.cuda.get_device_properties(dev).multi_processor_count)
+
+
 # ---------------------------------------------------------------------------
-# antidiag geometry: the frontier-major layout
+# antidiag geometry: the frontier-major layout (the plain version's)
 # ---------------------------------------------------------------------------
 def front_base(t, R: int, C: int):
     """Frontier-major offset of front ``t``'s first cell: fronts grow by one
@@ -225,7 +304,9 @@ def _launch(fn_name: str, name: str, pointers: list, ints: list) -> None:
     LAUNCHES[name] += 1
 
 
-def _launch_antidiag(arrs, meta, with_args: bool):
+def _launch_antidiag(arrs, meta, with_args: bool, grid=None):
+    """The tile wavefront on CUDA tensors; ``grid`` overrides
+    :func:`antidiag_ctas` (a grid the card cannot keep resident raises)."""
     name = "grid_pipeline_antidiag" + ("_with_args" if with_args else "")
     _, op, P, R, C, moves, _ = meta
     squeeze, (w, init, pmask) = batched(arrs, meta)
@@ -235,23 +316,25 @@ def _launch_antidiag(arrs, meta, with_args: bool):
             "init_mask": (B, P, R, C)})
     if P * R * C >= 2 ** 31:
         raise ValueError(f"{name}: {P}·{R}·{C} cells exceed int32 indices")
-    table = _plane_table(moves, P, (1, 2, 3))
-    if 4 * len(table) > _build.SMEM_OPTIN_BYTES:
+    plan = tile_plan(P, moves, with_args)
+    if plan is None:
         raise ValueError(f"{name}: {L} moves exceed shared memory")
-    pos = front_positions(R, C, dev)
-    w_ad, init_ad, pm_ad = (to_frontier(a, pos) for a in (w, init, pmask))
-    mtab = torch.tensor(table, dtype=torch.int32, device=dev)
+    tiles = B * -(-R // plan.T) * -(-C // plan.T)
+    if tiles >= 2 ** 31:
+        raise ValueError(f"{name}: {tiles} tiles exceed int32 tickets")
+    G = antidiag_ctas(op, with_args, plan, tiles, dev) if grid is None else grid
+    mtab = torch.tensor(_plane_table(moves, P, (1, 2, 3)), dtype=torch.int32, device=dev)
     st = torch.empty((B, P, R * C), dtype=torch.float32, device=dev)
     ar = torch.empty((B, P, R * C), dtype=torch.int32, device=dev) if with_args else None
+    sync = torch.zeros(1 + tiles, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         _launch("grid_antidiag_launch", name,
-                [w_ad.data_ptr(), init_ad.data_ptr(), pm_ad.data_ptr(),
-                 mtab.data_ptr(), st.data_ptr(),
-                 None if ar is None else ar.data_ptr()],
-                [B, P, R, C, L, int(op == "min")])
-    return unbatched(squeeze, st[..., pos].reshape(B, -1),
-                      None if ar is None else ar[..., pos].reshape(B, -1),
-                      with_args)
+                [w.data_ptr(), init.data_ptr(), pmask.data_ptr(), mtab.data_ptr(),
+                 st.data_ptr(), None if ar is None else ar.data_ptr(), sync.data_ptr()],
+                [B, P, R, C, L, int(op == "min"), plan.T, plan.HI, plan.HJ, plan.S1,
+                 plan.SW, plan.tab, plan.threads, G, plan.smem])
+    return unbatched(squeeze, st.reshape(B, -1),
+                     None if ar is None else ar.reshape(B, -1), with_args)
 
 
 def _launch_spandiag(arrs, meta, with_args: bool):

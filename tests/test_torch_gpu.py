@@ -278,6 +278,55 @@ def test_mcm_tiled_kernel_at_tile_edges(cuda, n):
     _k4_equals_plain(w, n)
 
 
+@pytest.mark.parametrize("n,batch", [
+    (40, 1),     # every diagonal has fewer rows than the grid has CTAs
+    (700, 1),    # late diagonals: more splits than a warp, several warps a cell
+    (97, 5),     # instances share the grid's cells on every diagonal
+    (260, 3),
+])
+def test_mcm_tiled_spread_bit_equal_to_plain(cuda, n, batch):
+    """K4's three twins against the plain version and K2 where one
+    diagonal's cells are fewer than the CTAs, where splits outnumber a
+    warp's lanes, and with batched instances; weights of 0..3 tie often."""
+    g = torch.Generator(device=cuda).manual_seed(n * 7 + batch)
+    w = torch.randint(0, 4, (batch, num_cells(n), n - 1), generator=g,
+                      dtype=torch.float32, device=cuda)
+    ctas = k4.ctas(True, True, n, cuda)
+    assert any(k4.warps_per_cell(d, batch * (n - d), ctas) > 1 for d in range(1, n)) \
+        == (n > 32)
+    _k4_equals_plain(w, n)
+
+
+def test_mcm_tiled_all_inf_rows_keep_arg_zero(cuda):
+    """Rows whose every split weight is inf keep inf and arg 0."""
+    n = 150
+    g = torch.Generator(device=cuda).manual_seed(5)
+    w = torch.randint(0, 3, (2, num_cells(n), n - 1), generator=g,
+                      dtype=torch.float32, device=cuda)
+    rows = torch.randint(n, num_cells(n), (40,), generator=g, device=cuda)
+    w[0, rows] = float("inf")
+    w[1, rows[:10]] = float("inf")
+    _k4_equals_plain(w, n)
+    st, ar = k4.mcm_tiled_with_args(w, n)
+    assert torch.isinf(st[0, rows]).all() and (ar[0, rows] == 0).all()
+
+
+def test_mcm_tiled_grid_is_co_resident(cuda):
+    """The wrapper's grid is what the occupancy API keeps resident; a
+    larger one is refused by the cooperative launch, never run."""
+    lib = tkernels._build.load("mcm_tiled")
+    assert lib.mcm_tiled_threads() == k4.THREADS
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for with_args, fused in ((False, False), (True, False), (True, True)):
+        fn = lib.mcm_tiled_blocks_per_sm
+        fn.argtypes = [k4.ctypes.c_int, k4.ctypes.c_int, k4.ctypes.c_longlong]
+        per_sm = fn(int(with_args), int(fused), k4.spread_smem_bytes(1024, fused))
+        assert 1 <= k4.ctas(with_args, fused, 1024, cuda) <= per_sm * sms
+    w = torch.zeros((1, num_cells(9), 8), device=cuda)
+    with pytest.raises(RuntimeError, match="co-resident"):
+        k4._launch(w, 9, False, False, grid=per_sm * sms + 1)
+
+
 def test_streaming_kernels_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         k3.sdp_chunked(torch.zeros(3, dtype=torch.float64, device=cuda),
@@ -325,6 +374,74 @@ def test_grid_kernel_bit_equal_to_plain(cuda, name, size, batch):
 def test_grid_kernel_edge_cases(cuda, spec):
     _grid_kernel_equals_plain(grid_arrs(spec, cuda), spec.static_meta())
     _grid_kernel_equals_plain(grid_arrs(spec, cuda, batch=2), spec.static_meta())
+
+
+GOTOH_MOVES = ((0, 0, 1, 1), (0, 1, 1, 1), (0, 2, 1, 1), (1, 0, 1, 0),
+               (1, 1, 1, 0), (2, 0, 0, 1), (2, 2, 0, 1))
+
+
+def antidiag_spec(R, C, moves, planes, op, seed):
+    """A random antidiag spec: normal weights with out-of-grid moves masked,
+    the first row and column preset on every plane, ~5 % presets inside."""
+    rng = np.random.default_rng(seed)
+    zero = np.float32(np.inf if op == "min" else -np.inf)
+    w = rng.normal(size=(len(moves), R, C)).astype(np.float32)
+    for l, (_, _, di, dj) in enumerate(moves):
+        w[l, :di], w[l, :, :dj] = zero, zero
+    mask = rng.random((planes, R, C)) < 0.05
+    mask[:, 0, :] = mask[:, :, 0] = True
+    spec = dp.GridSpec(rows=R, cols=C, op=op, schedule="antidiag", planes=planes,
+                       moves=moves, weights=w, init_mask=mask,
+                       init=rng.normal(size=(planes, R, C)).astype(np.float32))
+    spec.validate()
+    return spec
+
+
+@pytest.mark.parametrize("R,C", [(1, 300), (300, 1), (130, 67), (129, 200),
+                                 (57, 57), (64, 65)])
+@pytest.mark.parametrize("op", ["min", "max"])
+def test_grid_antidiag_tiles_bit_equal_to_plain(cuda, R, C, op):
+    """R and C that are not multiples of the tile (56 for gotoh's moves
+    with args, 64 without), a single row or column, batched and not."""
+    spec = antidiag_spec(R, C, GOTOH_MOVES, 3, op, R * 1000 + C)
+    assert k6.tile_plan(3, GOTOH_MOVES, True).T == 56
+    assert k6.tile_plan(3, GOTOH_MOVES, False).T == 64
+    _grid_kernel_equals_plain(grid_arrs(spec, cuda), spec.static_meta())
+    _grid_kernel_equals_plain(grid_arrs(spec, cuda, batch=4), spec.static_meta())
+
+
+@pytest.mark.parametrize("moves", [
+    ((0, 0, 1, 1), (0, 0, 70, 0), (0, 0, 0, 1)),        # past a whole tile down
+    ((0, 0, 1, 0), (0, 0, 3, 66), (0, 0, 0, 130)),      # and right, twice over
+    ((0, 1, 5, 5), (1, 0, 1, 0), (1, 1, 0, 2), (0, 0, 2, 1)),  # past the halo
+    ((0, 0, 1, 1), (0, 0, 1, 0), (0, 0, 0, 1), (0, 0, 2, 1), (0, 0, 1, 2),
+     (0, 0, 3, 3), (0, 0, 2, 2), (0, 0, 7, 1)),         # more than registers hold
+])
+def test_grid_antidiag_long_moves_read_finished_tiles(cuda, moves):
+    """Moves whose source lies beyond the staged halo, or a whole tile
+    away, read the finished table in device memory; a plane's moves past
+    the four held in registers fold from shared memory, in order."""
+    planes = 1 + max(max(m[0], m[1]) for m in moves)
+    spec = antidiag_spec(150, 280, moves, planes, "max", len(moves))
+    _grid_kernel_equals_plain(grid_arrs(spec, cuda, batch=2), spec.static_meta())
+
+
+def test_grid_antidiag_grid_is_co_resident(cuda):
+    """The antidiag grid is at most what the occupancy API keeps resident;
+    a larger one is refused by the cooperative launch, never run."""
+    spec = antidiag_spec(300, 300, GOTOH_MOVES, 3, "max", 1)
+    lib = tkernels._build.load("grid_pipeline")
+    fn = lib.grid_antidiag_blocks_per_sm
+    fn.argtypes = [k6.ctypes.c_int] * 3 + [k6.ctypes.c_longlong]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for with_args in (False, True):
+        plan = k6.tile_plan(3, GOTOH_MOVES, with_args)
+        per_sm = fn(0, int(with_args), plan.threads, plan.smem)
+        assert 1 <= k6.antidiag_ctas("max", with_args, plan, 10 ** 6, cuda) <= per_sm * sms
+        assert k6.antidiag_ctas("max", with_args, plan, 7, cuda) == 7
+    arrs = grid_arrs(spec, cuda)
+    with pytest.raises(RuntimeError, match="co-resident"):
+        k6._launch_antidiag(arrs, spec.static_meta(), True, grid=per_sm * sms + 1)
 
 
 def test_grid_spandiag_rules_beyond_48k_shared_memory(cuda):

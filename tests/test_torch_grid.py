@@ -25,8 +25,9 @@ from repro.kernels.grid_pipeline import (grid_pipeline_pallas,  # noqa: E402
                                          grid_pipeline_pallas_with_args)
 from repro_torch import dp as tdp  # noqa: E402
 from repro_torch.core import grid as tgrid  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import grid_pipeline as tk6  # noqa: E402
-from test_torch_gpu import grid_arrs, grid_edge_specs  # noqa: E402
+from test_torch_gpu import GOTOH_MOVES, grid_arrs, grid_edge_specs  # noqa: E402
 
 GRID = ("needleman_wunsch", "gotoh", "cky", "edit_distance_grid", "lcs_grid")
 #: float32 tables against the float64 oracle (sums of a few dozen terms)
@@ -128,6 +129,57 @@ def test_frontier_layout(R, C):
     for f in range(R + C - 1):
         run = [int(pos[f - j, j]) for j in range(max(0, f - R + 1), min(f, C - 1) + 1)]
         assert run == list(range(bases[f], bases[f + 1]))
+
+
+NW_MOVES = ((0, 0, 1, 1), (0, 0, 1, 0), (0, 0, 0, 1))
+PLAN_MOVES = [(1, NW_MOVES), (3, GOTOH_MOVES), (3, grid_edge_specs()[0][1].moves),
+              (1, ((0, 0, 1, 1), (0, 0, 70, 0), (0, 0, 0, 1))),
+              (2, ((0, 1, 5, 5), (1, 0, 1, 0), (1, 1, 0, 2), (0, 0, 2, 1))),
+              (40, tuple((p, (p * 7) % 40, 1, p % 2) for p in range(40))),
+              (4, tuple((p % 4, (p * 3) % 4, 1 + p % 3, p % 2) for p in range(900)))]
+
+
+@pytest.mark.parametrize("P,moves", PLAN_MOVES, ids=lambda v: str(v)[:12])
+@pytest.mark.parametrize("with_args", [False, True])
+def test_antidiag_tile_plan_fits_shared_memory(P, moves, with_args):
+    """The largest tile side with one thread per (plane, row) whose staged
+    planes fit the shared memory a block can use (beside the kernel's
+    static shared memory); even row strides; a halo of at most HALO."""
+    plan = tk6.tile_plan(P, moves, with_args)
+    assert plan.smem <= _build.SMEM_OPTIN_BYTES - tk6._STATIC_SMEM
+    assert P * plan.T <= plan.threads <= 1024 and plan.threads % 32 == 0
+    assert plan.S1 % 2 == 0 and plan.S1 >= plan.T + plan.HJ
+    assert plan.SW % 2 == 0 and plan.SW >= plan.T
+    assert plan.HI == min(max(m[2] for m in moves), tk6.HALO)
+    assert plan.HJ == min(max(m[3] for m in moves), tk6.HALO)
+    assert plan.tab % 4 == 0 and plan.tab >= P + 1 + 4 * len(moves)
+    L = len(moves)
+    planes = L + P + (P if with_args else 0)
+    assert plan.smem == 4 * (plan.tab + P * (plan.T + plan.HI) * plan.S1
+                             + planes * plan.T * plan.SW)
+    larger = [t for t in tk6.TILE_SIDES if t > plan.T and P * t <= 1024]
+    for t in larger:    # every larger side overflows
+        assert tk6._tile_smem(t, plan.HI, plan.HJ, plan.tab, P, L, with_args)[2] \
+            > _build.SMEM_OPTIN_BYTES - tk6._STATIC_SMEM
+
+
+def test_antidiag_tile_plan_of_the_zoo():
+    assert tk6.tile_plan(1, NW_MOVES, True).T == 64
+    assert tk6.tile_plan(3, GOTOH_MOVES, True).T == 56
+    assert tk6.tile_plan(3, GOTOH_MOVES, False).T == 64
+    assert tk6.tile_plan(40, PLAN_MOVES[5][1], True).T == 16     # 40 planes staged
+
+
+def test_antidiag_launch_rejects_a_move_table_past_shared_memory():
+    """A spec whose move table leaves no room for even a 1 x 1 tile is
+    refused before any launch."""
+    moves = tuple((p % 8, (p * 3) % 8, 1, p % 2) for p in range(12000))
+    assert tk6.tile_plan(8, moves, True) is None
+    arrs = (torch.zeros((1, len(moves), 2, 2)), torch.zeros((1, 8, 2, 2)),
+            torch.ones((1, 8, 2, 2)))
+    meta = ("antidiag", "max", 8, 2, 2, moves, ())
+    with pytest.raises(ValueError, match="moves exceed shared memory"):
+        tk6._launch_antidiag(arrs, meta, True)
 
 
 @pytest.mark.parametrize("spec", [pytest.param(s, id=label)

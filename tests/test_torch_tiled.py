@@ -369,6 +369,36 @@ def test_k4_tile_plan_fits_shared_memory():
     assert tk4.tile_plan(66) == (96, 64) and tk4.tile_plan(17) == (32, 16)
 
 
+@pytest.mark.parametrize("n,batch,ctas", [(2, 1, 132), (40, 1, 132),
+                                          (1024, 1, 132), (512, 8, 132),
+                                          (700, 3, 7), (4096, 1, 264)])
+def test_k4_spread_plan_per_diagonal(n, batch, ctas):
+    """Warps per cell on each diagonal: a power of two, at most a CTA's
+    warps; enough lanes for the splits unless the cells would then
+    outnumber the groups; and the merge buffer (or the walk's stack)
+    within the shared memory the route's admission already reserves."""
+    for d in range(1, n):
+        cells = batch * (n - d)
+        g = tk4.warps_per_cell(d, cells, ctas)
+        assert 1 <= g <= tk4.WARPS and g & (g - 1) == 0
+        assert 32 * g >= d or g == tk4.WARPS or cells * 2 * g > ctas * tk4.WARPS
+        assert g == 1 or cells * g <= ctas * tk4.WARPS
+    assert tk4.warps_per_cell(1023, 1, 132) == tk4.WARPS
+    assert tk4.warps_per_cell(40, 10 ** 6, 132) == 1
+    for fused in (False, True):
+        assert tk4.spread_smem_bytes(n, fused) <= tk4.smem_bytes(n, fused)
+        assert tk4.spread_smem_bytes(n, fused) <= _build.SMEM_OPTIN_BYTES
+
+
+@pytest.mark.parametrize("n", [2, 17, 257, 1024, 4096, 29054, 29055, 40000, 65535])
+def test_tiled_wavefront_supports_admits_the_n_it_admitted(n):
+    """The fused route's domain on the card is the first design's: its
+    walk's stack of n + 2 int32 pairs within 227 KB, n ≤ 29054."""
+    spec = tdp.TriangularSpec(n=n, weights=np.zeros((1, 1), np.float32))
+    assert kernels._tiled_wavefront_supports(spec, torch.device("cuda")) == (n <= 29054)
+    assert kernels._tiled_wavefront_supports(spec, torch.device("cpu"))
+
+
 # ---------------------------------------------------------------------------
 # the fused route through the public entry points
 # ---------------------------------------------------------------------------
