@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py                 # everything below
-    python3 chip_smoke.py --dp-shapes     # K1, K3, K4 and K6 antidiag at their paths' shapes
+    python3 chip_smoke.py --dp-shapes     # the DP kernels K1-K4 and K6 at their paths' shapes
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc, at first
 use), holds each kernel against its plain PyTorch version on the card at the
@@ -60,12 +60,13 @@ then the LM serving path, whose prefill runs the flash-attention kernel K7:
 and last the gated linear scan K8 through ``ops.linear_scan`` at
 T = 32768, D = 2048, bit-equal to its plain version.
 
-K1, K3, K4 and K6 antidiag are also timed at every shape they launch on
-the main and grid paths (each new shape held against the plain version,
-or, where that would take minutes, K3 against K1 at viterbi 64 x 2048 and
-edit_distance 2048² and K4 against K2), each kernel's ``path_ms`` summed
-over its path launches, and every DP kernel's launches on the main and
-grid paths timed by CUDA events.
+K1, K2, K3, K4 and K6 (both schedules) are also timed at every shape they
+launch on the main and grid paths (each new shape held against the plain
+version, or, where that would take minutes, K3 against K1 at viterbi 64 x
+2048 and edit_distance 2048² and K4 against K2), each kernel's
+``path_ms`` summed over its path launches, and every DP kernel's launches
+on the main and grid paths timed by CUDA events. K4 is also timed at K2's
+path shape (mcm 8 x 256), beside K2.
 
 Each answer is checked against the numpy oracle (or, where that is too slow,
 against the plain route on the card and the oracle at a reduced size), its
@@ -721,15 +722,17 @@ def phase_sdp_shapes(cuda, records: list) -> dict:
 
 
 #: record name -> [(shape, launches of that shape on the main path)]: every
-#: launch K4 makes on the main path (phase_main_path), by shape
+#: launch K2 and K4 make on the main path (phase_main_path), by shape
 MCM_PATH_SHAPES = {
+    "mcm_pipeline": [(f"mcm {MCM_BATCH} x {MCM_SMALL_N}", 1)],
+    "mcm_pipeline_with_args": [(f"mcm {MCM_BATCH} x {MCM_SMALL_N}", 1)],
     "mcm_tiled": [("polygon_triangulation 511", 1)],
     "mcm_tiled_with_args": [("optimal_bst 513", 1)],
     "mcm_tiled_fused": [("mcm 1024", 1), (f"mcm {MCM_BATCH} x 512", 1),
                         ("optimal_bst 513", 1), ("polygon_triangulation 511", 2)],
 }
-#: record name -> [(shape, launches, path)]: every launch K6 antidiag makes
-#: on the main and grid paths (phase_main_path, phase_grid), by shape
+#: record name -> [(shape, launches, path)]: every launch K6 makes on the
+#: main and grid paths (phase_main_path, phase_grid), by shape
 GRID_PATH_SHAPES = {
     "grid_pipeline_antidiag": [("edit_distance_grid 2049^2", 1, "main"),
                                ("needleman_wunsch 4097^2", 1, "grid")],
@@ -738,11 +741,16 @@ GRID_PATH_SHAPES = {
         ("edit_distance_grid 513^2", 2, "grid"), ("lcs_grid 513^2", 2, "grid"),
         ("needleman_wunsch 513^2", 1, "grid"), ("gotoh 513^2", 1, "grid"),
         (f"needleman_wunsch {ALIGN_BATCH} x 1025^2", 1, "grid")],
+    "grid_pipeline_spandiag": [(f"cky {CKY['n']}", 1, "grid")],
+    "grid_pipeline_spandiag_with_args": [(f"cky {CKY['n']}", 1, "grid"),
+                                         (f"cky {CKY_ORACLE['n']}", 1, "grid")],
 }
+#: the shape of each K6 schedule's records (phase_grid_kernels)
+GRID_RECORD_SHAPES = {"antidiag": "gotoh 4097^2", "spandiag": f"cky {CKY['n']}"}
 
 
 def mcm_work(n: int, batch: int, with_args: bool, fused: bool) -> tuple:
-    """(bytes, operations) of one K4 launch: the weights the recurrence
+    """(bytes, operations) of one K2 or K4 launch: the weights the recurrence
     reads (e < d) once, the table (and args, and nodes) written once; an
     add, an add and a compare per candidate."""
     needed = batch * sum((n - d) * d for d in range(1, n))
@@ -750,16 +758,79 @@ def mcm_work(n: int, batch: int, with_args: bool, fused: bool) -> tuple:
     return 4 * needed + 4 * out + (12 * (n - 1) * batch if fused else 0), 3 * needed
 
 
+def k2_small_shape(cuda, times: dict) -> None:
+    """K2 at its main-path shape, a batch of 8 at n = 256 from the seed:
+    both twins bit-equal to the plain version and timed, beside K4's twins
+    on the same tensors (dispatch keeps K2 there; K4's times are printed
+    for the cost model's calibration, never used)."""
+    n, bt, label = MCM_SMALL_N, MCM_BATCH, f"mcm {MCM_BATCH} x {MCM_SMALL_N}"
+    rng = np.random.default_rng(SEED)
+    w = torch.from_numpy(np.stack([
+        dp.get_problem("mcm").encode(dims=mcm_dims(rng, n)).weights.astype(np.float32)
+        for _ in range(bt)])).to(cuda)
+    wt, wa = k2.mcm_pipeline_plain(w, n, with_args=True)
+    for name, fn in (("mcm_pipeline", k2.mcm_pipeline),
+                     ("mcm_pipeline_with_args", k2.mcm_pipeline_with_args)):
+        got = fn(w, n)
+        args = name.endswith("args")
+        require(torch.equal(got[0] if args else got, wt) and (not args or torch.equal(got[1], wa)),
+                f"{name} at {label}: table{' and args' if args else ''} bit-equal to plain")
+        b, _ = bound_ms(*mcm_work(n, bt, args, False))
+        times[(name, label)] = {"ms": cuda_ms(lambda: fn(w, n), reps=5), "bound_ms": b}
+    k4_ms = {name: cuda_ms(lambda: fn(w, n), reps=5) for name, fn in (
+        ("mcm_tiled", k4.mcm_tiled), ("mcm_tiled_with_args", k4.mcm_tiled_with_args))}
+    st, ar = k4.mcm_tiled_with_args(w, n)
+    require(torch.equal(st, wt) and torch.equal(ar, wa),
+            f"mcm_tiled_with_args at {label}: table and args bit-equal to plain")
+    print(f"K2 beside K4 at {label}: mcm_pipeline "
+          f"{times[('mcm_pipeline', label)]['ms']:.3f} ms, mcm_pipeline_with_args "
+          f"{times[('mcm_pipeline_with_args', label)]['ms']:.3f} ms; mcm_tiled "
+          f"{k4_ms['mcm_tiled']:.3f} ms, mcm_tiled_with_args "
+          f"{k4_ms['mcm_tiled_with_args']:.3f} ms")
+
+
+def k2_bank_wavefronts(n: int, C: int) -> str:
+    """K2's shared-memory operand loads at width ``n``, counted for the
+    first CTA of a cluster of ``C`` from the kernel's deal
+    (``mcm_pipeline.lanes_per_cell``): for each warp-wide load of a left or
+    right operand, the words it reads, the reads of a word another lane of
+    the load also reads (served at once, a broadcast), and its wavefronts
+    (the most distinct words in one of the 32 banks)."""
+    lanes, tid = C * k2.THREADS, np.arange(k2.THREADS)
+    loads = words = dup = waves = 0
+    for d in range(1, n):
+        cd = n - d
+        wd = k2.lanes_per_cell(d, cd, lanes)
+        t, q0, groups = tid % wd, (tid // wd) * C, (k2.THREADS // wd) * C
+        for q in range(0, cd, groups):
+            for e0 in range(0, d, wd):
+                e, i = e0 + t, q0 + q
+                live = (i < cd) & (e < d)
+                for addr in (core_mcm.lin_index(0, e, n) + i,
+                             core_mcm.lin_index(0, d - e - 1, n) + e + 1 + i):
+                    for row, ok in zip(addr.reshape(-1, 32), live.reshape(-1, 32)):
+                        if not ok.any():
+                            continue
+                        uniq = np.unique(row[ok])
+                        loads += 1
+                        words += int(ok.sum())
+                        dup += int(ok.sum()) - uniq.size
+                        waves += int(np.bincount(uniq % 32, minlength=32).max())
+    return (f"{waves / loads:.3f} wavefronts a warp load ({loads} loads of {words} "
+            f"words; {dup} reads of a word another lane of the load reads)")
+
+
 def phase_mcm_shapes(cuda, records: list) -> dict:
-    """K4 at every shape it launches on the main path: each held against K2
-    (tables and args; fused nodes against the host walk of the args),
-    timed, and its bound; MCM 1024's times are the records'. Returns
-    {record name: [shape rows]}."""
+    """K2 and K4 at every shape they launch on the main path: K2 held
+    against the plain version, K4 against K2 (tables and args; fused nodes
+    against the host walk of the args), timed, and its bound; MCM 1024's
+    times are K4's records'. Returns {record name: [shape rows]}."""
     t0 = time.perf_counter()
     by_name = {r["name"]: r for r in records if r["name"] in MCM_PATH_SHAPES}
     times = {("mcm_tiled_fused", "mcm 1024"): {
         "ms": by_name["mcm_tiled_fused"]["ms"],
         "bound_ms": by_name["mcm_tiled_fused"]["bound_ms"]}}
+    k2_small_shape(cuda, times)
     others = other_instances(np.random.default_rng(SEED))
     rng = np.random.default_rng(SEED)
     weights = {
@@ -777,7 +848,7 @@ def phase_mcm_shapes(cuda, records: list) -> dict:
         bt, n = w.shape[0], w.shape[2] + 1
         k2_table, k2_args = k2.mcm_pipeline_with_args(w, n)
         for name, shapes in MCM_PATH_SHAPES.items():
-            if label not in (s for s, _ in shapes):
+            if name not in fns or label not in (s for s, _ in shapes):
                 continue
             got = fns[name](w, n)
             table = got if name == "mcm_tiled" else got[0]
@@ -802,8 +873,8 @@ def phase_mcm_shapes(cuda, records: list) -> dict:
 
 
 def grid_shape_arrs(cuda) -> dict:
-    """{shape label: (arrs on the card, spec)} of every GRID_PATH_SHAPES
-    shape but gotoh 4097^2 (the records' instance)."""
+    """{shape label: (arrs on the card, spec, batch)} of every
+    GRID_PATH_SHAPES shape but the records' (GRID_RECORD_SHAPES)."""
     insts = grid_instances(np.random.default_rng(SEED))
     m = ALIGN_ORACLE_N
     rs = np.random.default_rng(SEED)
@@ -814,12 +885,15 @@ def grid_shape_arrs(cuda) -> dict:
            "lcs_grid 513^2": ("lcs_grid", insts["lcs_grid"]),
            "needleman_wunsch 513^2": ("needleman_wunsch",
                                       {k: v[:m] for k, v in insts["needleman_wunsch"].items()}),
-           "gotoh 513^2": ("gotoh", {k: v[:m] for k, v in insts["gotoh"].items()})}
+           "gotoh 513^2": ("gotoh", {k: v[:m] for k, v in insts["gotoh"].items()}),
+           f"cky {CKY_ORACLE['n']}": ("cky", cky_instance(
+               np.random.default_rng(SEED), CKY_ORACLE["n"], CKY_ORACLE["P"],
+               CKY_ORACLE["V"], CKY_ORACLE["rules"]))}
     out = {}
     for label, (name, inst) in one.items():
         spec = dp.get_problem(name).encode(**inst)
-        out[label] = (tuple(torch.from_numpy(a).to(cuda) for a in spec.device_arrays()),
-                      spec, 1)
+        out[label] = (tuple(torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+                            for a in spec.device_arrays()), spec, 1)
     specs = [dp.get_problem("needleman_wunsch").encode(**i) for i in align_batch()]
     out[f"needleman_wunsch {ALIGN_BATCH} x 1025^2"] = (
         tuple(torch.from_numpy(np.stack(slot)).to(cuda)
@@ -827,38 +901,49 @@ def grid_shape_arrs(cuda) -> dict:
     return out
 
 
+def spandiag_work(spec, with_args: bool) -> tuple:
+    """(bytes, operations) of one K6 spandiag launch on ``spec``: rule
+    weights and init read once, the chart (and args) written once; two adds
+    and a compare per (cell, split, rule into the cell's plane)."""
+    n, NR, P = spec.rows, len(spec.rules), spec.planes
+    nbytes = 4 * (NR + P * n) + 4 * P * core_mcm.num_cells(n) * (2 if with_args else 1)
+    return nbytes, 3 * NR * sum((n - d) * d for d in range(1, n))
+
+
 def phase_grid_shapes(cuda, records: list) -> dict:
-    """K6 antidiag at every shape it launches on the main and grid paths:
-    each held against the plain version (tables and args), timed, its
-    bound and the device memory one launch adds (outputs and scratch);
-    gotoh 4097^2's times are the records'. Returns {record name: [shape
-    rows]}."""
+    """K6 at every shape it launches on the main and grid paths: each held
+    against the plain version (tables and args), timed, its bound and the
+    device memory one launch adds (outputs and scratch); the records'
+    shapes (GRID_RECORD_SHAPES) take the records' times. Returns {record
+    name: [shape rows]}."""
     t0 = time.perf_counter()
     by_name = {r["name"]: r for r in records if r["name"] in GRID_PATH_SHAPES}
-    times = {(name, "gotoh 4097^2"): {"ms": by_name[name]["ms"],
-                                      "bound_ms": by_name[name]["bound_ms"]}
-             for name in GRID_PATH_SHAPES}
-    fns = {"grid_pipeline_antidiag": k6.grid_pipeline,
-           "grid_pipeline_antidiag_with_args": k6.grid_pipeline_with_args}
+    times = {(name, GRID_RECORD_SHAPES[name.split("_")[2]]): {
+        "ms": by_name[name]["ms"], "bound_ms": by_name[name]["bound_ms"]}
+        for name in GRID_PATH_SHAPES}
     for label, (arrs, spec, bt) in grid_shape_arrs(cuda).items():
         meta = spec.static_meta()
         want = k6.grid_pipeline_plain(arrs, meta, with_args=True)
-        P, RC, L = spec.planes, spec.cells, len(spec.moves)
         for name, shapes in GRID_PATH_SHAPES.items():
             if label not in (s for s, *_ in shapes):
                 continue
             args = name.endswith("args")
+            fn = k6.grid_pipeline_with_args if args else k6.grid_pipeline
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
-            got = fns[name](arrs, meta)
+            got = fn(arrs, meta)
             extra = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
             table = got[0] if args else got
             require(torch.equal(table, want[0]) and (not args or torch.equal(got[1], want[1])),
                     f"{name} at {label}: table{' and args' if args else ''} bit-equal to plain")
-            b, _ = bound_ms(4 * bt * ((L + 2 * P) * RC + P * RC * (2 if args else 1)),
-                            2 * bt * antidiag_candidates(spec))
-            times[(name, label)] = {"ms": cuda_ms(lambda: fns[name](arrs, meta), reps=3),
+            if spec.schedule == "spandiag":
+                b, _ = bound_ms(*spandiag_work(spec, args))
+            else:
+                P, RC, L = spec.planes, spec.cells, len(spec.moves)
+                b, _ = bound_ms(4 * bt * ((L + 2 * P) * RC + P * RC * (2 if args else 1)),
+                                2 * bt * antidiag_candidates(spec))
+            times[(name, label)] = {"ms": cuda_ms(lambda: fn(arrs, meta), reps=3),
                                     "bound_ms": b}
             print(f"{name} at {label}: one launch adds {extra:.1f} MiB of device memory")
             del got, table
@@ -1163,10 +1248,10 @@ def phase_grid_kernels(cuda) -> list:
     carrs = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
                   for a in cspec.device_arrays())
     n, NR, P = cspec.rows, len(cspec.rules), cspec.planes
+    in_bytes, ops = 4 * (NR + P * n), spandiag_work(cspec, False)[1]
     records += k6_records("spandiag", carrs, cspec.static_meta(),
-                          f"cky n={n} P={P} rules={NR}", 4 * (NR + P * n),
-                          4 * P * core_mcm.num_cells(n),
-                          3 * NR * sum((n - d) * d for d in range(1, n)), reps=5)
+                          f"cky n={n} P={P} rules={NR}", in_bytes,
+                          spandiag_work(cspec, False)[0] - in_bytes, ops, reps=5)
     print(f"grid kernels phase: {time.perf_counter() - t0:.2f} s")
     return records
 
@@ -1660,7 +1745,8 @@ def phase_scan(cuda) -> dict:
 
 
 def print_plans(cuda) -> None:
-    """K4's grid and warps per cell, K6 antidiag's tiles at the paths'
+    """K4's grid and warps per cell, K6 antidiag's tiles, K2's cluster and
+    table home, and K6 spandiag's grid and warps per triple at the paths'
     shapes."""
     n = MCM_N
     G = k4.ctas(True, True, n, cuda)
@@ -1674,14 +1760,54 @@ def print_plans(cuda) -> None:
             plan = k6.tile_plan(spec.planes, spec.moves, with_args)
             print(f"grid_pipeline_antidiag{'_with_args' if with_args else ''} ({name}): "
                   f"{plan}, {k6.antidiag_ctas(spec.op, with_args, plan, 10 ** 6, cuda)} CTAs")
+    for n, bt in ((MCM_SMALL_N, MCM_BATCH), (MCM_N, 1)):
+        C = k2.cluster_size(True, n, bt, cuda)
+        print(f"mcm_pipeline at {bt} x {n}: clusters of {C} ({k2.max_clusters(True, n, C, cuda)} "
+              f"resident), table in {k2.table_home(n)} memory, {k2.smem_bytes(n)} bytes "
+              f"of shared memory a CTA; lanes per cell by diagonal: " + ", ".join(
+                  f"d={d} {k2.lanes_per_cell(d, n - d, C * k2.THREADS)}"
+                  for d in (1, 16, 64, 128, n // 2, n - 2, n - 1)))
+        if k2.table_home(n) == "shared":
+            print(f"mcm_pipeline at {bt} x {n}, shared-memory operand loads of one CTA: "
+                  f"{k2_bank_wavefronts(n, C)}")
+    n, P, NR = CKY["n"], CKY["P"], CKY["rules"]
+    G = k6.spandiag_ctas("max", True, P, NR, cuda)
+    print(f"grid_pipeline_spandiag (cky {n} x {P} x {NR}): {G} CTAs of {k6.SD_THREADS} "
+          f"threads, {k6.spandiag_smem_bytes(P, NR)} bytes of shared memory; warps per "
+          "triple by diagonal: " + ", ".join(
+              f"d={d} {k6.spandiag_warps(d * NR // P, P * (n - d), G)}"
+              for d in (1, 8, 16, 32, 48, 63)))
+
+
+def k2_against_k4(wtab, cells: int, needed: int) -> list:
+    """K2's twins at MCM n = 1024 (the table in device memory) against K4's
+    fused table and args on the same tensors, timed: ``--dp-shapes``'s K2
+    records (the full smoke holds them against the plain version)."""
+    n = MCM_N
+    table, args, _ = k4.mcm_tiled_fused(wtab, n)
+    records = []
+    for name, fn in (("mcm_pipeline", k2.mcm_pipeline),
+                     ("mcm_pipeline_with_args", k2.mcm_pipeline_with_args)):
+        got = fn(wtab, n)
+        with_args = name.endswith("args")
+        require(torch.equal(got[0] if with_args else got, table)
+                and (not with_args or torch.equal(got[1], args)),
+                f"{name} n={n}: table{' and args' if with_args else ''} bit-equal to "
+                "mcm_tiled_fused's (K4)")
+        b, by = bound_ms(4 * needed + 4 * cells * (2 if with_args else 1), 3 * needed)
+        records.append({"name": name, "ms": cuda_ms(lambda: fn(wtab, n), reps=3),
+                        "bound_ms": b})
+        print(f"{name} at mcm {n}: {records[-1]['ms']:.3f} ms, bound {b:.4f} ms ({by})")
+        del got
+    return records
 
 
 def dp_shapes_only(cuda) -> int:
     """``--dp-shapes``: the build, then K1 and K3 (sdp 2^20 / 2^23 and
-    phase_sdp_shapes), K4 (MCM 1024 and phase_mcm_shapes) and K6 antidiag
-    (gotoh 4097^2 and phase_grid_shapes) alone -- each kernel's times at
-    every shape of its paths, for holding two trees' kernels side by side
-    on one card."""
+    phase_sdp_shapes), K2 and K4 (MCM 1024 and phase_mcm_shapes) and K6
+    (gotoh 4097^2, the cky chart and phase_grid_shapes) alone -- each
+    kernel's times at every shape of its paths, for holding two trees'
+    kernels side by side on one card."""
     phase_build()
     print_plans(cuda)
     rng = np.random.default_rng(SEED)
@@ -1702,7 +1828,8 @@ def dp_shapes_only(cuda) -> int:
     wtab = torch.from_numpy(dp.get_problem("mcm").encode(dims=dims).weights
                             .astype(np.float32)).to(cuda)
     cells = core_mcm.num_cells(MCM_N)
-    records = k4_records(wtab, cells, sum((MCM_N - d) * d for d in range(1, MCM_N)))
+    needed = sum((MCM_N - d) * d for d in range(1, MCM_N))
+    records = k4_records(wtab, cells, needed) + k2_against_k4(wtab, cells, needed)
     del wtab
     phase_mcm_shapes(cuda, records)
     torch.cuda.empty_cache()

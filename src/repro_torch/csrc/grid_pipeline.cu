@@ -44,12 +44,25 @@
 // spandiag (cky): the triangular split recurrence with a plane axis,
 //   ST[A, lin(i,d)] = op_{e, r: A(r)=A} ((ST[B(r), lin(i,e)]
 //                                        + ST[C(r), lin(i+e+1, d-e-1)]) + rw[r])
-// one span diagonal d per step, d = 1 .. n-1; threads cover the (plane,
-// lane) pairs of the diagonal, lanes fastest, so loads of one rule's
-// operands are contiguous across a warp. Splits e ascend in the outer loop
-// and the rules into A, in declaration order, in the inner one; the packed
-// arg is e*NR + r. Diagonal 0 is preset from init (args -1); a plane no
-// rule targets stays at the semiring zero with args -1.
+// one span diagonal d per step, d = 1 .. n-1, spread over the whole card:
+// a persistent cooperative grid (as many CTAs as the card keeps resident,
+// from the occupancy API; a larger grid is refused, never hung), a grid
+// barrier (grid_sync.cuh) between diagonals. A diagonal's (instance,
+// targeted plane, cell) triples are dealt out to groups of g warps (g =
+// spandiag_warps: as many as a triple's candidates fill, as long as every
+// triple still gets a group), consecutive triples to consecutive CTAs. A
+// triple's candidates (split e, rule r into A), e-major and the rules in
+// declaration order, so in ascending packed key e*NR + r, are dealt to the
+// group's lanes in turn; each lane folds its own in ascending order, then
+// the group merges by (value, key): the first best candidate, the
+// sequential fold's. Operands come from a cell-major copy of the chart
+// (every plane of a cell contiguous, scratch the wrapper allocates: as
+// large as the table), so a warp's loads at one split touch one or two
+// cells' rows; finished cells go to the table and the copy, and are read
+// past L1 (ld.global.cg), as other SMs wrote them. The rule table stays in
+// shared memory; rule weights are read through the read-only cache.
+// Diagonal 0 is preset from init (args -1); a plane no rule targets stays
+// at the semiring zero with args -1.
 //
 // Both fold with strict improvement from the semiring zero, the arg
 // starting at the first move or rule into the plane: ties keep the first
@@ -58,19 +71,22 @@
 // --fmad=false and no fast math. Max and min never mix +inf and -inf: the
 // grid problems mask invalid moves with their own semiring zero.
 //
-// Mapping: antidiag, a persistent cooperative grid over the tiles of the
-// whole batch; spandiag, one CTA per instance (grid = batch),
-// __syncthreads() between diagonals. The per-plane move or rule lists (and
-// the rule weights) live in shared memory. Tables stay in device memory
+// Mapping: both are persistent cooperative grids, antidiag over the tiles
+// of the whole batch, spandiag over each diagonal's triples. The per-plane
+// move or rule lists live in shared memory. Tables stay in device memory
 // (gotoh at 4096 x 4096 is 1.3 GB). Offsets into the tables are 64-bit:
 // batch * L * R * C weights pass 2^31 in a batch of gotoh at 4096^2.
 //
 // What bounds it on this card: the byte bound is the inputs once plus the
 // outputs once (0.38 ms at gotoh 4096^2). antidiag's serial chain is the
 // tile wavefront, about 2 (R + C) shared-memory steps of one CTA each;
-// spandiag runs its n - 1 diagonals on one SM per instance.
+// spandiag's bound is its candidates' operations (three a candidate), far
+// below the n - 1 grid barriers of its diagonal chain and the L2 round
+// trips of the operand loads each diagonal waits on.
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "grid_sync.cuh"
 
 namespace {
 
@@ -120,6 +136,15 @@ __device__ __forceinline__ void st_release(int* p, int v) {
 // ---- end of device primitives ----
 
 constexpr int MR = 4;   // moves into a plane held in registers
+
+// spandiag: threads (warps) of one CTA, CTAs the wrapper puts on one SM
+// (registers are bounded for them), candidates a thread loads per batch,
+// the key of "no candidate improved"
+constexpr int SD_THREADS = 512;
+constexpr int SD_CTAS_PER_SM = 1;   // the wrapper's grid: at most this many a SM
+constexpr int SD_WARPS = SD_THREADS / 32;
+constexpr int SD_PF = 4;
+constexpr int NO_KEY = 0x7fffffff;
 
 struct TilePlan {
   int T;       // tile side
@@ -358,71 +383,178 @@ __global__ void grid_antidiag_kernel(const float* __restrict__ w_all,
   }
 }
 
+// Warps folding one (instance, plane, cell) triple of a span diagonal
+// whose triples hold at most `cand` candidates each (`triples` of them,
+// `G` CTAs): the least power of two whose lanes cover the candidates, at
+// most SD_WARPS, halved while the triples would not each get a group.
+// Mirrored by kernels/grid_pipeline.py::spandiag_warps.
+__device__ __forceinline__ int spandiag_warps(long long cand, long long triples, int G) {
+  int g = 1;
+  while (g < SD_WARPS && 32LL * g < cand) g *= 2;
+  while (g > 1 && triples * g > (long long)G * SD_WARPS) g /= 2;
+  return g;
+}
+
+// (value, key) of a or b, whichever the semiring prefers, the smaller key
+// on ties
+template <bool MIN>
+__device__ __forceinline__ void merge(float& v, int& k, float ov, int ok) {
+  if (improves<MIN>(ov, v) || (ov == v && ok < k)) {
+    v = ov;
+    k = ok;
+  }
+}
+
 // rtab: starts[P+1], then per rule (grouped by target plane, declaration
 // order) its index r, left plane B, right plane C: three arrays of NR ints.
+// cm (B, cells, P): the chart cell-major (every plane of a cell
+// contiguous), scratch the kernel fills; bar: one uint32, zero at launch.
 template <bool MIN, bool ARGS>
-__global__ void grid_spandiag_kernel(const float* __restrict__ rw_all,
-                                     const float* __restrict__ init_all,
-                                     const int* __restrict__ rtab,
-                                     float* st_all, int* ar_all, int P, int n,
-                                     int NR) {
-  extern __shared__ int smem[];
-  const int tab = P + 1 + 3 * NR;
-  for (int k = threadIdx.x; k < tab; k += blockDim.x) smem[k] = rtab[k];
+__global__ void __launch_bounds__(SD_THREADS, SD_CTAS_PER_SM)
+grid_spandiag_kernel(const float* __restrict__ rw_all,
+                     const float* __restrict__ init_all,
+                     const int* __restrict__ rtab, float* st_all, int* ar_all,
+                     float* cm_all, unsigned* bar, int B, int P, int n, int NR) {
+  extern __shared__ __align__(16) int smem[];
+  int4* rules = reinterpret_cast<int4*>(smem);   // NR: {r, B, C, 0}
+  int* start = smem + 4 * NR;                    // P + 1
+  int* live = start + P + 1;                     // targeted planes, ascending
+  float* mv = reinterpret_cast<float*>(live + P);  // SD_WARPS partial values
+  int* mk = reinterpret_cast<int*>(mv + SD_WARPS); // SD_WARPS partial keys
+  __shared__ int n_live, most_rules;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int G = gridDim.x;
+  for (int k = tid; k < NR; k += SD_THREADS)
+    rules[k] = make_int4(rtab[P + 1 + k], rtab[P + 1 + NR + k],
+                         rtab[P + 1 + 2 * NR + k], 0);
+  for (int k = tid; k <= P; k += SD_THREADS) start[k] = rtab[k];
   __syncthreads();
-  const int* start = smem;
-  const int* rr = smem + P + 1;
-  const int* rb = rr + NR;
-  const int* rc = rb + NR;
-  float* rws = reinterpret_cast<float*>(smem + tab);
-
-  const long long cells = (long long)n * (n + 1) / 2;
-  const long long b = blockIdx.x;
-  for (int k = threadIdx.x; k < NR; k += blockDim.x)
-    rws[k] = rw_all[b * NR + rr[k]];
-  const float* init = init_all + b * P * n;
-  float* st = st_all + b * P * cells;
-  int* ar = ARGS ? ar_all + b * P * cells : nullptr;
-  const float zero = MIN ? INFINITY : -INFINITY;
-
-  for (long long idx = threadIdx.x; idx < P * cells; idx += blockDim.x) {
-    const long long p = idx / cells, c = idx % cells;
-    st[idx] = c < n ? init[p * n + c] : zero;
-    if (ARGS) ar[idx] = -1;
+  if (tid == 0) {
+    int c = 0, most = 0;
+    for (int p = 0; p < P; ++p) {
+      const int rp = start[p + 1] - start[p];
+      if (rp > 0) live[c++] = p;
+      most = rp > most ? rp : most;
+    }
+    n_live = c;
+    most_rules = most;
   }
   __syncthreads();
+  const int PL = n_live;
+
+  const long long cells = (long long)n * (n + 1) / 2;
+  const float zero = MIN ? INFINITY : -INFINITY;
+  // every cell: init on diagonal 0, the semiring zero above it (a plane no
+  // rule targets keeps it), args -1; in the table and its cell-major copy
+  for (long long q = (long long)blockIdx.x * SD_THREADS + tid; q < (long long)B * P * cells;
+       q += (long long)G * SD_THREADS) {
+    const long long bp = q / cells, c = q - bp * cells;
+    const long long b = bp / P, p = bp - b * P;
+    const float v = c < n ? init_all[bp * n + c] : zero;
+    st_all[q] = v;
+    if (ARGS) ar_all[q] = -1;
+    cm_all[(b * cells + c) * P + p] = v;
+  }
+  unsigned phase = 0;
+  grid_sync(bar, ++phase);
 
   for (int d = 1; d < n; ++d) {
     const int lanes = n - d;
     const long long off_d = diag_off(d, n);
-    for (int idx = threadIdx.x; idx < P * lanes; idx += blockDim.x) {
-      const int A = idx / lanes, i = idx % lanes;
-      const int k0 = start[A], k1 = start[A + 1];
-      if (k0 == k1) continue;  // untargeted plane: zero, -1 from above
-      float acc = zero;
-      int arg = rr[k0];
-      for (int e = 0; e < d; ++e) {
-        const long long lo = diag_off(e, n) + i;
-        const long long ro = diag_off(d - e - 1, n) + e + 1 + i;
-        for (int k = k0; k < k1; ++k) {
-          const float v = __fadd_rn(
-              __fadd_rn(st[rb[k] * cells + lo], st[rc[k] * cells + ro]), rws[k]);
-          if (improves<MIN>(v, acc)) {
-            acc = v;
-            arg = e * NR + rr[k];
+    const long long triples = (long long)B * PL * lanes;
+    const int g = spandiag_warps((long long)d * most_rules, triples, G);
+    const int T = 32 * g;                        // threads a triple
+    const long long groups = (long long)G * (SD_WARPS / g);
+    const long long gid = (long long)(warp / g) * G + blockIdx.x;
+    const int t = (warp % g) * 32 + lane;
+    const long long rounds = (triples + groups - 1) / groups;
+    for (long long r = 0; r < rounds; ++r) {
+      const long long q = gid + r * groups;
+      float best = zero;
+      int key = NO_KEY;
+      long long b = 0;
+      int A = 0, i = 0, k0 = 0;
+      if (q < triples) {
+        b = q / ((long long)PL * lanes);
+        const int rem = (int)(q - b * PL * lanes);
+        A = live[rem / lanes];
+        i = rem % lanes;
+        k0 = start[A];
+        const int RA = start[A + 1] - k0;
+        const int cand = d * RA;
+        // candidate k = e * RA + j (split e, j-th rule into A): this thread
+        // takes k = t, t + T, ... ascending, stepping (e, j) by T
+        int e = t / RA, j = t - (t / RA) * RA;
+        const int se = T / RA, sj = T - se * RA;
+        const float* cm = cm_all + b * cells * P;
+        const float* rw = rw_all + b * NR;
+        for (int k = t; k < cand; k += SD_PF * T) {
+          float a[SD_PF], c[SD_PF], wv[SD_PF];
+          int kk[SD_PF];
+#pragma unroll
+          for (int u = 0; u < SD_PF; ++u) {
+            if (k + u * T < cand) {
+              const int4 rl = rules[k0 + j];
+              const long long lo = diag_off(e, n) + i;
+              const long long ro = diag_off(d - e - 1, n) + e + 1 + i;
+              a[u] = __ldcg(cm + lo * P + rl.y);
+              c[u] = __ldcg(cm + ro * P + rl.z);
+              wv[u] = __ldg(rw + rl.x);
+              kk[u] = e * NR + rl.x;
+            }
+            j += sj;
+            e += se;
+            if (j >= RA) {
+              j -= RA;
+              ++e;
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < SD_PF; ++u) {
+            if (k + u * T < cand) {
+              const float v = __fadd_rn(__fadd_rn(a[u], c[u]), wv[u]);
+              if (improves<MIN>(v, best)) {
+                best = v;
+                key = kk[u];
+              }
+            }
           }
         }
       }
-      st[A * cells + off_d + i] = acc;
-      if (ARGS) ar[A * cells + off_d + i] = arg;
+#pragma unroll
+      for (int s = 16; s > 0; s >>= 1)
+        merge<MIN>(best, key, __shfl_xor_sync(0xffffffffu, best, s),
+                   __shfl_xor_sync(0xffffffffu, key, s));
+      if (g > 1) {                               // uniform over the grid
+        if (lane == 0) {
+          mv[warp] = best;
+          mk[warp] = key;
+        }
+        __syncthreads();
+        if (t == 0)
+          for (int m = 1; m < g; ++m) merge<MIN>(best, key, mv[warp + m], mk[warp + m]);
+        __syncthreads();                         // mv / mk are refilled next
+      }
+      if (t == 0 && q < triples) {
+        // nothing improved on the zero: the first rule into the plane
+        const int arg = key == NO_KEY ? rules[k0].x : key;
+        const long long cell = off_d + i;
+        st_all[(b * P + A) * cells + cell] = best;
+        if (ARGS) ar_all[(b * P + A) * cells + cell] = arg;
+        cm_all[(b * cells + cell) * P + A] = best;
+      }
     }
-    __syncthreads();
+    grid_sync(bar, ++phase);                     // diagonal d is read from d + 1 on
   }
 }
 
-int threads_for(long long lanes) {
-  long long t = ((lanes + 31) / 32) * 32;
-  return t > 1024 ? 1024 : (int)t;
+using SpandiagKernel = void (*)(const float*, const float*, const int*, float*, int*,
+                                float*, unsigned*, int, int, int, int);
+
+SpandiagKernel spandiag_kernel(int is_min, int with_args) {
+  if (is_min)
+    return with_args ? grid_spandiag_kernel<true, true> : grid_spandiag_kernel<true, false>;
+  return with_args ? grid_spandiag_kernel<false, true> : grid_spandiag_kernel<false, false>;
 }
 
 using AntidiagKernel = void (*)(const float*, const float*, const float*, const int*,
@@ -486,30 +618,56 @@ extern "C" int grid_antidiag_launch(const void* w, const void* init,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Threads of one spandiag CTA (the wrapper's plan reads it).
+extern "C" int grid_spandiag_threads() { return SD_THREADS; }
+
+// Dynamic shared memory of one spandiag CTA: the rule table ({r, B, C} a
+// rule, 16 bytes), plane starts, the targeted planes, the merge slots.
+extern "C" long long grid_spandiag_smem_bytes(int P, int NR) {
+  return 16LL * NR + 4LL * (2 * P + 1) + 8LL * SD_WARPS;
+}
+
+// spandiag CTAs of the variant (is_min, with_args) at `smem` bytes that one
+// SM keeps resident at once (occupancy API), or 0 if the card refuses the
+// query.
+extern "C" int grid_spandiag_blocks_per_sm(int is_min, int with_args, long long smem) {
+  SpandiagKernel kernel = spandiag_kernel(is_min, with_args);
+  int per_sm = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, SD_THREADS,
+                                                    (size_t)smem) != cudaSuccess)
+    return 0;
+  return per_sm;
+}
+
 // rw (batch, NR) f32; init (batch, P, n) f32; rtab int32 (P+1+3NR); st
-// (batch, P, n(n+1)/2) f32 and args (same shape) int32 or null, diagonal-major
-// per plane. Returns the first non-zero cudaError_t.
+// (batch, P, n(n+1)/2) f32 and args (same shape) int32 or null,
+// diagonal-major per plane; cm (batch, n(n+1)/2, P) f32 scratch; bar one
+// uint32, zero. ctas: the grid (at most grid_spandiag_blocks_per_sm x SMs).
+// A cooperative launch: a grid the card cannot keep resident is refused
+// (cudaErrorCooperativeLaunchTooLarge). Returns the first non-zero
+// cudaError_t.
 extern "C" int grid_spandiag_launch(const void* rw, const void* init,
                                     const void* rtab, void* st, void* args,
-                                    int batch, int P, int n, int NR,
-                                    int is_min, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = threads_for((long long)P * (n - 1));
-  const size_t smem = sizeof(int) * (P + 1 + 3 * (size_t)NR) + sizeof(float) * NR;
+                                    void* cm, void* bar, int batch, int P, int n,
+                                    int NR, int is_min, int ctas, void* stream) {
+  SpandiagKernel kernel = spandiag_kernel(is_min, args != nullptr);
+  const long long smem = grid_spandiag_smem_bytes(P, NR);
+  cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
   const float* rwf = static_cast<const float*>(rw);
   const float* ini = static_cast<const float*>(init);
   const int* tab = static_cast<const int*>(rtab);
   float* out = static_cast<float*>(st);
   int* ar = static_cast<int*>(args);
-  void (*kernel)(const float*, const float*, const int*, float*, int*, int, int,
-                 int);
-  if (is_min)
-    kernel = ar ? grid_spandiag_kernel<true, true> : grid_spandiag_kernel<true, false>;
-  else
-    kernel = ar ? grid_spandiag_kernel<false, true> : grid_spandiag_kernel<false, false>;
-  cudaError_t rc = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  float* cmf = static_cast<float*>(cm);
+  unsigned* b = static_cast<unsigned*>(bar);
+  void* params[] = {&rwf, &ini, &tab, &out, &ar, &cmf, &b, &batch, &P, &n, &NR};
+  rc = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(ctas),
+                                   dim3(SD_THREADS), params, (size_t)smem,
+                                   static_cast<cudaStream_t>(stream));
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  kernel<<<batch, threads, smem, s>>>(rwf, ini, tab, out, ar, P, n, NR);
   return static_cast<int>(cudaGetLastError());
 }

@@ -56,6 +56,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "grid_sync.cuh"
+
 namespace {
 
 constexpr int THREADS = 512;          // 16 warps a CTA
@@ -65,29 +67,6 @@ constexpr int NO_ARG = 0x7fffffff;
 
 __device__ __forceinline__ long long diag_off(long long d, long long n) {
   return d * n - (d * (d - 1)) / 2;
-}
-
-// ---- device primitives
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-// ---- end of device primitives ----
-
-// Barrier number `phase` (1, 2, ...) of the whole grid over the arrival
-// counter `bar` (zero at launch).
-__device__ __forceinline__ void grid_sync(unsigned* bar, unsigned phase) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(bar, 1u);
-    const unsigned target = phase * gridDim.x;
-    while (ld_acquire(bar) < target) {
-    }
-    __threadfence();
-  }
-  __syncthreads();
 }
 
 // Warps folding one cell of diagonal d: the least power of two whose lanes

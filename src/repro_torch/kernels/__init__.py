@@ -4,7 +4,8 @@ version, and their registration as dispatchable routes.
   * ``sdp_pipeline`` — blocked pipelined S-DP solver (weighted and
                        arg-emitting), replacing ``repro``'s Pallas K1
   * ``mcm_pipeline`` — diagonal pipeline for the triangular split
-                       recurrence, replacing ``repro``'s Pallas K2
+                       recurrence on a thread-block cluster per
+                       instance, replacing ``repro``'s Pallas K2
   * ``sdp_chunked``  — the S-DP pipeline streamed through a shared-memory
                        ring of the last ``a_1`` cells, replacing K3 (K1 and
                        K3 walk the table by ``sdp_walk``'s plan)
@@ -30,10 +31,11 @@ where the kernel runs (a CUDA device) and ×1.25 where the plain version
 stands in (the CPU); the streaming routes ×0.6 + 8 and ×1.2 + 8 (linear),
 ×0.6 and ×1.2 (triangular).
 
-The on-chip gate. K1 and K2 keep their whole working set (table, args,
-weights) in device memory and lean on L2 to hold it between steps; past
-L2 they chain reads to DRAM. So on a CUDA device they support a spec only
-while ``repro``'s working-set formulas (``_linear_vmem_bytes``,
+The on-chip gate. K1 keeps its working set (table, args, weights) in
+device memory and leans on L2 to hold it between steps; K2 holds its
+table in shared memory up to n = 340 and reads the rest from device
+memory; past L2 both chain reads to DRAM. So on a CUDA device they
+support a spec only while ``repro``'s working-set formulas (``_linear_vmem_bytes``,
 ``_triangular_vmem_bytes``) stay within :func:`on_chip_budget`, the L2
 size the card reports (50 MiB on an H100) — ``repro``'s VMEM budget gate
 with the card's own budget and no knob. Past it K3 and K4 take over; they

@@ -29,14 +29,17 @@ declaration order — the tie rule of ``repro_torch.core.grid``'s
 ``argmin``/``argmax``, against which the CPU tests hold this module.
 
 A CPU tensor goes through :func:`grid_pipeline_plain`; a CUDA tensor
-launches ``csrc/grid_pipeline.cu`` (antidiag: a persistent cooperative grid
-over the tiles of the whole batch; spandiag: one CTA per instance; one
-launch per batch).
+launches ``csrc/grid_pipeline.cu``, one launch per batch: a persistent
+cooperative grid over the tiles of the whole batch (antidiag), or over
+each span diagonal's (instance, plane, cell) triples, a grid barrier
+between diagonals, a triple's candidates split over the lanes of
+:func:`spandiag_warps` warps and merged by (value, key) (spandiag).
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -55,6 +58,9 @@ TILE_SIDES = (64, 56, 48, 40, 32, 24, 16, 8, 4, 2, 1)
 HALO = 4
 #: bytes of static shared memory the antidiag kernel declares, kept free
 _STATIC_SMEM = 64
+#: spandiag: threads (warps) of one CTA, CTAs it keeps on one SM at most
+SD_THREADS, SD_CTAS_PER_SM = 512, 1
+SD_WARPS = SD_THREADS // 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,6 +128,51 @@ def antidiag_ctas(op: str, with_args: bool, plan: TilePlan, tiles: int, device) 
                            f"{plan.threads} threads and {plan.smem} bytes of shared "
                            "memory resident")
     return min(tiles, per_sm * torch.cuda.get_device_properties(dev).multi_processor_count)
+
+
+def spandiag_smem_bytes(P: int, NR: int) -> int:
+    """Dynamic shared memory of one spandiag CTA: the rule table (index,
+    left and right plane, padded to 16 bytes a rule), the plane starts,
+    the targeted planes and the merge slots
+    (``csrc/grid_pipeline.cu::grid_spandiag_smem_bytes``)."""
+    return 16 * NR + 4 * (2 * P + 1) + 8 * SD_WARPS
+
+
+def spandiag_warps(cand: int, triples: int, ctas: int) -> int:
+    """Warps folding one (instance, plane, cell) triple of a span diagonal
+    whose triples hold at most ``cand`` candidates (splits × rules into the
+    plane), ``triples`` of them over ``ctas`` CTAs: the least power of two
+    whose lanes cover the candidates, at most :data:`SD_WARPS`, halved
+    while the triples would not each get a group. The kernel computes the
+    same (``csrc/grid_pipeline.cu::spandiag_warps``)."""
+    g = 1
+    while g < SD_WARPS and 32 * g < cand:
+        g *= 2
+    while g > 1 and triples * g > ctas * SD_WARPS:
+        g //= 2
+    return g
+
+
+def spandiag_ctas(op: str, with_args: bool, P: int, NR: int, device) -> int:
+    """The spandiag grid on ``device``: :data:`SD_CTAS_PER_SM` CTAs on every
+    SM, fewer if the occupancy API says an SM keeps fewer resident (asked
+    once per variant and shared memory). Raises if it keeps none."""
+    dev = torch.device(device)
+    smem = spandiag_smem_bytes(P, NR)
+    key = (dev.index, "spandiag", op, with_args, smem)
+    if key not in _BLOCKS_PER_SM:
+        fn = _build.load("grid_pipeline").grid_spandiag_blocks_per_sm
+        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_longlong]
+        fn.restype = ctypes.c_int
+        with torch.cuda.device(dev):
+            _BLOCKS_PER_SM[key] = fn(int(op == "min"), int(with_args), smem)
+    per_sm = _BLOCKS_PER_SM[key]
+    if per_sm < 1:
+        raise RuntimeError(f"grid_pipeline_spandiag: the card keeps no CTA of "
+                           f"{SD_THREADS} threads and {smem} bytes of shared "
+                           "memory resident")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return sms * min(per_sm, SD_CTAS_PER_SM)
 
 
 # ---------------------------------------------------------------------------
@@ -282,6 +333,14 @@ def _plane_table(items, planes: int, fields) -> list:
     return starts + order + [int(items[k][f]) for f in fields for k in order]
 
 
+@functools.lru_cache(maxsize=64)
+def _table_on(items: tuple, planes: int, fields: tuple, device) -> torch.Tensor:
+    """:func:`_plane_table` as int32 on ``device``, built once per move or
+    rule set (a 1024-rule table takes milliseconds of Python to build)."""
+    return torch.tensor(_plane_table(items, planes, fields), dtype=torch.int32,
+                        device=device)
+
+
 def _check(name: str, tensors: dict, shapes: dict) -> None:
     for key, t in tensors.items():
         if t.dtype != torch.float32 or tuple(t.shape) != shapes[key]:
@@ -323,7 +382,7 @@ def _launch_antidiag(arrs, meta, with_args: bool, grid=None):
     if tiles >= 2 ** 31:
         raise ValueError(f"{name}: {tiles} tiles exceed int32 tickets")
     G = antidiag_ctas(op, with_args, plan, tiles, dev) if grid is None else grid
-    mtab = torch.tensor(_plane_table(moves, P, (1, 2, 3)), dtype=torch.int32, device=dev)
+    mtab = _table_on(moves, P, (1, 2, 3), dev)
     st = torch.empty((B, P, R * C), dtype=torch.float32, device=dev)
     ar = torch.empty((B, P, R * C), dtype=torch.int32, device=dev) if with_args else None
     sync = torch.zeros(1 + tiles, dtype=torch.int32, device=dev)
@@ -337,7 +396,9 @@ def _launch_antidiag(arrs, meta, with_args: bool, grid=None):
                      None if ar is None else ar.reshape(B, -1), with_args)
 
 
-def _launch_spandiag(arrs, meta, with_args: bool):
+def _launch_spandiag(arrs, meta, with_args: bool, grid=None):
+    """The chart on CUDA tensors; ``grid`` overrides :func:`spandiag_ctas`
+    (a grid the card cannot keep resident raises)."""
     name = "grid_pipeline_spandiag" + ("_with_args" if with_args else "")
     _, op, P, n, _, _, rules = meta
     squeeze, (rw, init) = batched(arrs, meta)
@@ -348,17 +409,19 @@ def _launch_spandiag(arrs, meta, with_args: bool):
     if P * cells >= 2 ** 31 or n * NR >= 2 ** 31:
         raise ValueError(f"{name}: {P} planes × {cells} cells or {n}·{NR} "
                          "packed args exceed int32")
-    table = _plane_table(rules, P, (1, 2))
-    if 4 * (len(table) + NR) > _build.SMEM_OPTIN_BYTES:
+    if spandiag_smem_bytes(P, NR) > _build.SMEM_OPTIN_BYTES - _STATIC_SMEM:
         raise ValueError(f"{name}: {NR} rules exceed shared memory")
-    rtab = torch.tensor(table, dtype=torch.int32, device=dev)
+    G = spandiag_ctas(op, with_args, P, NR, dev) if grid is None else grid
+    rtab = _table_on(rules, P, (1, 2), dev)
     st = torch.empty((B, P * cells), dtype=torch.float32, device=dev)
     ar = torch.empty((B, P * cells), dtype=torch.int32, device=dev) if with_args else None
+    cm = torch.empty((B, cells, P), dtype=torch.float32, device=dev)
+    bar = torch.zeros(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         _launch("grid_spandiag_launch", name,
-                [rw.data_ptr(), init.data_ptr(), rtab.data_ptr(),
-                 st.data_ptr(), None if ar is None else ar.data_ptr()],
-                [B, P, n, NR, int(op == "min")])
+                [rw.data_ptr(), init.data_ptr(), rtab.data_ptr(), st.data_ptr(),
+                 None if ar is None else ar.data_ptr(), cm.data_ptr(), bar.data_ptr()],
+                [B, P, n, NR, int(op == "min"), G])
     return unbatched(squeeze, st, ar, with_args)
 
 

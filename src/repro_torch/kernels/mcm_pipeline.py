@@ -10,7 +10,10 @@ improve: the first best split wins; -1 on diagonal 0).
 
 ``wtab`` is ``(cells, n-1)`` or ``(batch, cells, n-1)`` float32. A CPU tensor
 goes through :func:`mcm_pipeline_plain`; a CUDA tensor launches
-``csrc/mcm_pipeline.cu`` (one CTA per instance, one launch per batch).
+``csrc/mcm_pipeline.cu``: one launch per batch, one thread-block cluster of
+:func:`cluster_size` CTAs per instance, the table in shared memory
+(:func:`table_home`), each diagonal's cells folded by groups of
+:func:`lanes_per_cell` lanes over the splits, merged by (value, split).
 """
 from __future__ import annotations
 
@@ -24,10 +27,85 @@ from repro_torch.kernels import _build
 #: kernel launches per wrapper (incremented only where a kernel launches)
 LAUNCHES = {"mcm_pipeline": 0, "mcm_pipeline_with_args": 0}
 
+#: threads of one CTA; bytes of its merge slots (a value and a split a warp)
+THREADS = 512
+MERGE_BYTES = 8 * (THREADS // 32)
+#: CTAs per instance tried, largest first (above 8 a non-portable size)
+CLUSTER_SIZES = (16, 8, 4, 2, 1)
+
 
 def _lanes(n: int) -> int:
     """Row width of the split-major weight table."""
     return max(n - 1, 1)
+
+
+def _table_bytes(n: int) -> int:
+    return -(-4 * num_cells(n) // 16) * 16
+
+
+def table_home(n: int) -> str:
+    """Where the kernel keeps an instance's cost table: ``"shared"`` (a
+    replica in every CTA of its cluster) while the table fits beside the
+    merge slots in the shared memory a block can use (every ``n ≤ 340``),
+    else ``"device"`` (the output table, read past L1). The kernel computes
+    the same (``csrc/mcm_pipeline.cu::table_in_smem``)."""
+    fits = _table_bytes(n) + MERGE_BYTES <= _build.SMEM_OPTIN_BYTES
+    return "shared" if fits else "device"
+
+
+def smem_bytes(n: int) -> int:
+    """Dynamic shared memory of one CTA: the table (at home there) and the
+    merge slots."""
+    return (_table_bytes(n) if table_home(n) == "shared" else 0) + MERGE_BYTES
+
+
+def lanes_per_cell(d: int, cells_d: int, lanes: int) -> int:
+    """Lanes folding one cell of diagonal ``d`` (``cells_d`` cells, ``lanes``
+    threads in the instance's cluster): the least power of two covering
+    the ``d`` splits, at most :data:`THREADS`, halved while the cells would
+    not each get a group. The kernel computes the same
+    (``csrc/mcm_pipeline.cu::lanes_per_cell``)."""
+    w = 1
+    while w < THREADS and w < d:
+        w *= 2
+    while w > 1 and cells_d * w > lanes:
+        w //= 2
+    return w
+
+
+def pick_cluster(batch: int, active: dict) -> int:
+    """CTAs per instance: the largest size of :data:`CLUSTER_SIZES` of which
+    the card keeps ``batch`` clusters resident at once (``active``: size →
+    clusters the occupancy API reports), else 1 (the batch runs in waves
+    either way; single CTAs waste no SM on a wave's tail)."""
+    return next((c for c in CLUSTER_SIZES if active.get(c, 0) >= batch), 1)
+
+
+_ACTIVE: dict = {}
+
+
+def max_clusters(with_args: bool, n: int, C: int, device) -> int:
+    """Clusters of ``C`` CTAs of the variant the card runs at once at width
+    ``n`` (the occupancy API, asked once per variant, home and size)."""
+    dev = torch.device(device)
+    key = (dev.index, with_args, smem_bytes(n), C)
+    if key not in _ACTIVE:
+        fn = _build.load("mcm_pipeline").mcm_pipeline_max_clusters
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_int
+        with torch.cuda.device(dev):
+            _ACTIVE[key] = fn(int(with_args), n, C)
+    return _ACTIVE[key]
+
+
+def cluster_size(with_args: bool, n: int, batch: int, device) -> int:
+    """:func:`pick_cluster` over what the card reports. Raises if it keeps
+    not even one CTA resident."""
+    active = {c: max_clusters(with_args, n, c, device) for c in CLUSTER_SIZES}
+    if active[1] < 1:
+        raise RuntimeError(f"mcm_pipeline: the card keeps no CTA of {THREADS} "
+                           f"threads and {smem_bytes(n)} bytes of shared memory resident")
+    return pick_cluster(batch, active)
 
 
 def mcm_pipeline_plain(wtab, n: int, with_args: bool = False):
@@ -55,7 +133,9 @@ def mcm_pipeline_plain(wtab, n: int, with_args: bool = False):
     return (st, ar) if with_args else st
 
 
-def _launch(wtab, n, with_args):
+def _launch(wtab, n, with_args, cluster=None):
+    """The kernel on CUDA ``wtab``; ``cluster`` overrides
+    :func:`cluster_size` (CTAs per instance)."""
     name = "mcm_pipeline_with_args" if with_args else "mcm_pipeline"
     squeeze = wtab.dim() == 2
     if squeeze:
@@ -70,15 +150,16 @@ def _launch(wtab, n, with_args):
     if cells >= 2 ** 31:
         raise ValueError(f"{name}: n={n} exceeds int32 cell counts")
     dev, bt = wtab.device, wtab.shape[0]
+    C = cluster_size(with_args, n, bt, dev) if cluster is None else cluster
     st = torch.empty((bt, cells), dtype=torch.float32, device=dev)
     ar = torch.empty((bt, cells), dtype=torch.int32, device=dev) if with_args else None
     lib = _build.load("mcm_pipeline")
     fn = lib.mcm_pipeline_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         rc = fn(wtab.data_ptr(), st.data_ptr(),
-                None if ar is None else ar.data_ptr(), bt, n, L,
+                None if ar is None else ar.data_ptr(), bt, n, L, C,
                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, name)
     LAUNCHES[name] += 1

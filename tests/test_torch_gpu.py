@@ -96,11 +96,22 @@ def test_sdp_kernel_bit_equal_to_plain(cuda, offsets, n, block, op, weighted):
         assert torch.equal(gt, wt) and torch.equal(ga, wa)
 
 
+def _k2_equals_plain(w, n, cluster=None):
+    gt, ga = k2._launch(w, n, True, cluster)
+    wt, wa = k2.mcm_pipeline_plain(w, n, with_args=True)
+    assert torch.equal(gt, wt) and torch.equal(ga, wa)
+    assert torch.equal(k2._launch(w, n, False, cluster), wt)
+    return wt, wa
+
+
 @pytest.mark.parametrize("n,batch", [(1, 2), (2, 2), (3, 2), (33, 3),
-                                     (100, 2), (1100, 1)])
+                                     (100, 2), (256, 2), (295, 1), (296, 1),
+                                     (340, 1), (341, 1), (1100, 1)])
 def test_mcm_kernel_bit_equal_to_plain(cuda, n, batch):
-    """Small integer weights make ties, exercising the first-best rule;
-    n = 1100 has more lanes than a CTA has threads."""
+    """Small integer weights make ties, exercising the first-best rule; the
+    table in shared memory up to n = 340 (295: the L2 gate's largest),
+    in device memory from 341 (1100: more cells a diagonal than a cluster
+    has threads)."""
     g = torch.Generator(device=cuda).manual_seed(n)
     w = torch.randint(0, 50, (batch, num_cells(n), max(n - 1, 1)), generator=g,
                       dtype=torch.float32, device=cuda)
@@ -108,6 +119,59 @@ def test_mcm_kernel_bit_equal_to_plain(cuda, n, batch):
     wt, wa = k2.mcm_pipeline_plain(w, n, with_args=True)
     assert torch.equal(gt, wt) and torch.equal(ga, wa)
     assert torch.equal(k2.mcm_pipeline(w, n), wt)
+
+
+def test_mcm_kernel_rules_match_the_card(cuda):
+    """The wrapper's table home, shared memory and threads are the
+    kernel's own; the wrapper's cluster is one the card runs."""
+    lib = tkernels._build.load("mcm_pipeline")
+    lib.mcm_pipeline_smem_bytes.restype = k2.ctypes.c_longlong
+    assert lib.mcm_pipeline_threads() == k2.THREADS
+    for n in (1, 2, 64, 256, 295, 296, 340, 341, 1024):
+        assert lib.mcm_pipeline_table_in_smem(n) == (k2.table_home(n) == "shared")
+        assert lib.mcm_pipeline_smem_bytes(n) == k2.smem_bytes(n)
+    for n, batch in ((256, 8), (1024, 1), (64, 40)):
+        C = k2.cluster_size(True, n, batch, cuda)
+        assert C in k2.CLUSTER_SIZES and k2.max_clusters(True, n, C, cuda) >= 1
+
+
+@pytest.mark.parametrize("n", [64, 256, 400])
+def test_mcm_kernel_every_cluster_size(cuda, n):
+    """Each size the wrapper may pick (16 non-portable) that the card runs,
+    with the table in shared (64, 256) and device (400) memory."""
+    g = torch.Generator(device=cuda).manual_seed(n + 1)
+    w = torch.randint(0, 4, (2, num_cells(n), n - 1), generator=g,
+                      dtype=torch.float32, device=cuda)
+    sizes = [c for c in k2.CLUSTER_SIZES if k2.max_clusters(True, n, c, cuda) >= 1]
+    assert 1 in sizes and 8 in sizes
+    for C in sizes:
+        _k2_equals_plain(w, n, cluster=C)
+
+
+def test_mcm_kernel_batch_beyond_resident_clusters(cuda):
+    """40 instances at n = 64 on a cluster size of which the card keeps
+    fewer than 40 resident: the clusters run in waves."""
+    n, batch = 64, 40
+    C = max(c for c in k2.CLUSTER_SIZES if 1 <= k2.max_clusters(True, n, c, cuda) < batch)
+    g = torch.Generator(device=cuda).manual_seed(40)
+    w = torch.randint(0, 9, (batch, num_cells(n), n - 1), generator=g,
+                      dtype=torch.float32, device=cuda)
+    _k2_equals_plain(w, n, cluster=C)
+    _k2_equals_plain(w, n)
+
+
+@pytest.mark.parametrize("n", [150, 500])
+def test_mcm_kernel_all_inf_rows_keep_arg_zero(cuda, n):
+    """Rows whose every split weight is inf keep inf and arg 0 (table in
+    shared memory at 150, device memory at 500)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    w = torch.randint(0, 3, (2, num_cells(n), n - 1), generator=g,
+                      dtype=torch.float32, device=cuda)
+    rows = torch.randint(n, num_cells(n), (40,), generator=g, device=cuda)
+    w[0, rows] = float("inf")
+    w[1, rows[:10]] = float("inf")
+    st, ar = _k2_equals_plain(w, n)
+    assert torch.isinf(st[0, rows]).all() and (ar[0, rows] == 0).all()
 
 
 @pytest.mark.parametrize("offsets,n,block", [
@@ -442,6 +506,75 @@ def test_grid_antidiag_grid_is_co_resident(cuda):
     arrs = grid_arrs(spec, cuda)
     with pytest.raises(RuntimeError, match="co-resident"):
         k6._launch_antidiag(arrs, spec.static_meta(), True, grid=per_sm * sms + 1)
+
+
+def cky_full_spec(seed: int = 0):
+    """The grid path's chart (64 tokens, 32 nonterminals, 1024 rules) with
+    plane 31 untargeted (-inf above the words, init -inf) and every rule
+    into plane 30 reading it on the left: plane 30's candidates are all
+    -inf, so its args keep its first rule (30)."""
+    rng = np.random.default_rng(seed)
+    n, P, NR = 64, 32, 1024
+    rules = tuple((r % 31, 31 if r % 31 == 30 else int(rng.integers(0, P)),
+                   int(rng.integers(0, P))) for r in range(NR))
+    init = -rng.uniform(0.3, 2.5, (P, n)).astype(np.float32)
+    init[31] = -np.inf
+    spec = dp.GridSpec(rows=n, cols=n, op="max", schedule="spandiag", planes=P,
+                       rules=rules, init=init,
+                       rule_weights=-rng.uniform(0.3, 2.5, NR).astype(np.float32))
+    spec.validate()
+    return spec
+
+
+def test_grid_spandiag_full_chart(cuda):
+    """cky at the grid path's width, a batch of 3, with args: a plane no rule
+    targets stays -inf with args -1; a plane whose candidates are all -inf
+    keeps its first rule's arg."""
+    spec = cky_full_spec()
+    meta, n = spec.static_meta(), spec.rows
+    cells = num_cells(n)
+    arrs = grid_arrs(spec, cuda, batch=3)
+    _grid_kernel_equals_plain(arrs, meta)
+    st, ar = k6.grid_pipeline_with_args(arrs, meta)
+    st, ar = st.reshape(3, 32, cells), ar.reshape(3, 32, cells)
+    assert torch.isinf(st[:, 31]).all() and (ar[:, 31] == -1).all()
+    assert torch.isinf(st[:, 30, n:]).all() and (ar[:, 30, n:] == 30).all()
+    assert torch.isfinite(st[:, :30]).all()
+
+
+def test_grid_spandiag_grid_is_co_resident(cuda):
+    """The spandiag grid is at most what the occupancy API keeps resident;
+    a larger one is refused by the cooperative launch, never run."""
+    spec = cky_full_spec(1)
+    meta = spec.static_meta()
+    lib = tkernels._build.load("grid_pipeline")
+    assert lib.grid_spandiag_threads() == k6.SD_THREADS
+    lib.grid_spandiag_smem_bytes.restype = k6.ctypes.c_longlong
+    assert lib.grid_spandiag_smem_bytes(32, 1024) == k6.spandiag_smem_bytes(32, 1024)
+    fn = lib.grid_spandiag_blocks_per_sm
+    fn.argtypes = [k6.ctypes.c_int] * 2 + [k6.ctypes.c_longlong]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    smem = k6.spandiag_smem_bytes(32, 1024)
+    for with_args in (False, True):
+        per_sm = fn(0, int(with_args), smem)
+        assert 1 <= k6.spandiag_ctas("max", with_args, 32, 1024, cuda) <= per_sm * sms
+    arrs = grid_arrs(spec, cuda)
+    with pytest.raises(RuntimeError, match="co-resident"):
+        k6._launch_spandiag(arrs, meta, True, grid=per_sm * sms + 1)
+    _grid_kernel_equals_plain(arrs, meta)               # the card still runs
+
+
+@pytest.mark.parametrize("grid", [1, 7, 132])
+def test_grid_spandiag_any_grid(cuda, grid):
+    """Any resident grid gives the same chart: one CTA folds every triple;
+    7 deal them unevenly; 132 give late diagonals several warps a triple."""
+    spec = cky_full_spec(2)
+    meta = spec.static_meta()
+    arrs = grid_arrs(spec, cuda, batch=2)
+    wt, wa = k6.grid_pipeline_plain(arrs, meta, with_args=True)
+    gt, ga = k6._launch_spandiag(arrs, meta, True, grid=grid)
+    assert torch.equal(gt, wt) and torch.equal(ga, wa)
+    assert torch.equal(k6._launch_spandiag(arrs, meta, False, grid=grid), wt)
 
 
 def test_grid_spandiag_rules_beyond_48k_shared_memory(cuda):

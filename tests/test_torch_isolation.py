@@ -1,6 +1,6 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the ``repro`` package (the machine with the card has no
-JAX)."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and
+``chip_kernel_floor.py`` import neither JAX nor the ``repro`` package (the
+machine with the card has no JAX)."""
 import os
 import re
 import subprocess
@@ -36,7 +36,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
 
 
 def test_sources_have_no_jax_or_repro_imports():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_kernel_floor.py"]
     assert len(files) >= 15
     for f in files:
         hits = FORBIDDEN.findall(f.read_text())
