@@ -1,6 +1,6 @@
-"""What bounds K2 (``mcm_pipeline``) and K6 spandiag on the card: each timed
-at its path shape beside variants of its source with part of the work
-taken out.
+"""What bounds K2 (``mcm_pipeline``), K6 spandiag, K5 (``semiring_matmul``)
+and K8 (``chunked_scan``) on the card: each timed at its path shape beside
+variants of its source with part of the work taken out.
 
     python3 chip_kernel_floor.py
 
@@ -16,7 +16,14 @@ design and are timing probes:
     (the per-diagonal fixed cost), and that last with the cluster barrier's
     arrive relaxed (what its release costs);
   * K6 spandiag at cky 64 x 32 x 1024: "no fold" (the grid barriers and
-    the writes remain), each on the wrapper's grid and on one CTA a SM.
+    the writes remain), each on the wrapper's grid and on one CTA a SM;
+  * K5 at MCM 1024's largest launch (D = 32) and at the weighted 1024^3
+    square, device time under the profiler: "plain min" (min without the
+    NaN rule), "no candidates" (the loads, barriers and merges remain),
+    "no loads" (no operand is staged: the candidates run on stale shared
+    memory);
+  * K8 at T 32768 x D 2048: "no chain" (the ring runs, no row is folded or
+    stored), "no store" (the chains run, no h tile is sent back).
 
 Variants run in turns (all, then all again in reverse), CUDA-event means
 over five calls after a warm-up, on one card; the card's name and power
@@ -35,17 +42,33 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from chip_smoke import CKY, SEED, cky_instance, cuda_ms, mcm_dims  # noqa: E402
+from chip_smoke import (CKY, K5_SQUARE, MCM_N, SCAN_D, SCAN_T, SEED, cky_instance,  # noqa: E402
+                        cuda_ms, k5_path_operands, k5_profiled_ms, mcm_dims)
 from repro_torch import dp  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import grid_pipeline as k6  # noqa: E402
+from repro_torch.kernels import chunked_scan as k8  # noqa: E402
 from repro_torch.kernels import mcm_pipeline as k2  # noqa: E402
+from repro_torch.kernels import semiring_matmul as k5  # noqa: E402
 
 NO_FOLD = ("for (int e0 = t; e0 < d; e0 += PF * wd)", "for (int e0 = t; e0 < 0; e0 += PF * wd)")
 NO_WEIGHTS = [("wv[u] = ahead ? wpf[u] : __ldcs(wr + e);", "wv[u] = 1.0f;"),
               ("if (e < d) wpf[u] = __ldcs(wr + e);", "if (e < d) wpf[u] = 1.0f;")]
 RELAXED = ("barrier.cluster.arrive.release.aligned", "barrier.cluster.arrive.relaxed.aligned")
+K5_LOADS = [("if (i0 + i < M && k0 + kk < k_hi)", "if (false)"),
+            ("if (k0 + kk < k_hi && j0 + j < N)", "if (false)"),
+            ("if (k0 + e < k_hi) cp_async4", "if (false) cp_async4")]
 VARIANTS = {
+    "semiring_matmul": {"as built": [], "plain min": [("min.NaN.f32", "min.f32")],
+                        "no candidates": [("if (kn == KS) {", "if (false) {"),
+                                          ("for (int kk = 0; kk < kn; ++kk)",
+                                           "for (int kk = 0; kk < 0; ++kk)")],
+                        "no loads": K5_LOADS,
+                        "stages of 32 columns": [("constexpr int KS = 16;", "constexpr int KS = 32;")]},
+    "chunked_scan": {"as built": [],
+                     "no chain": [("if (TMA && lane < F) {", "if (false) {")],
+                     "no store": [("tma_store(&hmap, smem_addr(outs + (s & 1) * tile), f0, t0);",
+                                   "")]},
     "mcm_pipeline": {"as built": [], "no fold": [NO_FOLD], "no weights": NO_WEIGHTS,
                      "no fold, no weights": [NO_FOLD, *NO_WEIGHTS],
                      "no fold, no weights, relaxed arrive": [NO_FOLD, *NO_WEIGHTS, RELAXED]},
@@ -84,6 +107,8 @@ def use(libs: dict, name: str, label: str) -> None:
     _build._LIBS[name] = libs[(name, label)]
     k2._ACTIVE.clear()
     k6._BLOCKS_PER_SM.clear()
+    k5._FN = k8._FN = None
+    k5._LIMITS.clear()
 
 
 def main() -> int:
@@ -108,6 +133,18 @@ def main() -> int:
         meta = spec.static_meta()
         chart = k6.grid_pipeline_plain(arrs, meta, with_args=True)
         sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        square = tuple(torch.from_numpy(x.astype(np.float32)).to(cuda) for x in (
+            rng.normal(size=(K5_SQUARE, K5_SQUARE)), rng.normal(size=(K5_SQUARE, K5_SQUARE)),
+            rng.uniform(1, 3, K5_SQUARE), rng.uniform(1, 3, K5_SQUARE),
+            rng.uniform(1, 3, K5_SQUARE)))
+        k5_cases = {"MCM 1024 D=32": k5_path_operands(cuda, mcm_dims(
+            np.random.default_rng(SEED), MCM_N))[1], f"weighted {K5_SQUARE}^3": square}
+        k5_want = {key: k5.tropical_matmul_plain(*args) for key, args in k5_cases.items()}
+        g = torch.Generator(device=cuda).manual_seed(SEED)
+        scan = (torch.randn((SCAN_T, SCAN_D), generator=g, device=cuda),
+                torch.rand((SCAN_T, SCAN_D), generator=g, device=cuda) * 0.2 + 0.8,
+                torch.randn((SCAN_D,), generator=g, device=cuda))
+        scan_want = k8.chunked_scan_plain(*scan)
         failed = False
         for turn in (1, -1):
             for name, label in list(libs)[::turn]:
@@ -122,6 +159,21 @@ def main() -> int:
                               f"{cuda_ms(lambda: k2.mcm_pipeline_with_args(w, n), 5):.3f} ms, "
                               f"table {cuda_ms(lambda: k2.mcm_pipeline(w, n), 5):.3f} ms, "
                               f"bit-equal to plain {equal}", flush=True)
+                elif name == "semiring_matmul":
+                    for key, args in k5_cases.items():
+                        equal = torch.equal(k5.tropical_matmul(*args), k5_want[key])
+                        failed |= label == "as built" and not equal
+                        ms = k5_profiled_ms([lambda a=args: k5.tropical_matmul(*a)])
+                        print(f"K5 {label} at {key}: device "
+                              f"{ms[0] if ms else 'not measured'} ms, bit-equal to plain "
+                              f"{equal}", flush=True)
+                elif name == "chunked_scan":
+                    got = k8.chunked_scan(*scan)
+                    equal = torch.equal(got[0], scan_want[0]) and torch.equal(got[1], scan_want[1])
+                    failed |= label == "as built" and not equal
+                    print(f"K8 {label} at T={SCAN_T} D={SCAN_D}: "
+                          f"{cuda_ms(lambda: k8.chunked_scan(*scan), 5):.4f} ms, bit-equal to "
+                          f"plain {equal}", flush=True)
                 else:
                     got = k6.grid_pipeline_with_args(arrs, meta)
                     equal = torch.equal(got[0], chart[0]) and torch.equal(got[1], chart[1])

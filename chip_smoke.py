@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py                 # everything below
-    python3 chip_smoke.py --dp-shapes     # the DP kernels K1-K4 and K6 at their paths' shapes
+    python3 chip_smoke.py --dp-shapes     # K1-K6 and K8 alone at their paths' shapes
+    python3 chip_smoke.py --dp-shapes --sweep   # and K5 / K8 under forced plans
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc, at first
 use), holds each kernel against its plain PyTorch version on the card at the
@@ -65,8 +66,12 @@ launch on the main and grid paths (each new shape held against the plain
 version, or, where that would take minutes, K3 against K1 at viterbi 64 x
 2048 and edit_distance 2048² and K4 against K2), each kernel's
 ``path_ms`` summed over its path launches, and every DP kernel's launches
-on the main and grid paths timed by CUDA events. K4 is also timed at K2's
-path shape (mcm 8 x 256), beside K2.
+on the main, grid and blocked paths timed by CUDA events. K4 is also timed
+at K2's path shape (mcm 8 x 256), beside K2. K5 is held against its plain
+version at all 76 shapes of the blocked path (MCM 1024's block diagonals
+D = 2..63 and MCM 8 x 256's D = 2..15) and its ``path_ms`` is their
+device time under ``torch.profiler`` (CUDA events around a K5 call time
+its Python wrapper, and are printed beside).
 
 Each answer is checked against the numpy oracle (or, where that is too slow,
 against the plain route on the card and the oracle at a reduced size), its
@@ -570,7 +575,7 @@ def phase_streaming_kernels(cuda, sdp: dict) -> list:
 @contextlib.contextmanager
 def launch_times():
     """{launch counter: [device ms of each launch]} of the DP kernels (K1,
-    K2, K3, K4, K6) launched inside: CUDA events recorded around each
+    K2, K3, K4, K5, K6) launched inside: CUDA events recorded around each
     wrapper's ``_launch``, in stream order, so a pair brackets one launch
     (with its wrapper's small copies and any host gap), read after a
     synchronise; the counter that moved names the launch."""
@@ -591,7 +596,7 @@ def launch_times():
         return run
 
     with contextlib.ExitStack() as stack:
-        for mod in (k1, k2, k3, k4, k6):
+        for mod in (k1, k2, k3, k4, k5, k6):
             stack.enter_context(mock.patch.object(mod, "_launch", timed(mod, mod._launch)))
         yield times
         torch.cuda.synchronize()
@@ -1367,19 +1372,130 @@ def phase_semiring_kernels(cuda, dims: np.ndarray) -> list:
         _, host_ms, groups = device_profile(
             lambda: [k5.tropical_matmul(*args) for _ in range(5)])
         describe_profile(f"{name}: 5 launches", host_ms, groups)
-        a, b = args[0], args[1]
-        bt = a.shape[0] if a.dim() == 3 else 1
-        mm, kk, nn = a.shape[-2], a.shape[-1], b.shape[-1]
-        # bytes: every operand read once, C written once; operations: per
-        # candidate an add, a fused multiply-add (2) and a min, plus av*gv
-        nbytes = 4 * bt * (mm * kk + kk * nn + mm + kk + nn + mm * nn)
-        ops = bt * (4 * mm * kk * nn + mm * kk)
+        nbytes, ops = k5_work(args)
         records.append(kernel_record(name, "src/repro_torch/csrc/semiring_matmul.cu",
                                      "src/repro/kernels/semiring_matmul.py:57",
                                      max_err(got, want), ms, plain, nbytes, ops))
         del got, want
     print(f"semiring kernels phase: {time.perf_counter() - t0:.2f} s")
     return records
+
+
+#: every K5 launch of the blocked path (phase_blocked) by shape: (n, batch,
+#: block diagonal D, launches of that shape). MCM 1024's D = 2..63 launch
+#: three times (the reconstruct solve, the head-to-head's solve and its
+#: profile), batch_solve MCM 8 x 256's D = 2..15 once.
+K5_PATH_SHAPES = [(MCM_N, 1, D, 3) for D in range(2, MCM_N // BLOCKED_TILE)] + [
+    (MCM_SMALL_N, MCM_BATCH, D, 1) for D in range(2, MCM_SMALL_N // BLOCKED_TILE)]
+#: launches per shape under the profiler
+K5_REPS = 5
+
+
+def k5_route_operands(table, p, D: int) -> tuple:
+    """K5's operands at block diagonal ``D`` of the blocked route over an
+    (batch, n, n) table with dims ``p`` (batch, n + 1), as the route slices
+    them, flattened into contiguous (batch * blocks, ..) tensors (the form
+    every tree's K5 takes)."""
+    T = BLOCKED_TILE
+    bt, n = table.shape[0], table.shape[-1]
+    nb, K = n // T - D, (D - 1) * T
+    a = table.as_strided((bt, nb, T, K), (n * n, T * (n + 1), n, 1), T)
+    b = table.as_strided((bt, nb, K, T), (n * n, T * (n + 1), n, 1), (T + 1) * n + D * T)
+    av = p[:, :nb * T].reshape(bt, nb, T)
+    gv = p[:, T + 1:].unfold(1, K, T)[:, :nb]
+    bv = p[:, D * T + 1:D * T + 1 + nb * T].reshape(bt, nb, T)
+    return tuple(x.reshape(bt * nb, *x.shape[2:]).contiguous() for x in (a, b, av, gv, bv))
+
+
+def k5_work(args) -> tuple:
+    """(bytes, operations) of one K5 launch: every operand read once, C
+    written once; per candidate an add, a fused multiply-add (2) and a
+    min, plus av*gv once per (i, k)."""
+    a, b = args[0], args[1]
+    bt = a.shape[0] if a.dim() == 3 else 1
+    mm, kk, nn = a.shape[-2], a.shape[-1], b.shape[-1]
+    return 4 * bt * (mm * kk + kk * nn + mm + kk + nn + mm * nn), bt * (4 * mm * kk * nn + mm * kk)
+
+
+def k5_profiled_ms(runs: list) -> list:
+    """Device ms per launch of each of ``runs`` (callables that launch K5
+    once), ``K5_REPS`` launches each under ``torch.profiler``, a marker
+    kernel after each run's launches: K5's kernel events in start order,
+    split at the markers, averaged per run (the profiler may drop an
+    event; the average is over those it kept). Empty if the profiler saw
+    no K5 event (not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    marker = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for run in runs:
+            for _ in range(K5_REPS):
+                run()
+            marker.add_(1)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    groups, cur = [], []
+    for e in events:
+        if "tropical_matmul" in e.name.lower():
+            cur.append(e.time_range.elapsed_us())
+        elif "memcpy" not in e.name.lower() and "memset" not in e.name.lower():
+            groups.append(cur)
+            cur = []
+    if not any(groups):
+        return []
+    require(len(groups) == len(runs) and all(groups), f"K5 under the profiler: "
+            f"{sum(map(len, groups))} kernel events in {len(groups)} runs for {len(runs)}")
+    return [sum(g) / len(g) / 1e3 if g else float("nan") for g in groups[:len(runs)]]
+
+
+def phase_k5_shapes(cuda, records: list, dims: np.ndarray) -> list:
+    """K5 at every shape the blocked path launches (K5_PATH_SHAPES) on the
+    route's operands (random table values, the path's dims), each held
+    against the plain version bit for bit, timed by the profiler (device
+    time a launch) and by CUDA events (the wrapper's pace), with its
+    bound; the K5 record's ``path_ms`` is the profiled device time x
+    launches summed over the shapes. Returns the shape rows."""
+    t0 = time.perf_counter()
+    rng, small = np.random.default_rng(SEED), np.random.default_rng(SEED + 1)
+    tables = {}
+    for n, bt in ((MCM_N, 1), (MCM_SMALL_N, MCM_BATCH)):   # phase_blocked's dims
+        p = np.stack([dims] if bt == 1 else [mcm_dims(small, n) for _ in range(bt)])
+        tables[n, bt] = (torch.from_numpy(rng.integers(0, 10 ** 7, (bt, n, n))
+                                          .astype(np.float32)).to(cuda),
+                         torch.from_numpy(p.astype(np.float32)).to(cuda))
+    rows, runs = [], []
+    for n, bt, D, count in K5_PATH_SHAPES:
+        args = k5_route_operands(*tables[n, bt], D)
+        got = k5.tropical_matmul(*args)
+        label = f"mcm {n} D={D}" if bt == 1 else f"mcm {bt} x {n} D={D}"
+        require(torch.equal(got, k5.tropical_matmul_plain(*args)),
+                f"tropical_matmul at {label} {tuple(args[0].shape)} by "
+                f"{tuple(args[1].shape)}: bit-equal to plain")
+        b, _ = bound_ms(*k5_work(args))
+        rows.append({"shape": label, "launches": count, "bound_ms": b,
+                     "event_ms": cuda_ms(lambda a=args: k5.tropical_matmul(*a), reps=K5_REPS)})
+        runs.append(lambda a=args: k5.tropical_matmul(*a))
+    device = k5_profiled_ms(runs)
+    for row, ms in zip(rows, device or [None] * len(rows)):
+        row["ms"] = ms
+        shown = "not measured" if ms is None else f"{ms:.4f} ms"
+        print(f"tropical_matmul at {row['shape']}: device {shown} x {row['launches']}, "
+              f"events {row['event_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms")
+    rec = next(r for r in records if r["name"] == "tropical_matmul")
+    rec["path_ms"] = sum(r["ms"] * r["launches"] for r in rows) if device else None
+    event_path = sum(r["event_ms"] * r["launches"] for r in rows)
+    mcm1024 = [r for r in rows if r["shape"].startswith(f"mcm {MCM_N} ")]
+    print(f"tropical_matmul: path_ms {rec['path_ms']} (profiler device time x launches over "
+          f"{len(rows)} shapes, {sum(r['launches'] for r in rows)} launches); CUDA events "
+          f"{event_path:.3f} ms; MCM {MCM_N}'s {len(mcm1024)} shapes once each: device "
+          f"{sum(r['ms'] for r in mcm1024) if device else 'not measured'} ms, events "
+          f"{sum(r['event_ms'] for r in mcm1024):.3f} ms")
+    del tables
+    print(f"K5 shapes phase: {time.perf_counter() - t0:.2f} s")
+    return rows
 
 
 #: device-time groups of the blocked path's profile: group -> name parts
@@ -1746,8 +1862,8 @@ def phase_scan(cuda) -> dict:
 
 def print_plans(cuda) -> None:
     """K4's grid and warps per cell, K6 antidiag's tiles, K2's cluster and
-    table home, and K6 spandiag's grid and warps per triple at the paths'
-    shapes."""
+    table home, K5's and K8's plans, and K6 spandiag's grid and warps per
+    triple at the paths' shapes."""
     n = MCM_N
     G = k4.ctas(True, True, n, cuda)
     print(f"mcm_tiled: {G} CTAs of {k4.THREADS} threads, {k4.spread_smem_bytes(n, True)} "
@@ -1770,6 +1886,23 @@ def print_plans(cuda) -> None:
         if k2.table_home(n) == "shared":
             print(f"mcm_pipeline at {bt} x {n}, shared-memory operand loads of one CTA: "
                   f"{k2_bank_wavefronts(n, C)}")
+    sms, max_cluster = k5.card_limits(cuda)
+    print(f"tropical_matmul: {sms} SMs, clusters up to {max_cluster} CTAs")
+    for label, bt, m, k, n in [
+            *((f"mcm {MCM_N} D={D}", MCM_N // 16 - D, 16, 16 * (D - 1), 16)
+              for D in (2, 3, 16, 32, 48, 56, 63)),
+            *((f"mcm {MCM_BATCH} x {MCM_SMALL_N} D={D}", MCM_BATCH * (MCM_SMALL_N // 16 - D),
+               16, 16 * (D - 1), 16) for D in (2, 8, 15)),
+            (f"weighted {K5_SQUARE}^3", 1, K5_SQUARE, K5_SQUARE, K5_SQUARE)]:
+        p = k5.plan(bt, m, n, k, sms, max_cluster)
+        ctas = bt * -(-m // p.tile) * -(-n // p.tile) * p.cluster
+        print(f"tropical_matmul at {label} ({bt} x {m} x {k} x {n}): {p}, {ctas} CTAs of "
+              f"{p.threads} threads, {k5.smem_bytes(p.regime, p.cluster, p.groups, p.stages)} "
+              f"bytes of shared memory, {-(-p.slice // (k5.KS * p.groups))} stages a CTA")
+    p = k8.plan(SCAN_T, SCAN_D)
+    print(f"linear_scan at T={SCAN_T} D={SCAN_D}: {p}, {-(-SCAN_D // p.features)} CTAs, "
+          f"{k8.smem_bytes(p)} bytes of shared memory, "
+          f"{2 * 4 * p.stages * p.rows * p.features} bytes in flight a CTA")
     n, P, NR = CKY["n"], CKY["P"], CKY["rules"]
     G = k6.spandiag_ctas("max", True, P, NR, cuda)
     print(f"grid_pipeline_spandiag (cky {n} x {P} x {NR}): {G} CTAs of {k6.SD_THREADS} "
@@ -1802,12 +1935,65 @@ def k2_against_k4(wtab, cells: int, needed: int) -> list:
     return records
 
 
-def dp_shapes_only(cuda) -> int:
+def plan_sweeps(cuda) -> None:
+    """K5 at MCM 1024's largest launch and K8 at 32768 x 2048 under forced
+    plans beside the plan's own (device time by the profiler for K5, CUDA
+    events for K8), each bit-equal to the plain version: what the plan
+    rules chose against their neighbours."""
+    dims = mcm_dims(np.random.default_rng(SEED), MCM_N)
+    rng = np.random.default_rng(SEED)
+    m = K5_SQUARE
+    square = tuple(torch.from_numpy(x.astype(np.float32)).to(cuda) for x in (
+        rng.normal(size=(m, m)), rng.normal(size=(m, m)), rng.uniform(1, 3, m),
+        rng.uniform(1, 3, m), rng.uniform(1, 3, m)))
+    sms, max_cluster = k5.card_limits(cuda)
+    k = (MCM_N // 32 - 1) * BLOCKED_TILE
+    cases = [(f"MCM {MCM_N} D=32", k5_path_operands(cuda, dims)[1], [
+        k5.Plan(k5.SPLIT, 16, 1, c, g, -(-k // c), min(k5.MAX_STAGES, -(-k // (k5.KS * c * g))))
+        for c in (1, 2, 4, 8, 16) for g in (1, 2, 4)]),
+        (f"weighted {m}^3", square, [k5.Plan(k5.REGISTER, 64, 4, 1, 1, m, st)
+                                     for st in (1, 2, 3)]),
+        (f"{m}^3", square[:2], [])]
+    for label, args, forced in cases:
+        a, b = args[0], args[1]
+        chosen = k5.plan(a.shape[0] if a.dim() == 3 else 1, a.shape[-2], b.shape[-1],
+                         a.shape[-1], sms, max_cluster)
+        plans = [chosen] + [p for p in forced if p != chosen]
+        want = k5.tropical_matmul_plain(*args)
+        for p in plans:
+            require(torch.equal(k5._launch(*args, plan=p), want),
+                    f"tropical_matmul at {label} {p}: bit-equal to plain")
+        for p, ms in zip(plans, k5_profiled_ms([lambda p=p, a=args: k5._launch(*a, plan=p)
+                                                for p in plans])):
+            print(f"tropical_matmul at {label} under cluster {p.cluster}, groups {p.groups}, "
+                  f"stages {p.stages}: device {ms:.4f} ms{' (the plan)' if p == chosen else ''}")
+        del want
+    del cases, square
+    g = torch.Generator(device=cuda).manual_seed(SEED)
+    x = torch.randn((SCAN_T, SCAN_D), generator=g, device=cuda)
+    decay = torch.rand((SCAN_T, SCAN_D), generator=g, device=cuda) * 0.2 + 0.8
+    h0 = torch.randn((SCAN_D,), generator=g, device=cuda)
+    want_all, want_last = k8.chunked_scan_plain(x, decay, h0)
+    chosen = k8.plan(SCAN_T, SCAN_D)
+    plans = [chosen] + [k8.Plan(f, k8.STAGE_ROWS, st, mode) for mode in (k8.TMA, k8.CP_ASYNC)
+                        for f, st in ((8, 8), (16, 3), (16, 10), (32, 4), (32, 6))]
+    for p in plans:
+        got_all, got_last = k8._launch(x, decay, h0, plan=p)
+        require(torch.equal(got_all, want_all) and torch.equal(got_last, want_last),
+                f"linear_scan {p}: bit-equal to plain")
+        ms = cuda_ms(lambda p=p: k8._launch(x, decay, h0, plan=p), reps=5)
+        print(f"linear_scan at T={SCAN_T} D={SCAN_D} under {p}: {ms:.4f} ms"
+              f"{' (the plan)' if p == chosen else ''}")
+
+
+def dp_shapes_only(cuda, sweep: bool = False) -> int:
     """``--dp-shapes``: the build, then K1 and K3 (sdp 2^20 / 2^23 and
-    phase_sdp_shapes), K2 and K4 (MCM 1024 and phase_mcm_shapes) and K6
-    (gotoh 4097^2, the cky chart and phase_grid_shapes) alone -- each
-    kernel's times at every shape of its paths, for holding two trees'
-    kernels side by side on one card."""
+    phase_sdp_shapes), K2 and K4 (MCM 1024 and phase_mcm_shapes), K6
+    (gotoh 4097^2, the cky chart and phase_grid_shapes), K5 (MCM 1024's
+    largest launch, the weighted 1024^3 square and phase_k5_shapes) and K8
+    (T 32768 x D 2048) alone -- each kernel's times at every shape of its
+    paths, for holding two trees' kernels side by side on one card; with
+    ``--sweep`` also :func:`plan_sweeps`."""
     phase_build()
     print_plans(cuda)
     rng = np.random.default_rng(SEED)
@@ -1834,6 +2020,11 @@ def dp_shapes_only(cuda) -> int:
     phase_mcm_shapes(cuda, records)
     torch.cuda.empty_cache()
     phase_grid_shapes(cuda, phase_grid_kernels(cuda))
+    torch.cuda.empty_cache()
+    phase_k5_shapes(cuda, phase_semiring_kernels(cuda, dims), dims)
+    phase_scan(cuda)
+    if sweep:
+        plan_sweeps(cuda)
     return 1 if _failures else 0
 
 
@@ -1842,8 +2033,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     cuda = torch.device("cuda", 0)
-    if sys.argv[1:] == ["--dp-shapes"]:
-        return dp_shapes_only(cuda)
+    if sys.argv[1:2] == ["--dp-shapes"] and set(sys.argv[2:]) <= {"--sweep"}:
+        return dp_shapes_only(cuda, sweep=sys.argv[2:] == ["--sweep"])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip() or f"nvidia-smi failed: {smi.stderr.strip()}")
@@ -1862,6 +2053,7 @@ def main() -> int:
     grid_records = phase_grid_kernels(cuda)
     phase_grid_shapes(cuda, grid_records)
     blocked_records = phase_semiring_kernels(cuda, dims)
+    phase_k5_shapes(cuda, blocked_records, dims)
 
     torch.cuda.reset_peak_memory_stats(cuda)
     reset_launches()
@@ -1903,12 +2095,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(cuda)
     reset_launches()
-    phase_blocked(cuda, dims, k4_table)
+    with launch_times() as times:
+        phase_blocked(cuda, dims, k4_table)
+    print_launch_times("blocked", times)
     counts = launches()
     print(f"launches on the blocked path: {counts}")
     for rec in blocked_records:
         rec["launches"] = counts["tropical_matmul"]
         require(rec["launches"] > 0, f"{rec['name']} launched on the blocked path")
+    want = sum(c for *_, c in K5_PATH_SHAPES)
+    require(counts["tropical_matmul"] == want, f"tropical_matmul: {counts['tropical_matmul']} "
+            f"launches on the blocked path, as its shapes count ({want})")
     print(f"peak device memory on the blocked path: {path_peak_gib():.3f} GiB")
     records += blocked_records
 

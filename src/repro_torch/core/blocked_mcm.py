@@ -10,7 +10,8 @@ with ``A = m[tile I, tiles I+1..J-1]`` and ``B`` the same tiles' rows
 shifted down by one, ``m[.. + 1, tile J]``. Those middle tiles are one
 contiguous run, so each block diagonal ``D ≥ 2`` is ONE batched call of the
 K5 kernel (``kernels/semiring_matmul.py``) over every instance and block,
-with ``K = (D-1)·T``. Only the two *boundary* tiles (splits in tile I or
+with ``K = (D-1)·T``, on strided views of the table (two batch axes:
+instance, block). Only the two *boundary* tiles (splits in tile I or
 tile J) keep sequential structure; a local anti-diagonal wavefront of
 2T-1 steps resolves them — the paper's pipeline idea at tile granularity.
 
@@ -152,9 +153,7 @@ def solve_blocked(p: torch.Tensor, n: int, tile: int) -> torch.Tensor:
             av = p[:, :nb * T].reshape(bt, nb, T)
             gv = p[:, T + 1:].unfold(1, K, T)[:, :nb]
             bv = p[:, D * T + 1:D * T + 1 + nb * T].reshape(bt, nb, T)
-            flat = (lambda x, *tail: x.reshape(bt * nb, *tail).contiguous())
-            acc = ops.tropical_matmul(flat(a, T, K), flat(b, K, T), flat(av, T),
-                                      flat(gv, K), flat(bv, T)).view(bt, nb, T, T)
+            acc = ops.tropical_matmul(a, b, av, gv, bv)      # views, no copies
         blocks(D).copy_(_block_wavefront(m, acc, D, p, T, n))
     return m[0] if squeeze else m
 

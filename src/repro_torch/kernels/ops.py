@@ -18,8 +18,8 @@ from repro_torch.kernels.semiring_matmul import tropical_matmul as _tropical_mat
 
 def tropical_matmul(a, b, av=None, gv=None, bv=None):
     """Weighted (min,+) product through the ``semiring_matmul`` kernel:
-    ``C[.., i, j] = min_k (A[i,k] + B[k,j] + av[i]·gv[k]·bv[j])``, with an
-    optional leading batch axis."""
+    ``C[.., i, j] = min_k (A[i,k] + B[k,j] + av[i]·gv[k]·bv[j])``, with up
+    to two leading batch axes."""
     return _tropical_matmul(a, b, av, gv, bv)
 
 

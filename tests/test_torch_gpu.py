@@ -6,6 +6,8 @@ device is present. This file imports no JAX; ``grid_edge_specs`` and
 
 Run on the card with ``python -m pytest -m gpu tests/test_torch_gpu.py``.
 """
+import ctypes
+
 import numpy as np
 import pytest
 
@@ -14,6 +16,7 @@ torch = pytest.importorskip("torch")
 from repro_torch import dp  # noqa: E402
 from repro_torch import kernels as tkernels  # noqa: E402
 from repro_torch.core.mcm import num_cells  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import grid_pipeline as k6  # noqa: E402
 from repro_torch.kernels import mcm_pipeline as k2  # noqa: E402
 from repro_torch.kernels import mcm_tiled as k4  # noqa: E402
@@ -657,7 +660,9 @@ def test_streaming_routes_on_the_card_match_cpu(cuda, name):
 
 @pytest.mark.parametrize("m,k,n,batch", [(1, 1, 1, None), (7, 13, 5, None),
                                          (16, 16, 16, 3), (33, 100, 17, 2),
-                                         (128, 128, 128, None), (16, 992, 16, 62)])
+                                         (128, 128, 128, None), (16, 992, 16, 62),
+                                         (16, 496, 16, 32), (8, 40, 8, 5), (65, 300, 130, 1),
+                                         (16, 0, 16, 2), (200, 17, 3, None)])
 @pytest.mark.parametrize("weighted", [False, True])
 def test_tropical_matmul_kernel_bit_equal_to_plain(cuda, m, k, n, batch, weighted):
     """K5 against its plain version: ragged shapes (no tile divides them),
@@ -686,6 +691,116 @@ def test_tropical_matmul_kernel_infinities_and_nan(cuda):
     assert torch.equal(got.nan_to_num(), want.nan_to_num())
     with pytest.raises(ValueError):
         k5.tropical_matmul(a.double(), b.double())
+
+
+def _k5_operands(cuda, lead, m, k, n, weighted, seed, special=False):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    a = torch.randint(-3, 4, lead + (m, k), generator=g, device=cuda).float()
+    b = torch.randint(-3, 4, lead + (k, n), generator=g, device=cuda).float()
+    if special:                     # a row of +inf, NaNs and -inf entries
+        a[..., 0, :] = float("inf")
+        a[..., -1, k // 2] = float("nan")
+        b[..., k // 3, 0] = float("-inf")
+    w = [None] * 3
+    if weighted:
+        w = [torch.randint(1, 4, lead + (x,), generator=g, device=cuda).float()
+             for x in (m, k, n)]
+    return a, b, w
+
+
+def _k5_equal(got, want):
+    return torch.equal(got.isnan(), want.isnan()) and torch.equal(got.nan_to_num(),
+                                                                  want.nan_to_num())
+
+
+K5_FORCED = [(k5.SPLIT, c, g, st) for c in (1, 2, 4, 8, 16) for g in (1, 2, 4)
+             for st in (1, 3, 8)] + [(k5.REGISTER, c, 1, st) for c in (1, 2, 4, 8)
+                                     for st in (1, 2, 4)]
+
+
+@pytest.mark.parametrize("regime,cluster,groups,stages", K5_FORCED)
+@pytest.mark.parametrize("weighted", [False, True])
+def test_tropical_matmul_every_plan_bit_equal_to_plain(cuda, regime, cluster, groups,
+                                                       stages, weighted):
+    """K5 at every regime, cluster size (16 non-portable), group count and
+    ring depth (a ring shorter than the slice refills stages), forced
+    through ``_launch(plan=)``, on tie-heavy integers with rows of +inf
+    and NaN: one launch, bit-equal to the plain version (NaN where it has
+    NaN)."""
+    m, n = (16, 16) if regime == k5.SPLIT else (70, 130)
+    k = 600
+    a, b, w = _k5_operands(cuda, (3,), m, k, n, weighted, cluster * 7 + groups, True)
+    tile, r = (16, 1) if regime == k5.SPLIT else (64, 4)
+    p = k5.Plan(regime, tile, r, cluster, groups, -(-k // cluster), stages)
+    before = k5.LAUNCHES["tropical_matmul"]
+    got = k5._launch(a, b, *w, plan=p)
+    assert k5.LAUNCHES["tropical_matmul"] == before + 1
+    assert _k5_equal(got, k5.tropical_matmul_plain(a, b, *w))
+
+
+def test_tropical_matmul_plan_rules_match_the_card(cuda):
+    """The Python plan's shared memory equals the kernel's, every plan the
+    rule can give is one the launcher takes, and the card's cluster limit
+    is 16 or 8."""
+    lib = _build.load("semiring_matmul")
+    fn = lib.tropical_matmul_smem_bytes
+    fn.restype = ctypes.c_longlong
+    for regime, cluster, groups, stages in K5_FORCED:
+        r = 1 if regime == k5.SPLIT else 4
+        want = k5.smem_bytes(regime, cluster, groups, stages)
+        got = fn(r, cluster, groups, stages)
+        assert got == (want if want <= _build.SMEM_OPTIN_BYTES else -1)
+    sms, max_cluster = k5.card_limits(cuda)
+    assert sms == torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert max_cluster in (8, 16)
+
+
+@pytest.mark.parametrize("n,batch", [(1024, 1), (256, 8)])
+def test_tropical_matmul_route_operands_every_block_diagonal(cuda, n, batch):
+    """K5 on the blocked route's own strided views of a table (two batch
+    axes, no copies) at every block diagonal of MCM n: bit-equal to the
+    plain version on flat copies, one launch each."""
+    T, nt = 16, n // 16
+    g = torch.Generator(device=cuda).manual_seed(n)
+    m = torch.randint(0, 10 ** 6, (batch, n, n), generator=g, device=cuda).float()
+    p = torch.randint(1, 61, (batch, n + 1), generator=g, device=cuda).float()
+    for D in range(2, nt):
+        nb, K = nt - D, (D - 1) * T
+        a = m.as_strided((batch, nb, T, K), (n * n, T * (n + 1), n, 1), T)
+        b = m.as_strided((batch, nb, K, T), (n * n, T * (n + 1), n, 1), (T + 1) * n + D * T)
+        av = p[:, :nb * T].reshape(batch, nb, T)
+        gv = p[:, T + 1:].unfold(1, K, T)[:, :nb]
+        bv = p[:, D * T + 1:D * T + 1 + nb * T].reshape(batch, nb, T)
+        before = k5.LAUNCHES["tropical_matmul"]
+        got = k5.tropical_matmul(a, b, av, gv, bv)
+        assert k5.LAUNCHES["tropical_matmul"] == before + 1
+        flat = [x.reshape(batch * nb, *x.shape[2:]).contiguous() for x in (a, b, av, gv, bv)]
+        want = k5.tropical_matmul_plain(*flat).view(batch, nb, T, T)
+        assert torch.equal(got, want), f"D={D}"
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2])
+@pytest.mark.parametrize("m,k,n", [(16, 300, 16), (100, 200, 70)])
+def test_tropical_matmul_views_at_any_alignment(cuda, offset, m, k, n):
+    """Operands as views into wider buffers, starting ``offset`` floats in:
+    16-byte copies where the rows start on 16 bytes (offset 0), 4-byte
+    copies elsewhere; bit-equal to the plain version either way."""
+    a, b, w = _k5_operands(cuda, (2,), m, k + 8, n + 8, True, offset + m)
+    a, b = a[..., offset:offset + k], b[..., offset:offset + k, offset:offset + n]
+    w = [w[0], w[1][..., :k], w[2][..., :n]]
+    got = k5.tropical_matmul(a, b, *w)
+    assert torch.equal(got, k5.tropical_matmul_plain(a.contiguous(), b.contiguous(),
+                                                     *[x.contiguous() for x in w]))
+
+
+@pytest.mark.parametrize("batch,cluster", [(600, None), (40, 16), (300, 4)])
+def test_tropical_matmul_batch_beyond_one_wave(cuda, batch, cluster):
+    """More CTAs (or clusters) than the card keeps resident: the launch
+    runs in waves and stays bit-equal."""
+    a, b, w = _k5_operands(cuda, (batch,), 16, 496, 16, True, batch)
+    p = None if cluster is None else k5.Plan(k5.SPLIT, 16, 1, cluster, 4, -(-496 // cluster), 2)
+    got = k5._launch(a, b, *w, plan=p)
+    assert torch.equal(got, k5.tropical_matmul_plain(a, b, *w))
 
 
 @pytest.mark.parametrize("n,batch", [(32, 1), (64, 2), (96, 3), (256, 1)])
@@ -789,7 +904,9 @@ def test_flash_attention_kernel_rejects_bad_inputs(cuda):
         k7.flash_attention(big, big, big)
 
 
-@pytest.mark.parametrize("t,d", [(1, 1), (100, 33), (4097, 2048)])
+@pytest.mark.parametrize("t,d", [(1, 1), (100, 33), (4097, 2048)] + [
+    (t, d) for t in (1, 100, 4097, 32769) for d in (1, 33, 2048, 2050)
+    if (t, d) not in ((1, 1), (100, 33), (4097, 2048))])
 def test_linear_scan_kernel_bit_equal_to_plain(cuda, t, d):
     g = torch.Generator(device=cuda).manual_seed(t + d)
     x = torch.randn((t, d), generator=g, device=cuda)
@@ -800,6 +917,70 @@ def test_linear_scan_kernel_bit_equal_to_plain(cuda, t, d):
     assert k8.LAUNCHES["linear_scan"] == before + 1
     want_all, want_last = k8.chunked_scan_plain(x, decay, h0)
     assert torch.equal(got_all, want_all) and torch.equal(got_last, want_last)
+
+
+def _scan_operands(cuda, t, d, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((t, d), generator=g, device=cuda)
+    decay = torch.rand((t, d), generator=g, device=cuda) * 0.2 + 0.8
+    h0 = torch.randn((d,), generator=g, device=cuda)
+    return x, decay, h0
+
+
+@pytest.mark.parametrize("features", [8, 16, 32])
+@pytest.mark.parametrize("stages", [1, 2, 6, 12])
+@pytest.mark.parametrize("mode", ["tma", "cp.async"])
+def test_linear_scan_kernel_every_plan(cuda, features, stages, mode):
+    """K8 at every CTA width, ring depth and staging mode, forced through
+    ``_launch(plan=)`` (T ragged against the 64-row stages, D past a
+    whole CTA): bit-equal to the plain version."""
+    x, decay, h0 = _scan_operands(cuda, 1000, 2056, features * stages)
+    p = k8.Plan(features, k8.STAGE_ROWS, stages, mode)
+    got_all, got_last = k8._launch(x, decay, h0, plan=p)
+    want_all, want_last = k8.chunked_scan_plain(x, decay, h0)
+    assert torch.equal(got_all, want_all) and torch.equal(got_last, want_last)
+
+
+@pytest.mark.parametrize("t,d", [(300, 64), (4097, 2048)])
+def test_linear_scan_kernel_unaligned_view(cuda, t, d):
+    """x and decay as contiguous views starting 4 bytes past a 16-byte
+    boundary: TMA cannot address them, so the plan stages by cp.async, and
+    the result stays bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(t)
+    x = torch.empty(t * d + 1, device=cuda)[1:].view(t, d)
+    decay = torch.empty(t * d + 1, device=cuda)[1:].view(t, d)
+    x.copy_(torch.randn((t, d), generator=g, device=cuda))
+    decay.copy_(torch.rand((t, d), generator=g, device=cuda) * 0.2 + 0.8)
+    h0 = torch.randn((d,), generator=g, device=cuda)
+    assert x.is_contiguous() and x.data_ptr() % 16 and decay.data_ptr() % 16
+    assert k8._auto_plan(x, decay, torch.empty_like(x)).mode == k8.CP_ASYNC
+    before = k8.LAUNCHES["linear_scan"]
+    got_all, got_last = k8.chunked_scan(x, decay, h0)
+    assert k8.LAUNCHES["linear_scan"] == before + 1
+    want_all, want_last = k8.chunked_scan_plain(x, decay, h0)
+    assert torch.equal(got_all, want_all) and torch.equal(got_last, want_last)
+
+
+def test_linear_scan_plan_rules_match_the_card(cuda):
+    """The Python plan's shared memory equals the kernel's at every CTA
+    width, ring depth and mode; a plan past the opt-in is refused."""
+    fn = _build.load("chunked_scan").chunked_scan_smem_bytes
+    fn.restype = ctypes.c_longlong
+    for features in (8, 16, 32):
+        for stages in range(1, 17):
+            for mode in (k8.TMA, k8.CP_ASYNC):
+                want = k8.smem_bytes(k8.Plan(features, k8.STAGE_ROWS, stages, mode))
+                got = fn(features, stages, int(mode == k8.TMA))
+                assert got == (want if want <= _build.SMEM_OPTIN_BYTES else -1)
+    assert _build.load("chunked_scan").chunked_scan_rows() == k8.STAGE_ROWS
+
+
+def test_linear_scan_kernel_rejects_bad_plans(cuda):
+    x, decay, h0 = _scan_operands(cuda, 10, 6, 0)
+    with pytest.raises(RuntimeError):               # rows not 16-byte aligned
+        k8._launch(x, decay, h0, plan=k8.Plan(16, k8.STAGE_ROWS, 2, k8.TMA))
+    with pytest.raises(RuntimeError):               # no such CTA width
+        k8._launch(x, decay, h0, plan=k8.Plan(12, k8.STAGE_ROWS, 2, k8.CP_ASYNC))
 
 
 def test_reduced_engine_on_the_card_matches_cpu(cuda):

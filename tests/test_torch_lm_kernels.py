@@ -213,3 +213,20 @@ def test_k8_rejects_bad_shapes_and_chunk():
         ops.linear_scan(x, torch.zeros((8, 3)), torch.zeros(4))
     with pytest.raises(ValueError, match="chunk"):
         ops.linear_scan(x, x, torch.zeros(4), chunk=0)
+
+
+@pytest.mark.parametrize("t", [1, 100, 4097, 32768])
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 33, 36, 2048, 2050, 4096, 4100, 8192])
+def test_k8_plan_fits_and_stages_by_tma_where_rows_align(t, d):
+    """K8's plan: shared memory within the card's opt-in, TMA staging
+    exactly where every row starts on 16 bytes (D % 4 == 0, aligned base
+    addresses), 4-byte cp.async elsewhere; 128 CTAs at rwkv6's D = 2048."""
+    for aligned in (True, False):
+        p = k8.plan(t, d, aligned)
+        assert p.mode == (k8.TMA if d % 4 == 0 and aligned else k8.CP_ASYNC)
+        assert p.features in (8, 16, 32) and p.rows == k8.STAGE_ROWS
+        assert k8.smem_bytes(p) <= 232448
+        in_flight = 2 * 4 * p.stages * p.rows * p.features
+        assert 25 * 1024 <= in_flight <= 64 * 1024
+    if d == 2048:
+        assert -(-d // k8.plan(t, d).features) == 128
