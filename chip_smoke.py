@@ -3,6 +3,7 @@
     python3 chip_smoke.py                 # everything below
     python3 chip_smoke.py --dp-shapes     # K1-K6 and K8 alone at their paths' shapes
     python3 chip_smoke.py --dp-shapes --sweep   # and K5 / K8 under forced plans
+    python3 chip_smoke.py --service       # the service path alone
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc, at first
 use), holds each kernel against its plain PyTorch version on the card at the
@@ -57,6 +58,22 @@ then the LM serving path, whose prefill runs the flash-attention kernel K7:
     the traffic must), float32 its CUDA-core body; at the served prompt
     and at S = 32768 the CUDA-core body is also run on the same bf16
     tensors, for the two bodies' times and errors side by side;
+
+then the service path: ``dp.DPService(max_batch=32)`` on the card answering
+256 seeded requests over eight problems (mcm 128-256, half reconstructed,
+on K2; edit_distance / lcs 256-1024, viterbi 16 x 512 and knapsack 4096 on
+K1; edit_distance 2048² on K3; mcm 512 reconstructed on K4, fused;
+needleman_wunsch / gotoh 512-1024 on K6 antidiag; cky 16-32 tokens on K6
+spandiag) with repeats, priorities and short deadlines, under
+``torch.profiler``; every kernel route's launches equal its drains; three
+streaming sessions, each append against a cold solve on the card; a
+calibration sweep and its disagreements with the analytical order; a
+sample of 32 answers (the smallest of each problem) and the largest each
+route served against the plain version of that route on the card (the CPU
+port's computation; edit_distance and lcs against an exact row-at-a-time
+recurrence, as their plain versions take a step a cell); and the batched
+walks on the card against the host walks (the grid path's gotoh 4096²
+walk too, after that path's launches are counted);
 
 and last the gated linear scan K8 through ``ops.linear_scan`` at
 T = 32768, D = 2048, bit-equal to its plain version.
@@ -1507,28 +1524,39 @@ LM_GROUPS = {"flash_attention (K7)": ("flash_attention",),
              "matmul": ("gemm", "nvjet", "xmma", "cutlass"), "memcpy": ("memcpy",)}
 
 
-def device_profile(fn, keys: dict = BLOCKED_GROUPS) -> tuple:
+def device_profile(fn, keys: dict = BLOCKED_GROUPS, cpu: bool = True) -> tuple:
     """``(fn(), host ms, {group: device ms})`` of one call under
     ``torch.profiler``: the CUDA activity it recorded, summed by name into
     the groups of ``keys`` (a group takes a kernel whose lower-case name
     holds one of its parts) and other kernels. An empty dict means the
-    profiler saw no device activity (not measured)."""
+    profiler saw no device activity (not measured). ``cpu=False`` records
+    the device alone, for a long call whose host ops would swell the trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    t_start = time.perf_counter()
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3
+    t_stop = time.perf_counter()
     groups: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = e.name.lower()
+    # the recorded activity as it came (building the profiler's event tree
+    # takes seconds on a long call)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            name = e.name().lower()
             key = next((k for k, parts in keys.items() if any(p in name for p in parts)),
                        "other kernels")
-            groups[key] = groups.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
+            groups[key] = groups.get(key, 0.0) + e.duration_ns() / 1e6
+    start_s = t0 - t_start
+    stop_s = time.perf_counter() - t0 - host_ms / 1e3
+    if start_s + stop_s > 1.0:
+        print(f"  the profiler's own time: {start_s:.2f} s to start, {stop_s:.2f} s to "
+              "stop and read")
     return out, host_ms, groups
 
 
@@ -2028,6 +2056,417 @@ def dp_shapes_only(cuda, sweep: bool = False) -> int:
     return 1 if _failures else 0
 
 
+# ---------------------------------------------------------------------------
+# The service path: DPService on the card, bucketed drains over K1-K4 and K6
+# ---------------------------------------------------------------------------
+#: the service's bucket width, the traffic's request count, the share of
+#: requests with a start-by deadline short enough to lapse in the backlog
+SERVICE_BATCH, SERVICE_REQUESTS, SERVICE_TIGHT = 32, 256, 0.08
+#: kernel route -> the launch counters of its kernel
+SERVICE_ROUTES = {"kernel_blocked": k1.LAUNCHES, "kernel_tiled": k3.LAUNCHES,
+                  "kernel_wavefront": k2.LAUNCHES, "kernel_tiled_wavefront": k4.LAUNCHES,
+                  "kernel_grid": k6.LAUNCHES}
+#: launch counters that must move in the phase: K1, K2, K3, K4, K6 by schedule
+SERVICE_KERNELS = {"K1": ("sdp_pipeline", "sdp_pipeline_with_args"),
+                   "K2": ("mcm_pipeline", "mcm_pipeline_with_args"),
+                   "K3": ("sdp_chunked", "sdp_chunked_with_args"),
+                   "K4": ("mcm_tiled", "mcm_tiled_with_args", "mcm_tiled_fused"),
+                   "K6 antidiag": ("grid_pipeline_antidiag",
+                                   "grid_pipeline_antidiag_with_args"),
+                   "K6 spandiag": ("grid_pipeline_spandiag",
+                                   "grid_pipeline_spandiag_with_args")}
+#: problems of the service traffic, each with the count of its smallest
+#: instances held against a plain version; the largest instance of each
+#: route and recurrence is held too (K6's plain version takes ~5 s an
+#: alignment of 1024², so the two alignments share one such instance)
+SERVICE_CPU_SAMPLE = {"mcm": 10, "edit_distance": 5, "lcs": 5, "viterbi": 5,
+                      "unbounded_knapsack": 5, "needleman_wunsch": 0, "gotoh": 1,
+                      "cky": 4}
+SERVICE_RECURRENCE = {"needleman_wunsch": "alignment", "gotoh": "alignment"}
+
+
+def service_traffic(rng) -> list:
+    """The service path's requests, seeded: per group a pool of instances
+    (about one request in eight repeats an earlier one of its group), then
+    40 more repeats of the cheaper groups' instances, shuffled together.
+    Each request is ``(name, payload, reconstruct, size)``; ``size`` orders
+    the instances for the CPU comparison."""
+    grammar = cky_instance(rng, 32, 32, 512, 1024)
+    knap_w = np.array([3, 5, 7, 11, 13, 17])
+
+    def mcm(n):
+        return {"dims": rng.integers(1, 30, n + 1).astype(np.float64)}
+
+    def pair(n):
+        return {"x": rng.integers(0, 4, n), "y": rng.integers(0, 4, n)}
+
+    groups = [
+        ("mcm", 64, lambda i: (mcm(int(rng.choice([128, 192, 256]))), i % 2 == 0)),
+        ("edit_distance", 24, lambda i: (pair(int(rng.choice([256, 512, 1024]))), False)),
+        ("lcs", 24, lambda i: (pair(int(rng.choice([256, 512, 1024]))), False)),
+        ("viterbi", 32, lambda i: (viterbi_instance(rng, 16, 512), False)),
+        ("needleman_wunsch", 16, lambda i: (pair(int(rng.choice([512, 1024]))), False)),
+        ("gotoh", 16, lambda i: (pair(int(rng.choice([512, 1024]))), False)),
+        ("cky", 16, lambda i: (dict(grammar, tokens=rng.integers(
+            0, 512, int(rng.choice([16, 32])))), False)),
+        ("unbounded_knapsack", 16, lambda i: ({
+            "item_weights": knap_w, "capacity": 4096,
+            "item_values": np.round(rng.random(len(knap_w)) * 10 + 0.5, 3)}, False)),
+        ("edit_distance", 4, lambda i: (pair(2048), False)),
+        ("mcm", 4, lambda i: (mcm(512), True)),
+    ]
+    out, cheap = [], []
+    for name, count, make in groups:
+        pool = []
+        for i in range(count):
+            if pool and i % 8 == 7 and count > 4:
+                out.append(pool[int(rng.integers(len(pool)))])
+                continue
+            kw, recon = make(i)
+            size = len(kw.get("dims", kw.get("x", kw.get("obs", kw.get("tokens", [])))))
+            req = (name, kw, recon, size or int(kw.get("capacity", 0)))
+            pool.append(req)
+            out.append(req)
+        if count > 4:
+            cheap += pool
+    out += [cheap[int(rng.integers(len(cheap)))] for _ in range(SERVICE_REQUESTS - len(out))]
+    return [out[i] for i in rng.permutation(len(out))]
+
+
+def plain_twin(route: str):
+    """The kernel route ``route`` with each kernel wrapper swapped for its
+    plain PyTorch version — the computation the CPU port runs — to run on
+    the card; None for a plain route."""
+    zero = lambda s, d: 0.0  # noqa: E731  (never ranked)
+    if route in ("kernel_blocked", "kernel_tiled"):
+        plain = k1.sdp_pipeline_plain if route == "kernel_blocked" else k3.sdp_chunked_plain
+        return dp.backends.linear_backend(
+            route, lambda i, o, op, n, weights=None: plain(i, o, op, n, weights=weights),
+            zero, arg_fn=lambda i, o, op, n, weights=None: plain(
+                i, o, op, n, weights=weights, with_args=True))
+    if route == "kernel_wavefront":
+        return dp.backends.triangular_tab_backend(
+            route, lambda w, n: k2.mcm_pipeline_plain(w, n), zero,
+            arg_fn=lambda w, n: k2.mcm_pipeline_plain(w, n, with_args=True))
+    if route == "kernel_tiled_wavefront":
+        return dp.backends.triangular_tab_backend(
+            route, lambda w, n: k4.mcm_tiled_plain(w, n), zero,
+            arg_fn=lambda w, n: k4.mcm_tiled_plain(w, n, with_args=True),
+            fused_fn=lambda w, n: k4.mcm_tiled_plain(w, n, fused=True))
+    if route == "kernel_grid":
+        return dp.backends.grid_backend(
+            route, lambda a, m: k6.grid_pipeline_plain(a, m), zero,
+            arg_fn=lambda a, m: k6.grid_pipeline_plain(a, m, with_args=True))
+    return None
+
+
+def alignment_value(name: str, x, y) -> float:
+    """edit_distance or lcs of ``x`` and ``y`` exactly, a row at a time
+    (the in-row dependency as a running min or max): the check for K1 and
+    K3 at these sizes, whose plain versions take one step a cell."""
+    x, y = np.asarray(x), np.asarray(y)
+    j = np.arange(len(y) + 1)
+    row = j.copy() if name == "edit_distance" else np.zeros(len(y) + 1, np.int64)
+    for i in range(1, len(x) + 1):
+        if name == "edit_distance":
+            t = np.concatenate([[i], np.minimum(row[1:] + 1, row[:-1] + (x[i - 1] != y))])
+            row = np.minimum.accumulate(t - j) + j
+        else:
+            t = np.concatenate([[0], np.maximum(row[1:], row[:-1] + (x[i - 1] == y))])
+            row = np.maximum.accumulate(t)
+    return float(row[-1])
+
+
+def service_sample(results: list) -> list:
+    """Per problem its smallest resolved instances (``SERVICE_CPU_SAMPLE``),
+    then the largest instance each (route, recurrence) served."""
+    picked, largest = [], {}
+    for name, want in SERVICE_CPU_SAMPLE.items():
+        mine = sorted((r for r in results if r[0][0] == name and r[1].status == "done"),
+                      key=lambda r: r[0][3])
+        seen, chosen = set(), []
+        for req, res in mine:
+            if id(req[1]) not in seen:
+                seen.add(id(req[1]))
+                chosen.append((req, res))
+        require(len(chosen) >= want, f"service: {len(chosen)} resolved {name} "
+                f"instances for the comparison (want {want})")
+        picked += chosen[:want]
+        for req, res in chosen:
+            key = (res.backend, SERVICE_RECURRENCE.get(name, name))
+            if key not in largest or req[3] > largest[key][0][3]:
+                largest[key] = (req, res)
+    return picked + [r for r in largest.values() if all(r is not p for p in picked)]
+
+
+def service_plain_check(results: list, cuda) -> None:
+    """Answers of the card against the plain version of the route that
+    served each (the CPU port's computation, run on the card; one batched
+    call for the sampled instances of one shape), for the sample of
+    :func:`service_sample`: bit-equal values; reconstructed requests also
+    equal decoded solutions, recomputed to their optimum. edit_distance and
+    lcs are held against :func:`alignment_value`."""
+    t0 = time.perf_counter()
+    picked = service_sample(results)
+    groups: dict = {}
+    for (name, kw, recon, size), res in picked:
+        spec = dp.get_problem(name).encode(**kw)
+        groups.setdefault((name, res.backend, spec.shape_key(), recon, size), []).append(
+            (kw, res, spec))
+    same = 0
+    for (name, route, _, recon, size), items in groups.items():
+        t1 = time.perf_counter()
+        prob, twin = dp.get_problem(name), plain_twin(route)
+        specs = [spec for _, _, spec in items]
+        sols = [None] * len(items)
+        if name in ("edit_distance", "lcs") and not recon:
+            values = [alignment_value(name, kw["x"], kw["y"]) for kw, _, _ in items]
+        elif twin is None:
+            cpu = [dp.solve(name, backend=route, reconstruct=recon, device="cpu", **kw)
+                   for kw, _, _ in items]
+            values, sols = ([c.value for c in cpu], cpu) if recon else (cpu, sols)
+        elif recon:
+            tables, args, source, paths = dp.routing.run_batch_with_args(twin, specs, cuda)
+            sols = dp.reconstruct.reconstruct_batch(prob, specs, tables, args, source,
+                                                    paths=paths)
+            values = [sol.value for sol in sols]
+        else:
+            values = [prob.extract(t, spec) for t, spec in
+                      zip(dp.routing.run_batch(twin, specs, cuda), specs)]
+        for (kw, res, _), value, sol in zip(items, values, sols):
+            ok = np.float32(res.answer) == np.float32(value)
+            if recon:
+                ok &= res.solution is not None and res.solution.solution == sol.solution
+                ok &= check_decoded(name, kw, res.solution)
+            same += bool(ok)
+            if not ok:
+                print(f"service: {name} (size {size}) on {route}: card {res.answer} "
+                      f"vs plain {value}")
+        print(f"  {name} {size} on {route}{' reconstruct' if recon else ''}: "
+              f"{len(items)} against the plain version in {time.perf_counter() - t1:.2f} s")
+    require(len(picked) >= 32 and same == len(picked),
+            f"service: {same}/{len(picked)} sampled answers equal the plain versions' "
+            f"over {len(SERVICE_CPU_SAMPLE)} problems and {len(groups)} (route, shape) "
+            f"groups ({time.perf_counter() - t0:.1f} s)")
+
+
+def service_sessions(svc, cuda) -> None:
+    """Three streaming sessions, every append checked against a cold
+    ``dp.solve`` of the same full instance on the card, bit for bit."""
+    rng = np.random.default_rng(SEED + 7)
+    x, y = rng.integers(0, 4, 256), rng.integers(0, 4, 2048)
+    dims = rng.integers(1, 30, 257).astype(np.float64)
+    knap = {"item_weights": np.array([3, 5, 7, 11, 13, 17]),
+            "item_values": np.round(rng.random(6) * 10 + 0.5, 3)}
+    sessions = [("needleman_wunsch", [dict(x=x, y=y[:c]) for c in range(256, 2049, 256)]),
+                ("mcm", [dict(dims=dims[:n + 1]) for n in (64, 128, 192, 256)]),
+                ("unbounded_knapsack", [dict(knap, capacity=c)
+                                        for c in (1024, 2048, 3072, 4096)])]
+    for name, steps in sessions:
+        sid = svc.open_session(name)
+        same, kinds, took = 0, [], []
+        for kw in steps:
+            t0 = time.perf_counter()
+            tid = svc.append(sid, **kw)
+            res = svc.run()[tid]
+            took.append((time.perf_counter() - t0) * 1e3)
+            kinds.append("extend" if res.extended else "cold")
+            cold = dp.solve(name, device=cuda, **kw)
+            same += np.float32(res.answer).tobytes() == np.float32(cold).tobytes()
+        spec = dp.get_problem(name).encode(**steps[-1])
+        stored = svc.prefix_index.lookup(name, spec)
+        table_same = stored is not None and np.array_equal(
+            stored.table, dp.solve_spec(spec, device=cuda))
+        summary = svc.close_session(sid)
+        print(f"session {name}: {len(steps)} appends ({', '.join(kinds)}) via "
+              f"{summary['affinity']}, ms per append "
+              + ", ".join(f"{t:.1f}" for t in took))
+        require(same == len(steps) and table_same and kinds.count("extend") == len(steps) - 1,
+                f"session {name}: every append equals its cold dp.solve on the card "
+                f"bit for bit ({same}/{len(steps)}), the last stored table too")
+
+
+def compare_walks(cuda, buckets) -> None:
+    """The batched traceback walk on the card, on the args where the route
+    left them, against the per-instance host walks, which first need the
+    args on the host (a reconstruct drain copies them there for its answers
+    either way, so that copy is timed apart), for each ``(name, size,
+    instances)`` bucket; the paths must agree."""
+    from repro_torch.dp import reconstruct
+
+    for name, size, kws in buckets:
+        prob = dp.get_problem(name)
+        specs = [prob.encode(**kw) for kw in kws]
+        route = dp.routing.resolve_backend(specs[0], reconstruct=True, device=cuda,
+                                           batch=True)
+        tables, args = route.batch_run_with_args(specs, cuda)
+        starts = ([reconstruct.start_cell(prob, t, s) for t, s in zip(tables, specs)]
+                  if specs[0].uses_start else None)
+        for _ in range(2):          # warm: a tree walk's steps are captured on the second
+            reconstruct.traceback_batch(args, specs[0], starts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        paths = reconstruct.traceback_batch(args, specs[0], starts)
+        t1 = time.perf_counter()
+        argss = list(args.cpu().numpy())
+        t2 = time.perf_counter()
+        host = [s.traceback_host(a, starts[i] if starts else -1)
+                for i, (s, a) in enumerate(zip(specs, argss))]
+        t3 = time.perf_counter()
+        same = all(all(np.array_equal(getattr(p, f), getattr(h, f))
+                       for f in ("cells", "lanes", "nodes", "stop") if hasattr(h, f))
+                   for p, h in zip(paths, host))
+        label = f"{name} {size}"
+        print(f"walks of a {label} bucket of {len(specs)} on {route.name}: device "
+              f"{(t1 - t0) * 1e3:.2f} ms, host {(t3 - t2) * 1e3:.2f} ms (the args' "
+              f"copy to the host {(t2 - t1) * 1e3:.2f} ms)")
+        require(same, f"the device walk of {label} equals the host walks")
+        del tables, args, argss, paths, host
+
+
+def service_walks(cuda) -> None:
+    """:func:`compare_walks` on one bucket of each walk the service runs:
+    K2's MCM 256 trees, K1's edit_distance 1024² chains, K6's gotoh 1024²
+    move walks and cky 32 rule trees."""
+    rng = np.random.default_rng(SEED + 9)
+    grammar = cky_instance(rng, 32, 32, 512, 1024)
+    pairs = lambda n, b: [{"x": rng.integers(0, 4, n),  # noqa: E731
+                           "y": rng.integers(0, 4, n)} for _ in range(b)]
+    compare_walks(cuda, [
+        ("mcm", 256, [{"dims": rng.integers(1, 30, 257).astype(np.float64)}
+                      for _ in range(8)]),
+        ("edit_distance", 1024, pairs(1024, 4)),
+        ("gotoh", 1024, pairs(1024, 4)),
+        ("cky", 32, [dict(grammar, tokens=rng.integers(0, 512, 32)) for _ in range(8)])])
+
+
+def phase_service(cuda) -> dict:
+    """``DPService(max_batch=32)`` on the card answering 256 seeded
+    requests over eight problems: every drain is one batched solve, one
+    kernel launch on a kernel route; then three streaming sessions and a
+    calibration sweep."""
+    from repro_torch.dp import autotune, telemetry
+
+    t_phase = time.perf_counter()
+    autotune.reset()
+    telemetry.configure(mode="spans")
+    telemetry.REGISTRY.reset()
+    rng = np.random.default_rng(SEED + 5)
+    traffic = service_traffic(rng)
+    svc = dp.DPService(max_batch=SERVICE_BATCH, device=cuda)
+    drains = {r: 0 for r in SERVICE_ROUTES}
+    route_launches = {r: 0 for r in SERVICE_ROUTES}
+    tid_of = []
+
+    def step():
+        before = {r: sum(c.values()) for r, c in SERVICE_ROUTES.items()}
+        batches = svc.engine.stats["device_batches"] + svc.engine.stats["extend_drains"]
+        svc.step()
+        if svc.engine.stats["device_batches"] + svc.engine.stats["extend_drains"] > batches:
+            route = svc.engine.last_drain.backend
+            if route in drains:
+                drains[route] += 1
+        for r, c in SERVICE_ROUTES.items():
+            route_launches[r] += sum(c.values()) - before[r]
+
+    def serve():
+        t0 = time.perf_counter()
+        for i, (name, kw, recon, _) in enumerate(traffic):
+            tight = rng.random() < SERVICE_TIGHT
+            tid_of.append(svc.submit(name, reconstruct=recon,
+                                     priority=int(rng.integers(3)),
+                                     deadline_ms=5.0 if tight else None, **kw))
+            if i % 32 == 31:
+                step()
+                step()
+        while svc.pending():
+            step()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    t_serve = time.perf_counter()
+    wall, host_ms, groups = device_profile(serve, {"service drains": ("",)}, cpu=False)
+    print(f"service traffic under the profiler: {time.perf_counter() - t_serve:.2f} s "
+          f"in all, {wall:.2f} s of it serving")
+    peak = torch.cuda.max_memory_allocated(cuda) / 2 ** 30
+    results = {tid: svc.poll(tid) for tid in tid_of}
+    done = [results[t] for t in tid_of if results[t].status == "done"]
+    expired = sum(results[t].status == "expired" for t in tid_of)
+    lat = np.array([r.latency_ms for r in done])
+    solved = np.array([r.latency_ms for r in done if not r.cached])
+    eng = svc.engine.stats
+    n_drains = eng["device_batches"] + eng["extend_drains"]
+    print(f"service: {len(tid_of)} requests, {len(done)} done, {expired} expired, "
+          f"{svc.stats['cache_hits']} cache hits, {eng['dedup_hits']} deduplicated, "
+          f"in {wall:.2f} s: {len(done) / wall:.1f} requests/s")
+    print(f"service latency: p50 {np.percentile(lat, 50):.1f} ms, p99 "
+          f"{np.percentile(lat, 99):.1f} ms (all done); solved ones p50 "
+          f"{np.percentile(solved, 50):.1f} ms, p99 {np.percentile(solved, 99):.1f} ms")
+    print(f"service drains: {n_drains}, mean bucket fill {eng['completed'] / n_drains:.2f} "
+          f"of {SERVICE_BATCH} requests; walks: {eng['device_tracebacks']} on the "
+          f"device, {eng['host_tracebacks']} on the host; peak device memory "
+          f"{peak:.3f} GiB")
+    print("service drains by route: " + ", ".join(
+        f"{r} {drains[r]} ({route_launches[r]} launches)" for r in drains))
+    hists = telemetry.REGISTRY.histograms()
+    print("service phases (ms, p50/p99): " + ", ".join(
+        f"{ph} {hists[f'dp_service_{ph}_ms'].quantile(0.5):.2f}/"
+        f"{hists[f'dp_service_{ph}_ms'].quantile(0.99):.2f}"
+        for ph in ("queue", "dispatch", "solve", "traceback", "decode")
+        if f"dp_service_{ph}_ms" in hists))
+    walk = hists.get("dp_engine_traceback_ms")
+    if walk is not None:
+        print(f"service device walks: {walk.count} buckets, {walk.sum:.1f} ms in all")
+    describe_profile("service traffic", host_ms, groups)
+    counts = launches()
+    for label, names in SERVICE_KERNELS.items():
+        n = sum(counts[k] for k in names)
+        require(n > 0, f"service: {label} launched {n} times in the phase")
+    for r in SERVICE_ROUTES:
+        require(route_launches[r] == drains[r], f"service: {r} launches "
+                f"{route_launches[r]} equal its drains {drains[r]}")
+    require(eng["dedup_hits"] > 0 and svc.stats["cache_hits"] > 0,
+            f"service: engine dedup {eng['dedup_hits']} and cache hits "
+            f"{svc.stats['cache_hits']} both > 0")
+    require(expired > 0 and len(done) + expired == len(tid_of),
+            f"service: every ticket resolved ({len(done)} done + {expired} expired)")
+
+    t_check = time.perf_counter()
+    service_plain_check([(traffic[i], results[t]) for i, t in enumerate(tid_of)], cuda)
+    t_walks = time.perf_counter()
+    service_walks(cuda)
+    t_sessions = time.perf_counter()
+    service_sessions(svc, cuda)
+    print(f"service sessions: {time.perf_counter() - t_sessions:.2f} s")
+
+    t_cal = time.perf_counter()
+    dp.calibrate(problems=["viterbi", "edit_distance", "sdp"], sizes=(16, 64),
+                 repeats=2, device=cuda)
+    rep = dp.routing_report(device=cuda)
+    rows = [r for r in rep["shapes"] if r["comparable"] and r["regime"] == "single"]
+    print(f"calibration on {rep['platform']}: {len(rows)} shapes timed in "
+          f"{time.perf_counter() - t_cal:.2f} s, {sum(not r['agree'] for r in rows)} "
+          "where the measured-fastest route is not the analytical pick")
+    for r in rows:
+        print(f"  {r['shape_key'][0]} n={dp.backends.shape_key_size(r['shape_key'])}: "
+              f"analytical {r['analytical_choice']}, measured {r['measured_choice']} "
+              f"(regret {r['analytical_regret']:.2f}x) "
+              + ", ".join(f"{k} {v:.3f}" for k, v in r["measured_ms"].items()))
+    autotune.reset()
+    telemetry.reset()
+    t_end = time.perf_counter()
+    print(f"service phase parts (s): traffic made {t_serve - t_phase:.2f}, served and "
+          f"profiled {t_check - t_serve:.2f}, plain check {t_walks - t_check:.2f}, walks "
+          f"{t_sessions - t_walks:.2f}, sessions and calibration {t_end - t_sessions:.2f}")
+    took = t_end - t_phase
+    require(took <= 60.0, f"service phase took {took:.1f} s, its checks included "
+            "(limit 60 s)")
+    return counts
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2035,6 +2474,14 @@ def main() -> int:
     cuda = torch.device("cuda", 0)
     if sys.argv[1:2] == ["--dp-shapes"] and set(sys.argv[2:]) <= {"--sweep"}:
         return dp_shapes_only(cuda, sweep=sys.argv[2:] == ["--sweep"])
+    if sys.argv[1:] == ["--service"]:
+        phase_build()
+        # the process's first profiler start initialises the card's tracing
+        # (~10 s); in the full run the earlier paths have paid it
+        device_profile(torch.cuda.synchronize, {}, cpu=False)
+        reset_launches()
+        print(f"launches on the service path: {phase_service(cuda)}")
+        return 1 if _failures else 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip() or f"nvidia-smi failed: {smi.stderr.strip()}")
@@ -2091,6 +2538,9 @@ def main() -> int:
                 f"path, as its shapes count ({want})")
     print(f"peak device memory on the grid path: {path_peak_gib():.3f} GiB")
     records += grid_records
+    # the grid path's gotoh walk again, after its launches were counted
+    compare_walks(cuda, [("gotoh", ALIGN_N,
+                          [grid_instances(np.random.default_rng(SEED))["gotoh"]])])
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(cuda)
@@ -2108,6 +2558,11 @@ def main() -> int:
             f"launches on the blocked path, as its shapes count ({want})")
     print(f"peak device memory on the blocked path: {path_peak_gib():.3f} GiB")
     records += blocked_records
+
+    torch.cuda.empty_cache()
+    reset_launches()
+    counts = phase_service(cuda)
+    print(f"launches on the service path: {counts}")
 
     del k4_table
     torch.cuda.empty_cache()

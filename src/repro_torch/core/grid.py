@@ -109,15 +109,15 @@ def _antidiag(arrs, meta, with_args: bool):
     return unbatched(squeeze, st.reshape(B, -1), ar.reshape(B, -1), with_args)
 
 
-def _spandiag(arrs, meta, with_args: bool):
+def _spandiag_fill(st, rw, meta, ar=None, n_old: int = 1):
+    """Fill the span diagonals of ``(batch, planes, cells)`` charts in
+    place: rows ``i ≥ max(0, n_old - d)`` of each diagonal ``d`` (every row
+    for a cold solve, ``n_old = 1``; the trailing rows of a warm
+    extension). Each cell folds the same candidates in the same order
+    either way; ``ar`` (when given) receives the packed args."""
     _, op, P, n, _, _, rules = meta
-    squeeze, (rw, init) = batched(arrs, meta)
-    dev, dt, B, NR = rw.device, rw.dtype, rw.shape[0], len(rules)
+    B, dt, dev, NR = rw.shape[0], rw.dtype, rw.device, len(rules)
     zero = semiring_zero(op)
-    cells = num_cells(n)
-    st = torch.full((B, P, cells), zero, dtype=dt, device=dev)
-    st[:, :, :n] = init
-    ar = torch.full((B, P, cells), -1, dtype=torch.int32, device=dev)
     # filler rule NR: planes (0, 0) and weight zero, masked out; it sits
     # after every real rule of its split, so it never wins a tie
     rwf = torch.cat([rw, torch.full((B, 1), zero, dtype=dt, device=dev)], 1)
@@ -128,7 +128,7 @@ def _spandiag(arrs, meta, with_args: bool):
     real = rid < NR
     pl = torch.tensor(live, device=dev)
     for d in range(1, n):
-        i = torch.arange(n - d, device=dev)[:, None, None]      # (lanes, 1, 1)
+        i = torch.arange(max(0, n_old - d), n - d, device=dev)[:, None, None]
         e = torch.arange(d, device=dev)[None, :, None]          # (1, d, 1)
         left = st[:, rb[:, None, None], lin_index(i, e, n)]     # (B, P', lanes, d, K)
         right = st[:, rc[:, None, None], lin_index(i + e + 1, d - e - 1, n)]
@@ -137,10 +137,21 @@ def _spandiag(arrs, meta, with_args: bool):
         best, k = _reduce(cand.flatten(3), op, 3)               # split-major
         row = lin_index(i[:, 0, 0], d, n)
         st[:, pl[:, None], row] = best
-        if with_args:
+        if ar is not None:
             ee, kk = k // rid.shape[1], k % rid.shape[1]
             r = rid[torch.arange(len(live), device=dev)[:, None], kk]
             ar[:, pl[:, None], row] = (ee * NR + r).to(torch.int32)
+
+
+def _spandiag(arrs, meta, with_args: bool):
+    _, op, P, n, _, _, _ = meta
+    squeeze, (rw, init) = batched(arrs, meta)
+    dev, dt, B = rw.device, rw.dtype, rw.shape[0]
+    cells = num_cells(n)
+    st = torch.full((B, P, cells), semiring_zero(op), dtype=dt, device=dev)
+    st[:, :, :n] = init
+    ar = torch.full((B, P, cells), -1, dtype=torch.int32, device=dev)
+    _spandiag_fill(st, rw, meta, ar if with_args else None)
     return unbatched(squeeze, st.reshape(B, -1), ar.reshape(B, -1), with_args)
 
 
@@ -160,6 +171,135 @@ def solve_grid_with_args(arrs: tuple, meta: tuple):
     if meta[0] == "antidiag":
         return _antidiag(arrs, meta, with_args=True)
     return _spandiag(arrs, meta, with_args=True)
+
+
+# ---------------------------------------------------------------------------
+# Warm-start extension.
+#
+# antidiag (column append): a new-column cell reaches back at most
+# W = frontier_cols() columns (max dj over the moves), so the extension is
+# the cold solver run on a rows × (W + k) sub-grid whose first W columns
+# are preset to the saved frontier and whose appended columns carry their
+# own weight/init/mask slices: every move source is in range and every
+# cell folds the same candidates, so the new columns equal the cold solve's.
+#
+# spandiag (leaf append): the split recurrence keeps the whole prefix chart
+# live; the prefix is re-embedded on the host and the cold fill recomputes
+# only the trailing rows of each span diagonal.
+# ---------------------------------------------------------------------------
+def extend_antidiag_arrays(spec: GridSpec, c_old: int, suffix: np.ndarray):
+    """``(arrs, meta)`` of the extension sub-grid of the EXTENDED ``spec``;
+    ``suffix`` is the saved ``(planes, rows, W)`` frontier."""
+    W = spec.frontier_cols()
+    k = spec.cols - c_old
+    P, R = spec.planes, spec.rows
+    init_sub = np.empty((P, R, W + k), np.float32)
+    init_sub[:, :, :W] = np.asarray(suffix)
+    init_sub[:, :, W:] = spec.init[:, :, c_old:]
+    mask_sub = np.ones((P, R, W + k), np.float32)
+    mask_sub[:, :, W:] = spec.init_mask[:, :, c_old:]
+    arrs = (np.asarray(spec.weights[:, :, c_old - W:], np.float32),
+            init_sub, mask_sub)
+    meta = ("antidiag", spec.op, P, R, W + k, spec.shape_key()[6], ())
+    return arrs, meta
+
+
+def embed_spandiag_prefix(spec: GridSpec, n_old: int,
+                          suffix: np.ndarray) -> np.ndarray:
+    """Full-width ``(planes, cells)`` start chart: the prefix chart
+    embedded, every diagonal-0 cell preset from ``init``, the semiring zero
+    on the extension cells — the cold fill's state once it has finished
+    the prefix region."""
+    P, n = spec.planes, spec.rows
+    old = np.asarray(suffix).reshape(P, num_cells(n_old))
+    out = np.full((P, num_cells(n)), semiring_zero(spec.op), old.dtype)
+    out[:, :n] = np.asarray(spec.init, old.dtype)
+    for d in range(1, n_old):
+        src, dst = lin_index(0, d, n_old), lin_index(0, d, n)
+        out[:, dst:dst + (n_old - d)] = old[:, src:src + (n_old - d)]
+    return out
+
+
+def extend_grid_spandiag(st0: torch.Tensor, rw: torch.Tensor, meta: tuple,
+                         n_old: int) -> torch.Tensor:
+    """Windowed spandiag extension: ``st0`` the ``(planes, cells)``
+    embedded prefix (:func:`embed_spandiag_prefix`), ``rw`` the rule
+    weights. Returns the full flat table."""
+    st = st0.clone()[None]
+    _spandiag_fill(st, rw[None], meta, n_old=n_old)
+    return st.reshape(-1)
+
+
+def _run_extend(spec: GridSpec, old_len: int, state: dict, device) -> np.ndarray:
+    """``Backend.run_extend`` for the grid_wavefront route on ``device``:
+    the ``(planes, rows, k)`` new columns (antidiag) or the full flat chart
+    (spandiag)."""
+    old_len = int(old_len)
+    if spec.schedule == "antidiag":
+        arrs, meta = extend_antidiag_arrays(spec, old_len, state["suffix"])
+        sub = solve_grid(tuple(torch.as_tensor(a, device=device) for a in arrs),
+                         meta).cpu().numpy()
+        return sub.reshape(spec.planes, spec.rows, -1)[:, :, spec.frontier_cols():]
+    st0 = embed_spandiag_prefix(spec, old_len,
+                                np.asarray(state["suffix"], np.float32))
+    rw = torch.as_tensor(np.asarray(spec.rule_weights, np.float32), device=device)
+    return extend_grid_spandiag(torch.as_tensor(st0, device=device), rw,
+                                spec.static_meta(), old_len).cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# Traceback on the device, every instance of a bucket in step
+# ---------------------------------------------------------------------------
+def grid_traceback(args: torch.Tensor, start: torch.Tensor, meta: tuple):
+    """Walk ``(batch, planes·cells)`` arg tables from packed cells
+    ``start`` (``(batch,)``) on their device.
+
+    antidiag — the move walk. A cell with arg ``a ≥ 0`` steps to the
+    source of move ``a``, a preset cell ends the walk; ``i + j`` falls at
+    every step, so the walk is a chain that
+    :func:`repro_torch.core.sdp.path_walk` lays out in log depth. Returns
+    ``(cells, moves, count)``: the ``(batch, L)`` cells in walk order,
+    their moves, and each walk's count of nodes (``cells[b, count[b]]`` is
+    the preset cell it ends in). Only these leave the device.
+
+    spandiag — the rule tree in preorder
+    (:func:`repro_torch.core.mcm.tree_preorder`, a child's plane from its
+    rule). Returns ``(pp, aa, bb, vv)``, each ``(batch, n-1)``: node t is
+    ``(plane, i, d, packed)``."""
+    from repro_torch.core.mcm import span_coords, split_kids, tree_preorder
+    from repro_torch.core.sdp import path_walk
+
+    schedule, _, P, R, C, moves, rules = meta
+    B, dev = args.shape[0], args.device
+    start = start.to(torch.int64)
+    if schedule == "antidiag":
+        # int32 arithmetic (planes·cells < 2³¹): the tables are grid-sized
+        RC = R * C
+        mv = torch.tensor([list(m) for m in moves], dtype=torch.int32, device=dev)
+        cell = torch.arange(P * RC, dtype=torch.int32, device=dev)
+        a = args.to(torch.int32).clamp(0, len(moves) - 1)
+        si = (cell % RC) // C - mv[:, 2][a]
+        sj = cell % C - mv[:, 3][a]
+        ok = (args >= 0) & (si >= 0) & (sj >= 0)
+        nxt = torch.where(ok, mv[:, 1][a] * RC + si * C + sj, cell)
+        del a, si, sj
+        cells, count = path_walk(nxt, start, ok, R + C)
+        return cells, args.gather(1, cells.to(torch.int64)), count
+    n, NR = R, len(rules)
+    if n < 2:
+        empty = torch.zeros((B, 0), dtype=torch.int64, device=dev)
+        return empty, empty, empty, empty
+    cells = num_cells(n)
+    rl, rr = torch.as_tensor(np.asarray(rules, np.int64).reshape(-1, 3)[:, 1:].T.copy(),
+                             device=dev)
+    i, d = span_coords(n, dev)
+    a = args.to(torch.int64).clamp(min=0).view(B, P, cells)
+    e = torch.minimum(a // NR, (d - 1).clamp(min=0))
+    kids = split_kids(i, d, e, rl[a % NR], rr[a % NR], n, P * cells)
+    root = start // cells * cells + lin_index(0, n - 1, n)
+    node = tree_preorder(kids, root, n, (i, d))
+    c = node % cells
+    return node // cells, i[c], d[c], args.to(torch.int64).gather(1, node)
 
 
 # ---------------------------------------------------------------------------
@@ -303,6 +443,6 @@ from repro_torch.dp import backends as _dp_backends  # noqa: E402
 _dp_backends.register(_dp_backends.grid_backend(
     "grid_wavefront", solve_grid,
     cost=lambda s, device: _dp_backends.grid_costs(s)["grid_wavefront"],
-    arg_fn=solve_grid_with_args,
+    arg_fn=solve_grid_with_args, run_extend=_run_extend,
     doc="masked wavefront over anti-diagonals (alignment grids) or span "
         "diagonals (parse charts): one gathered combine per frontier"))

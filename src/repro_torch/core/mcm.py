@@ -29,6 +29,8 @@ distinct, reads may repeat.
 from __future__ import annotations
 
 import dataclasses
+from collections import OrderedDict
+from typing import Optional
 
 import numpy as np
 import torch
@@ -41,8 +43,12 @@ __all__ = [
     "diag_of",
     "mcm_weight_fn",
     "weight_table",
+    "solve_wavefront",
     "solve_wavefront_tab",
     "solve_wavefront_tab_with_args",
+    "embed_prefix_table",
+    "extend_wavefront_tab",
+    "triangular_traceback",
     "triangular_args_np",
     "triangular_traceback_np",
     "PipelineTables",
@@ -162,6 +168,181 @@ def solve_wavefront_tab_with_args(wtab: torch.Tensor, n: int):
     """``solve_wavefront_tab`` + the best-split table: ``args[lin(i,d)] = e``
     such that split ``s = i+e`` wins cell ``(i, i+d)`` (-1 on diagonal 0)."""
     return _wavefront(wtab, n, with_args=True)
+
+
+def solve_wavefront(p: torch.Tensor, n: int) -> torch.Tensor:
+    """The MCM table from its ``(n+1,)`` (or ``(batch, n+1)``) dims: each
+    diagonal's split weights ``p_i·p_{i+e+1}·p_{i+d+1}`` computed from the
+    dims (left to right, as ``repro``'s ``solve_wavefront``) instead of
+    read from a weight table."""
+    squeeze = p.dim() == 1
+    if squeeze:
+        p = p[None]
+    dev, cells = p.device, num_cells(n)
+    st = torch.zeros((p.shape[0], cells), dtype=p.dtype, device=dev)
+    for d in range(1, n):
+        ii = torch.arange(n - d, device=dev)[:, None]
+        ee = torch.arange(d, device=dev)[None, :]
+        w = (p[:, ii] * p[:, ii + ee + 1]) * p[:, ii + d + 1]
+        cand = ((st[:, lin_index(ii, ee, n)]
+                 + st[:, lin_index(ii + ee + 1, d - ee - 1, n)]) + w)
+        st[:, lin_index(ii[:, 0], d, n)] = cand.min(dim=2).values
+    return st[0] if squeeze else st
+
+
+# ---------------------------------------------------------------------------
+# Warm-start extension. The split recurrence keeps every prefix cell live
+# (cell (i, j ≥ n_old) reads (i, s) for every s < j), so the resume state
+# is the whole prefix triangle, re-embedded into the wider diagonal-major
+# layout on the host; the loop then recomputes only the ≤ k = n - n_old
+# trailing rows of each diagonal with the cold solver's candidate vector
+# (same operands, same association, same min), so every new cell equals
+# the cold solve's bit for bit.
+# ---------------------------------------------------------------------------
+def embed_prefix_table(st_old: np.ndarray, n_old: int, n: int) -> np.ndarray:
+    """Re-embed a width-``n_old`` table into the width-``n`` diagonal-major
+    layout (new cells zeroed: diagonal-0 presets are 0, and the windowed
+    loop overwrites the rest)."""
+    out = np.zeros(num_cells(n), dtype=np.asarray(st_old).dtype)
+    for d in range(n_old):
+        src, dst = lin_index(0, d, n_old), lin_index(0, d, n)
+        out[dst:dst + (n_old - d)] = st_old[src:src + (n_old - d)]
+    return out
+
+
+def extend_wavefront_tab(st0: torch.Tensor, wtab: torch.Tensor, n: int,
+                         n_old: int) -> torch.Tensor:
+    """Windowed wavefront over the extension region: ``st0`` the width-``n``
+    table with the prefix embedded (:func:`embed_prefix_table`), ``wtab``
+    the extended spec's weight table. Returns the full table — O(n²·k)
+    work instead of the cold solve's O(n³)."""
+    st, dev = st0.clone(), st0.device
+    for d in range(1, n):
+        lo = max(0, n_old - d)
+        ii = torch.arange(lo, n - d, device=dev)[:, None]   # trailing rows
+        ee = torch.arange(d, device=dev)[None, :]
+        rows = lin_index(ii[:, 0], d, n)
+        cand = ((st[lin_index(ii, ee, n)]
+                 + st[lin_index(ii + ee + 1, d - ee - 1, n)])
+                + wtab[rows[:, None], ee])
+        st[rows] = cand.min(dim=1).values
+    return st
+
+
+# ---------------------------------------------------------------------------
+# Traceback on the device for every instance of a bucket at once. A split
+# tree's preorder is its nodes sorted by (i ascending, d descending): a
+# node's descendants start at its own i or later, its left subtree ends
+# before its right one begins, and nodes that share an i form a chain of
+# left children. A child's span diagonal lies below its parent's, so the
+# tree's nodes are found by spreading marks one diagonal a step, top down:
+# n - 2 steps of two kernels each and no host sync, then one sort.
+# ---------------------------------------------------------------------------
+def span_coords(n: int, device) -> tuple:
+    """``(i, d)`` of every diagonal-major cell of an n-chain table."""
+    d = torch.repeat_interleave(torch.arange(n, device=device),
+                                torch.arange(n, 0, -1, device=device),
+                                output_size=num_cells(n))
+    return torch.arange(num_cells(n), device=device) - lin_index(0, d, n), d
+
+
+def split_kids(i, d, e, left_plane, right_plane, n: int, none: int):
+    """``(..., 2)`` packed cells (``plane·cells + lin``) of the internal
+    children of cells ``(i, i+d)`` split at offset ``e``: ``(i, e)`` and
+    ``(i+e+1, d-e-1)``, ``none`` where a child is a leaf."""
+    cells, rd = num_cells(n), d - e - 1
+    left = torch.where(e >= 1, left_plane * cells + lin_index(i, e, n), none)
+    right = torch.where(rd >= 1, right_plane * cells + lin_index(i + e + 1, rd, n),
+                        none)
+    return torch.stack([left, right], dim=-1)
+
+
+def _spread(mark: torch.Tensor, kids: torch.Tensor, n: int) -> None:
+    """Mark the children of marked cells, one span diagonal a step from the
+    top: ``mark`` is ``(batch, planes·cells + 1)``, its last slot the sink
+    of ``none``."""
+    B, P, cells = kids.shape[:3]
+    none = P * cells
+    span = mark[:, :none].view(B, P, cells)
+    for d in range(n - 1, 1, -1):
+        lo, hi = lin_index(0, d, n), lin_index(0, d, n) + n - d
+        to = torch.where(span[:, :, lo:hi, None], kids[:, :, lo:hi], none)
+        mark.scatter_(1, to.view(B, -1), True)
+
+
+#: :func:`_spread` on the card by (shape, n, device), LRU: None after a
+#: shape's first walk, its captured CUDA graph from the second on
+_SPREAD_GRAPHS: "OrderedDict[tuple, Optional[tuple]]" = OrderedDict()
+_SPREAD_GRAPHS_MAX = 64
+
+
+def _spread_on_card(mark: torch.Tensor, kids: torch.Tensor, n: int) -> None:
+    """:func:`_spread` on a CUDA device. Its 2(n - 2) small launches cost
+    the host far more than the card, so a shape walked a second time has
+    its steps captured as a CUDA graph, replayed from then on; a shape
+    walked once runs them as they come."""
+    key = (tuple(kids.shape), n, kids.device)
+    entry = _SPREAD_GRAPHS.get(key)
+    if entry is None:
+        _spread(mark, kids, n)
+        if key in _SPREAD_GRAPHS:
+            m, k = torch.zeros_like(mark), torch.zeros_like(kids)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                _spread(m, k, n)
+            entry = (graph, m, k)
+        _SPREAD_GRAPHS[key] = entry
+        while len(_SPREAD_GRAPHS) > _SPREAD_GRAPHS_MAX:
+            _SPREAD_GRAPHS.popitem(last=False)
+        return
+    _SPREAD_GRAPHS.move_to_end(key)
+    graph, m, k = entry
+    m.copy_(mark)
+    k.copy_(kids)
+    graph.replay()
+    mark.copy_(m)
+
+
+def tree_preorder(kids: torch.Tensor, root: torch.Tensor, n: int,
+                  coords: tuple) -> torch.Tensor:
+    """The internal nodes a split tree reaches from packed cell ``root``
+    (``(batch,)``), as ``(batch, n-1)`` packed cells in preorder.
+    ``kids`` is ``(batch, planes, cells, 2)``: each cell's internal
+    children (:func:`split_kids`), ``planes·cells`` for none; ``coords``
+    is :func:`span_coords`. No step waits for the host."""
+    B, P, cells = kids.shape[:3]
+    none = P * cells
+    mark = torch.zeros((B, none + 1), dtype=torch.bool, device=kids.device)
+    mark[torch.arange(B, device=kids.device), root] = True
+    if kids.is_cuda:
+        _spread_on_card(mark, kids, n)
+    else:
+        _spread(mark, kids, n)
+    # every tree has n - 1 internal nodes: the marked cells sort first
+    b = torch.arange(B, device=kids.device)[:, None]
+    i, d = (x.repeat(P) for x in coords)
+    key = torch.where(mark[:, :none], (b * n + i) * n + (n - 1 - d),
+                      B * n * n)
+    order = torch.argsort(key.view(-1))[:B * (n - 1)]
+    return (order % none).view(B, n - 1)
+
+
+def triangular_traceback(args: torch.Tensor, n: int):
+    """Walk a ``(batch, cells)`` best-split table on its device. Returns
+    preorder ``(ii, dd, ee)``, each ``(batch, n-1)``: internal node
+    ``(i, i+d)`` chose split offset ``e`` (children ``(i, e)`` and
+    ``(i+e+1, d-e-1)``); the contract of :func:`triangular_traceback_np`."""
+    B, dev = args.shape[0], args.device
+    if n < 2:
+        empty = torch.zeros((B, 0), dtype=torch.int64, device=dev)
+        return empty, empty, empty
+    cells = num_cells(n)
+    i, d = span_coords(n, dev)
+    e = torch.minimum(args.to(torch.int64).clamp(min=0), (d - 1).clamp(min=0))
+    kids = split_kids(i, d, e, 0, 0, n, cells)
+    node = tree_preorder(kids[:, None], torch.full((B,), lin_index(0, n - 1, n),
+                                                   device=dev), n, (i, d))
+    return i[node], d[node], e.gather(1, node)
 
 
 # ---------------------------------------------------------------------------
@@ -358,10 +539,21 @@ def solve_pipeline_np(dims, order: str = "safe", check_conflicts: bool = False):
 # ---------------------------------------------------------------------------
 from repro_torch.dp import backends as _dp_backends  # noqa: E402
 
+def _run_extend(spec, n_old: int, state: dict, device) -> np.ndarray:
+    """``Backend.run_extend`` for the wavefront route: the prefix
+    re-embedded on the host, then the windowed loop on ``device``."""
+    n_old = int(n_old)
+    st0 = embed_prefix_table(np.asarray(state["suffix"], np.float32), n_old,
+                             spec.n)
+    wtab = torch.as_tensor(np.asarray(spec.weights, np.float32), device=device)
+    return extend_wavefront_tab(torch.as_tensor(st0, device=device), wtab,
+                                spec.n, n_old).cpu().numpy()
+
+
 _dp_backends.register(_dp_backends.triangular_tab_backend(
     "wavefront", solve_wavefront_tab,
     cost=lambda s, device: _dp_backends.triangular_costs(s)["wavefront"],
-    arg_fn=solve_wavefront_tab_with_args,
+    arg_fn=solve_wavefront_tab_with_args, run_extend=_run_extend,
     doc="dense per-diagonal combine (n-1 vectorized steps)"))
 
 
@@ -375,6 +567,7 @@ _dp_backends.register(_dp_backends.Backend(
     run=_pipeline_run,
     cost=lambda s, device: _dp_backends.triangular_costs(s)["mcm_pipeline"],
     supports=lambda s, device: True,
-    # the tables are built on the host per instance: the batch loops
-    batch_run=lambda specs, device: [_pipeline_run(s, device) for s in specs],
+    # the tables are built on the host per instance: no batch path, the
+    # routing layer loops ``run`` over a bucket
+    batch_run=None,
     doc="paper Fig.-8 pipeline (order=safe); O(n²) outer steps"))

@@ -40,9 +40,12 @@ __all__ = [
     "solve_companion_scan",
     "solve_tournament_with_args",
     "solve_blocked_with_args",
+    "solve_extend",
     "linear_traceback_steps",
+    "linear_traceback",
     "linear_args_np",
     "linear_traceback_np",
+    "pipeline_num_steps",
 ]
 
 
@@ -53,6 +56,13 @@ def _check_offsets(offsets: Sequence[int]) -> np.ndarray:
     if not (np.all(np.diff(a) < 0) and a[-1] > 0):
         raise ValueError(f"offsets must satisfy a_1 > … > a_k > 0, got {offsets}")
     return a
+
+
+def pipeline_num_steps(n: int, offsets: Sequence[int]) -> int:
+    """Outer-step count of the paper's pipeline: ``n + k - a_1 - 1`` (§III-A)."""
+    a = _check_offsets(offsets)
+    k, a1 = len(a), int(a[0])
+    return n + k - a1 - 1
 
 
 def _mul_for(op: str):
@@ -142,6 +152,29 @@ def solve_sequential(init, offsets, op: str, n: int, weights=None):
             v = t if v is None else sg.op(v, t)
         st[:, i] = v
     return _out(st, squeeze)
+
+
+# ---------------------------------------------------------------------------
+# Warm-start extension: resume the sequential loop from a solved prefix —
+# k = n - n_old steps instead of n. Cell i ≥ n_old reads only cells
+# i - a_j ≥ n_old - a_1, all inside the saved suffix, and folds its lanes
+# in solve_sequential's order, so the new cells equal the cold solve's tail
+# bit for bit.
+# ---------------------------------------------------------------------------
+def solve_extend(suffix, offsets, op: str, k: int, weights=None):
+    """``suffix`` is the prefix table's last a₁ cells (``(a_1,)`` or
+    ``(batch, a_1)``), ``weights`` the ``(k, lanes)`` weight rows of the
+    appended cells. Returns the ``k`` new cells."""
+    a = _check_offsets(offsets)
+    if k < 1:
+        raise ValueError(f"need at least one appended cell, got k={k}")
+    a1 = int(a[0])
+    if weights is not None:
+        # solve_sequential reads weight row i at cell i: pad the a_1 preset rows
+        pad = torch.zeros(weights.shape[:-2] + (a1, weights.shape[-1]),
+                          dtype=weights.dtype, device=weights.device)
+        weights = torch.cat([pad, weights], dim=-2)
+    return solve_sequential(suffix, offsets, op, a1 + k, weights=weights)[..., a1:]
 
 
 # ---------------------------------------------------------------------------
@@ -324,6 +357,59 @@ def linear_traceback_steps(n: int, offsets: Sequence[int]) -> int:
     return max((n - 1 - int(a[0])) // int(a[-1]) + 1, 1)
 
 
+def path_walk(nxt: torch.Tensor, start: torch.Tensor, live: torch.Tensor,
+              steps: int) -> tuple:
+    """The walks ``c → nxt[c]`` from ``start`` (``(batch,)``) over
+    ``(batch, cells)`` tables, by binary lifting: after round r the first
+    2^r cells of every walk are known and the jump table maps each cell 2^r
+    steps on, so the next 2^r cells are the jumps of these. A cell not
+    ``live`` is a fixed point (``nxt[c] = c``) and ends its walk; rounds
+    stop once every walk has reached one (one host sync a round), within
+    ``steps`` steps. The jump table is int32 (``batch·cells < 2³¹``): two
+    of them at a time. Returns ``(cells, count)``: ``(batch, 2^r)`` cells
+    after r rounds, in walk order, then the end cell repeated, and each
+    walk's count of live cells (the end cell is ``cells[b, count[b]]``)."""
+    B, n = nxt.shape
+    if B * n >= 2 ** 31:
+        raise ValueError(f"path_walk: {B} x {n} cells pass int32 indices")
+    base = torch.arange(B, device=nxt.device, dtype=torch.int32)[:, None] * n
+    jump = (nxt.to(torch.int32) + base).view(-1)
+    live = live.reshape(-1)
+    pos = start.to(torch.int32)[:, None] + base
+
+    def at(table, idx):         # int32 gathers: no int64 copy of the index
+        return table.index_select(0, idx.reshape(-1)).view(idx.shape)
+
+    rounds = max(1, int(steps).bit_length())
+    for r in range(rounds):
+        if not bool(at(live, pos[:, -1]).any()):
+            break
+        pos = torch.cat([pos, at(jump, pos)], dim=1)
+        if r + 1 < rounds:
+            jump = at(jump, jump)
+    return pos - base, at(live, pos).sum(1)
+
+
+def linear_traceback(args: torch.Tensor, offsets, n: int, start: torch.Tensor):
+    """Walk ``(batch, n)`` arg tables from ``start`` (``(batch,)``) on their
+    device. Cell ``c ≥ a_1`` steps to ``c - a[args[c]]``, a preset cell
+    ends the walk; :func:`path_walk` lays every walk out in log depth
+    instead of one step at a time. Returns ``(cells, lanes, count)``: the
+    ``(batch, L)`` cells in walk order, their lanes, and each walk's count
+    of live steps (``cells[b, count[b]]`` is the preset cell it ends in) —
+    only these leave the device, never a table-sized array. Cut at the
+    counts, they are :func:`linear_traceback_np`'s walk."""
+    a = _check_offsets(offsets)
+    a1 = int(a[0])
+    offs = torch.as_tensor(a, dtype=torch.int32, device=args.device)
+    cell = torch.arange(n, dtype=torch.int32, device=args.device)
+    live = (cell >= a1).expand(args.shape[0], n)
+    nxt = torch.where(live, cell - offs[args.clamp(0, len(a) - 1)], cell)
+    cells, count = path_walk(nxt, start, live,
+                             linear_traceback_steps(n, offsets))
+    return cells, args.gather(1, cells.to(torch.int64)), count
+
+
 def linear_args_np(table: np.ndarray, offsets: Sequence[int], op: str,
                    weights: np.ndarray | None = None) -> np.ndarray:
     """Winning-lane table recovered from a finished cost table (for routes
@@ -367,6 +453,21 @@ def linear_traceback_np(args: np.ndarray, offsets: Sequence[int], start: int):
 from repro_torch.dp import backends as _dp_backends  # noqa: E402
 
 
+def _run_extend(spec, n_old: int, state: dict, device) -> np.ndarray:
+    """``Backend.run_extend`` for the sequential route: the warm-start loop
+    over the ``k = n - n_old`` appended cells on ``device``."""
+    n_old = int(n_old)
+    a1 = int(spec.offsets[0])
+    if not a1 < n_old < spec.n:
+        raise ValueError(f"need a_1={a1} < n_old={n_old} < n={spec.n}")
+    suffix = torch.as_tensor(np.asarray(state["suffix"], np.float32),
+                             device=device)
+    w = (None if spec.weights is None else torch.as_tensor(
+        np.asarray(spec.weights[n_old:], np.float32), device=device))
+    return solve_extend(suffix, spec.offsets, spec.op, spec.n - n_old,
+                        weights=w).cpu().numpy()
+
+
 def _register_backends() -> None:
     table = [
         ("sequential", solve_sequential, None,
@@ -386,7 +487,9 @@ def _register_backends() -> None:
             cost=lambda s, device, _n=name: _dp_backends.linear_costs(s)[_n],
             supports=((lambda s, device: int(s.offsets[0]) <= 16)
                       if name == "companion_scan" else None),
-            arg_fn=arg_fn, doc=doc))
+            arg_fn=arg_fn,
+            run_extend=_run_extend if name == "sequential" else None,
+            doc=doc))
 
 
 _register_backends()

@@ -13,33 +13,57 @@ nothing about their time.
 Every route runs on an explicit ``torch.device``. Builders stack the specs
 of a bucket along a leading batch axis, so a bucket is one solver call —
 one kernel launch on the kernel routes.
+
+The cold-call signal: a call whose time includes building or first
+loading a kernel library (:func:`build_count` moves across it) measures
+nvcc, not the route; the engine leaves such drains out of calibration.
 """
 from __future__ import annotations
 
 import dataclasses
+from collections import OrderedDict
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.dp.problem import (GridSpec, LinearSpec, Spec, TriangularPath,
-                                    TriangularSpec)
+                                    TriangularSpec, family_class)
 
 _BACKENDS: dict = {}
 _LOADED = False
 
 
-def resolve_device(device=None) -> torch.device:
+def build_count() -> int:
+    """Kernel libraries built or loaded by this process so far."""
+    from repro_torch.kernels import _build
+
+    return _build.LOADS
+
+
+def lru_put(cache: "OrderedDict", key, value, max_entries: int):
+    """Insert-or-refresh on an OrderedDict used as an LRU, evicting the
+    stalest entries past ``max_entries``."""
+    cache[key] = value
+    cache.move_to_end(key)
+    while len(cache) > max_entries:
+        cache.popitem(last=False)
+    return value
+
+
+def resolve_device(device=None, check: bool = True) -> torch.device:
     """The device an entry point runs on: ``device`` if given, else the
     card. Raises when a CUDA device is asked for (or defaulted to) and none
-    is present — the port never carries on on the CPU unasked."""
+    is present — the port never carries on on the CPU unasked. ``check=False``
+    skips that test for an explicit device where nothing runs (ranking for a
+    card)."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("repro_torch: no CUDA device is available; pass "
                                "device='cpu' to run the plain PyTorch path")
         return torch.device("cuda", torch.cuda.current_device())
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    if check and dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"repro_torch: device {device!r} requested but no "
                            "CUDA device is available")
     return dev
@@ -50,14 +74,22 @@ class Backend:
     """A solver route. ``run(spec, device)`` returns the full linearized
     table as numpy; ``batch_run(specs, device)`` solves a homogeneous list
     of specs in one call. Arg-capable routes also expose ``run_with_args``
-    / ``batch_run_with_args`` returning ``(table, args)`` — the winning
-    lane (linear), best split (triangular), or winning move / packed split
-    (grid) per cell. Fused routes also expose ``batch_run_fused``
+    returning ``(table, args)`` — the winning lane (linear), best split
+    (triangular), or winning move / packed split (grid) per cell — and
+    ``batch_run_with_args`` returning ``(tables, args)`` with ``args`` the
+    ``(batch, cells)`` tensor left on ``device``, where the bucket's walk
+    runs. Fused routes also expose ``batch_run_fused``
     returning ``(tables, argss, paths)``: the tracebacks walked inside the
     solve's launch. ``cost(spec, device)`` is the analytical step-count
     prior and ``supports(spec, device)`` the route's gate on that device;
     ``kernel`` marks a route whose solve is one hand-written kernel launch
-    per bucket on the card. ``blocked_mcm`` launches its GEMM kernel but
+    per bucket on the card. ``batch_run`` is None on a route that solves a
+    bucket one instance at a time (the routing layer loops ``run``).
+    ``run_extend(spec, old_len, state, device)`` (plain routes only)
+    warm-starts the solve from a solved prefix: ``spec`` is the extended
+    spec, ``state`` the prefix's ``extension_state()``; it returns what
+    ``spec.stitch_extension`` assembles into the full table, bit-equal to a
+    cold solve. ``blocked_mcm`` launches its GEMM kernel but
     loops on the host over the boundary-wavefront steps, so it is not a
     kernel route: on the card it ranks behind the kernel routes and, among
     the plain ones, by cost (ahead of ``wavefront`` from n = 64 on).
@@ -68,10 +100,11 @@ class Backend:
     run: Callable
     cost: Callable[[Spec, torch.device], float]
     supports: Callable[[Spec, torch.device], bool]
-    batch_run: Callable
+    batch_run: Optional[Callable] = None
     run_with_args: Optional[Callable] = None
     batch_run_with_args: Optional[Callable] = None
     batch_run_fused: Optional[Callable] = None
+    run_extend: Optional[Callable] = None
     kernel: bool = False
     schedule: Optional[Callable] = None
     doc: str = ""
@@ -142,7 +175,8 @@ def _rows(t: torch.Tensor) -> list:
 def _backend(name: str, geometry: str, call: Callable, fn: Callable,
              cost: Callable, supports: Optional[Callable],
              arg_fn: Optional[Callable], kernel: bool, doc: str,
-             fused: Optional[Callable] = None) -> Backend:
+             fused: Optional[Callable] = None,
+             run_extend: Optional[Callable] = None) -> Backend:
     """A Backend whose batch paths run ``call(f, specs, device)`` with
     ``f = fn`` (the table) or ``f = arg_fn`` (``(table, args)``);
     ``fused(specs, device)`` (``(tables, argss, paths)``) is the fused
@@ -155,24 +189,25 @@ def _backend(name: str, geometry: str, call: Callable, fn: Callable,
     if arg_fn is not None:
         def batch_run_with_args(specs, device):
             st, args = call(arg_fn, specs, device)
-            return _rows(st), _rows(args)
+            return _rows(st), args
 
         def run_with_args(spec: Spec, device):
-            sts, argss = batch_run_with_args([spec], device)
-            return sts[0], argss[0]
+            sts, args = batch_run_with_args([spec], device)
+            return sts[0], args[0].cpu().numpy()
 
     return Backend(name=name, geometry=geometry,
                    run=lambda spec, device: batch_run([spec], device)[0],
                    cost=cost, supports=supports or (lambda s, device: True),
                    batch_run=batch_run, run_with_args=run_with_args,
                    batch_run_with_args=batch_run_with_args,
-                   batch_run_fused=fused, kernel=kernel,
-                   doc=doc)
+                   batch_run_fused=fused, run_extend=run_extend,
+                   kernel=kernel, doc=doc)
 
 
 def linear_backend(name: str, fn: Callable, cost: Callable,
                    supports: Optional[Callable] = None,
                    arg_fn: Optional[Callable] = None, kernel: bool = False,
+                   run_extend: Optional[Callable] = None,
                    doc: str = "") -> Backend:
     """Wrap a batched S-DP solver ``fn(init, offsets, op, n, weights=None)``
     into a Backend. ``arg_fn`` (same signature, returns ``(st, args)``)
@@ -185,14 +220,16 @@ def linear_backend(name: str, fn: Callable, cost: Callable,
         return f(init, s0.offsets, s0.op, s0.n, weights=w)
 
     return _backend(name, "linear", call, fn, cost, supports, arg_fn, kernel,
-                    doc)
+                    doc, run_extend=run_extend)
 
 
 def triangular_tab_backend(name: str, fn: Callable, cost: Callable,
                            supports: Optional[Callable] = None,
                            arg_fn: Optional[Callable] = None,
                            fused_fn: Optional[Callable] = None,
-                           kernel: bool = False, doc: str = "") -> Backend:
+                           kernel: bool = False,
+                           run_extend: Optional[Callable] = None,
+                           doc: str = "") -> Backend:
     """Wrap a batched weight-table triangular solver ``fn(wtab, n)`` into a
     Backend; ``arg_fn`` (returns ``(st, args)``) adds the arg-capable pair,
     ``fused_fn`` (returns ``(st, args, (ii, dd, ee))``, the node arrays in
@@ -209,12 +246,13 @@ def triangular_tab_backend(name: str, fn: Callable, cost: Callable,
             return _rows(st), _rows(args), [TriangularPath(nodes=x) for x in nodes]
 
     return _backend(name, "triangular", call, fn, cost, supports, arg_fn,
-                    kernel, doc, fused)
+                    kernel, doc, fused, run_extend)
 
 
 def grid_backend(name: str, fn: Callable, cost: Callable,
                  supports: Optional[Callable] = None,
                  arg_fn: Optional[Callable] = None, kernel: bool = False,
+                 run_extend: Optional[Callable] = None,
                  doc: str = "") -> Backend:
     """Wrap a batched grid solver ``fn(arrs, meta)`` — ``arrs`` one stacked
     tensor per ``GridSpec.device_arrays()`` slot, ``meta`` the shared
@@ -227,7 +265,7 @@ def grid_backend(name: str, fn: Callable, cost: Callable,
                  specs[0].static_meta())
 
     return _backend(name, "grid", call, fn, cost, supports, arg_fn, kernel,
-                    doc)
+                    doc, run_extend=run_extend)
 
 
 # shared cost vocabulary (the per-family step-count tables live on the
@@ -242,3 +280,53 @@ def triangular_costs(spec: TriangularSpec) -> dict:
 
 def grid_costs(spec: GridSpec) -> dict:
     return spec.route_costs()
+
+
+# shape-key plumbing for the calibration layer (repro_torch.dp.autotune) ----
+#: measurement-regime markers a calibration key may end with: ``batch`` =
+#: amortized per-instance ms of an engine bucket drain, ``reconstruct`` =
+#: the arg-emitting solve, ``extend`` = warm-start extension solves. Plain
+#: keys hold single-instance offline timings. The regimes never
+#: cross-match.
+SHAPE_KEY_REGIMES = ("batch", "reconstruct", "extend")
+
+
+def is_regime_marker(x) -> bool:
+    """Whether ``x`` is a measurement-regime marker."""
+    return x in SHAPE_KEY_REGIMES
+
+
+def split_shape_key(key: tuple) -> tuple:
+    """``(geometric_key, regime_marker_or_None)`` of a calibration key."""
+    if key and is_regime_marker(key[-1]):
+        return key[:-1], key[-1]
+    return key, None
+
+
+def shape_key_size(key: tuple) -> int:
+    """The table size a ``Spec.shape_key()`` encodes (the family's
+    ``shape_key_size`` hook)."""
+    key, _ = split_shape_key(key)
+    return family_class(key[0]).shape_key_size(key)
+
+
+def shape_key_distance(a: tuple, b: tuple) -> Optional[float]:
+    """Table-size gap between two shape keys for nearest-shape calibration
+    transfer, or None where a measurement cannot transfer: another family,
+    another regime, or structure the family's ``shape_key_compatible``
+    rejects."""
+    a, regime_a = split_shape_key(a)
+    b, regime_b = split_shape_key(b)
+    if regime_a != regime_b or a[0] != b[0]:
+        return None
+    cls = family_class(a[0])
+    if not cls.shape_key_compatible(a, b):
+        return None
+    return float(abs(cls.shape_key_size(a) - cls.shape_key_size(b)))
+
+
+def spec_from_shape_key(key: tuple) -> Spec:
+    """A placeholder spec with exactly the structure the cost models read
+    (regime suffix stripped; the family's ``from_shape_key`` hook)."""
+    key, _ = split_shape_key(key)
+    return family_class(key[0]).from_shape_key(key)

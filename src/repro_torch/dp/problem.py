@@ -95,6 +95,15 @@ def _floored(costs: dict, overhead: dict, n: int) -> dict:
     return {name: max(1.0, c) for name, c in costs.items()}
 
 
+# --- the batched walks' host side (see the traceback_program hooks) --------
+def _host(tensors) -> list:
+    """A walk's small result tensors, of one shape, as int64 numpy arrays
+    (one copy to the host)."""
+    import torch
+
+    return list(torch.stack([t.to(torch.int64) for t in tensors]).cpu().numpy())
+
+
 @dataclasses.dataclass(frozen=True)
 class LinearSpec:
     """Weighted S-DP instance: table length ``n``, strictly-decreasing
@@ -200,6 +209,147 @@ class LinearSpec:
             args, self.offsets, start if start >= 0 else self.n - 1)
         return LinearPath(cells=cells, lanes=lanes, stop=int(stop))
 
+    def traceback_program(self):
+        """The batched walk: ``walk(args, starts)`` walks a same-shape
+        bucket's ``(batch, cells)`` arg tensor where it lies and returns the
+        per-instance :class:`LinearPath`s; only the paths come back to the
+        host."""
+        import torch
+
+        from repro_torch.core.sdp import linear_traceback
+
+        offsets, n = self.offsets, self.n
+
+        def walk(args, starts):
+            B = args.shape[0]
+            start = torch.as_tensor(np.asarray(
+                [n - 1] * B if starts is None else starts, np.int64),
+                device=args.device)
+            cells, lanes, count = linear_traceback(args, offsets, n, start)
+            cells, lanes, count = _host([cells, lanes, count[:, None].expand_as(cells)])
+            return [LinearPath(cells=c[:k], lanes=la[:k], stop=int(c[k]))
+                    for c, la, k in zip(cells, lanes, count[:, 0])]
+
+        return walk
+
+    # --- streaming/extension hooks ------------------------------------------
+    def extend_length(self) -> int:
+        """Steps along the growth axis (appendable table cells)."""
+        return int(self.n)
+
+    def min_prefix_len(self) -> int:
+        """Smallest valid prefix length along the growth axis."""
+        return int(self.offsets[0]) + 1
+
+    def split_spec(self, length: int) -> "LinearSpec":
+        """The first ``length`` steps as a standalone spec: its cold table
+        is exactly the first ``length`` cells of this spec's (cell i reads
+        only cells < i and weight row i)."""
+        length = int(length)
+        if not self.min_prefix_len() <= length <= self.n:
+            raise ValueError(f"prefix length {length} outside "
+                             f"[{self.min_prefix_len()}, {self.n}]")
+        w = (None if self.weights is None
+             else np.ascontiguousarray(self.weights[:length]))
+        return dataclasses.replace(self, n=length, weights=w)
+
+    def extension_delta(self, prefix: "LinearSpec") -> dict:
+        """The delta turning ``prefix`` into ``self``; raises unless
+        ``prefix`` is a strict bitwise prefix of this spec."""
+        if (not isinstance(prefix, LinearSpec)
+                or (prefix.op, tuple(prefix.offsets))
+                != (self.op, tuple(self.offsets))
+                or not prefix.n < self.n
+                or not _same_array(prefix.init, self.init)
+                or (prefix.weights is None) != (self.weights is None)
+                or (self.weights is not None
+                    and not _same_array(prefix.weights,
+                                        self.weights[:prefix.n]))):
+            raise ValueError("spec is not a bitwise extension of the prefix")
+        tail = (None if self.weights is None
+                else np.ascontiguousarray(self.weights[prefix.n:]))
+        return {"steps": int(self.n - prefix.n), "weights": tail}
+
+    def extend_spec(self, delta: dict) -> "LinearSpec":
+        """Append ``delta['steps']`` cells (and their weight rows)."""
+        k = int(delta["steps"])
+        if k < 1:
+            raise ValueError(f"extension must append at least one step, got {k}")
+        tail = delta.get("weights")
+        if (tail is None) != (self.weights is None):
+            raise ValueError("extension weights must match the spec's "
+                             "weightedness")
+        w = None
+        if self.weights is not None:
+            tail = np.asarray(tail, dtype=self.weights.dtype)
+            if tail.shape != (k, len(self.offsets)):
+                raise ValueError(f"extension weights must be "
+                                 f"({k}, {len(self.offsets)}), got {tail.shape}")
+            w = np.concatenate([self.weights, tail])
+        ext = dataclasses.replace(self, n=self.n + k, weights=w)
+        ext.validate()
+        return ext
+
+    def extension_state(self, table, args=None) -> dict:
+        """Minimal resume payload: the last a₁ cells (extension cell i ≥ n
+        reads only cells i - a_j ≥ n - a₁)."""
+        a1 = int(self.offsets[0])
+        return {"suffix": np.array(np.asarray(table)[-a1:])}
+
+    def prefix_cell_map(self, prefix: "LinearSpec") -> np.ndarray:
+        """Extended-layout cell id of every prefix-layout cell."""
+        return np.arange(prefix.n, dtype=np.int64)
+
+    def saved_state_cells(self, prefix: "LinearSpec") -> np.ndarray:
+        """Extended-layout cell ids the resume state retains."""
+        a1 = int(self.offsets[0])
+        return np.arange(prefix.n - a1, prefix.n, dtype=np.int64)
+
+    def stitch_extension(self, prefix, prefix_table, ext_out) -> np.ndarray:
+        """Full extended table: the prefix table, then the new cells."""
+        return np.concatenate([np.asarray(prefix_table), np.asarray(ext_out)])
+
+    def chain_seed(self) -> bytes:
+        """Digest of everything the chain commits to besides the per-step
+        payloads (family tag, semiring, offsets, presets, weight dtype)."""
+        h = hashlib.sha256()
+        h.update(b"linear")
+        h.update(self.op.encode())
+        h.update(repr(tuple(int(a) for a in self.offsets)).encode())
+        _hash_array(h, self.init)
+        h.update(b"none" if self.weights is None
+                 else str(self.weights.dtype).encode())
+        return h.digest()
+
+    def step_payloads(self, start: int = 0) -> list:
+        """Chain payloads of steps ``start..n`` (each step's weight row),
+        cut from one bulk ``tobytes``."""
+        if self.weights is None:
+            return [b""] * (self.n - start)
+        w = np.ascontiguousarray(self.weights[start:])
+        buf, row = w.tobytes(), w[:1].nbytes
+        return [buf[i * row:(i + 1) * row] for i in range(self.n - start)]
+
+    def flat_payload_digest(self, upto: int) -> bytes:
+        """One unchained hash over payloads ``0..upto``."""
+        if self.weights is None:
+            return hashlib.sha256().digest()
+        return hashlib.sha256(
+            np.ascontiguousarray(self.weights[:upto]).tobytes()).digest()
+
+    def content_extends(self, prev: "LinearSpec") -> bool:
+        """Whether ``prev``'s step payloads equal this instance's first
+        ``prev.n`` (callers have matched ``chain_seed`` already)."""
+        if self.weights is None:
+            return True
+        return bool(np.array_equal(self.weights[:prev.n], prev.weights))
+
+    def prefix_digest_chain(self) -> dict:
+        """``{L: digest}`` for every valid prefix length L; equal chains at
+        L imply bit-equal prefix tables."""
+        return chain_digests(self.chain_seed(), self.step_payloads(),
+                             self.min_prefix_len())[0]
+
 
 @dataclasses.dataclass(frozen=True)
 class TriangularSpec:
@@ -282,6 +432,153 @@ class TriangularSpec:
         from repro_torch.core.mcm import triangular_traceback_np
 
         return TriangularPath(nodes=triangular_traceback_np(args, self.n))
+
+    def traceback_program(self):
+        """The batched walk (see :meth:`LinearSpec.traceback_program`)."""
+        from repro_torch.core.mcm import triangular_traceback
+
+        n = self.n
+
+        def walk(args, starts):
+            ii, dd, ee = _host(triangular_traceback(args, n))
+            nodes = np.stack([ii, dd, ee], axis=2)
+            return [TriangularPath(nodes=x) for x in nodes]
+
+        return walk
+
+    # --- streaming/extension hooks ------------------------------------------
+    def extend_length(self) -> int:
+        """Growth axis = chain width (appendable matrices/leaves)."""
+        return int(self.n)
+
+    def min_prefix_len(self) -> int:
+        return 2
+
+    def split_spec(self, length: int) -> "TriangularSpec":
+        """Width-``length`` prefix: the logical weight entries of every
+        chain [i, j ≤ length-1], re-laid-out into the narrower
+        diagonal-major table (padding beyond e ≥ d zeroed)."""
+        L = int(length)
+        if not self.min_prefix_len() <= L <= self.n:
+            raise ValueError(f"prefix length {L} outside "
+                             f"[{self.min_prefix_len()}, {self.n}]")
+        w = np.zeros((num_cells(L), max(L - 1, 1)), self.weights.dtype)
+        for d in range(1, L):
+            src, dst = lin_index(0, d, self.n), lin_index(0, d, L)
+            w[dst:dst + (L - d), :d] = self.weights[src:src + (L - d), :d]
+        dims = (None if self.dims is None
+                else np.ascontiguousarray(self.dims[:L + 1]))
+        return dataclasses.replace(self, n=L, weights=w, dims=dims)
+
+    def _logical_prefix_equal(self, other: "TriangularSpec") -> bool:
+        """Do ``other``'s logical weight entries equal this spec's first
+        ``other.n`` columns' entries, bitwise (layout-independent)?"""
+        if other.weights.dtype != self.weights.dtype or other.n > self.n:
+            return False
+        for d in range(1, other.n):
+            src, dst = lin_index(0, d, self.n), lin_index(0, d, other.n)
+            rows = other.n - d
+            if not np.array_equal(self.weights[src:src + rows, :d],
+                                  other.weights[dst:dst + rows, :d]):
+                return False
+        return True
+
+    def extension_delta(self, prefix: "TriangularSpec") -> dict:
+        if (not isinstance(prefix, TriangularSpec)
+                or not prefix.n < self.n
+                or not self._logical_prefix_equal(prefix)
+                or (prefix.dims is None) != (self.dims is None)
+                or (self.dims is not None
+                    and not _same_array(prefix.dims,
+                                        self.dims[:prefix.n + 1]))):
+            raise ValueError("spec is not a bitwise extension of the prefix")
+        return {"steps": int(self.n - prefix.n),
+                "weights": self.weights, "dims": self.dims}
+
+    def extend_spec(self, delta: dict) -> "TriangularSpec":
+        """Append ``delta['steps']`` matrices. The diagonal-major layout
+        depends on the width, so the delta carries the FULL new weight
+        table; its logical prefix must match this spec bitwise."""
+        k = int(delta["steps"])
+        if k < 1:
+            raise ValueError(f"extension must append at least one step, got {k}")
+        n2 = self.n + k
+        w = np.asarray(delta["weights"])
+        want = (num_cells(n2), max(n2 - 1, 1))
+        if w.shape != want:
+            raise ValueError(f"extension weights must be {want}, got {w.shape}")
+        dims = delta.get("dims")
+        if (dims is None) != (self.dims is None):
+            raise ValueError("extension dims must match the spec's dims-ness")
+        if dims is not None:
+            dims = np.asarray(dims)
+            if len(dims) != n2 + 1 or not _same_array(
+                    np.asarray(dims[:self.n + 1]), self.dims):
+                raise ValueError("extension dims must extend the prefix dims")
+        ext = dataclasses.replace(self, n=n2, weights=w, dims=dims)
+        if not ext._logical_prefix_equal(self):
+            raise ValueError("extension weights do not preserve the prefix")
+        ext.validate()
+        return ext
+
+    def extension_state(self, table, args=None) -> dict:
+        """The whole prefix triangle: extension cell (i, j ≥ n) reads (i, s)
+        for EVERY s < j, so every prefix cell stays live."""
+        return {"suffix": np.array(np.asarray(table))}
+
+    def prefix_cell_map(self, prefix: "TriangularSpec") -> np.ndarray:
+        m = np.empty(num_cells(prefix.n), np.int64)
+        for d in range(prefix.n):
+            src, dst = lin_index(0, d, prefix.n), lin_index(0, d, self.n)
+            m[src:src + (prefix.n - d)] = np.arange(
+                dst, dst + (prefix.n - d), dtype=np.int64)
+        return m
+
+    def saved_state_cells(self, prefix: "TriangularSpec") -> np.ndarray:
+        return self.prefix_cell_map(prefix)
+
+    def stitch_extension(self, prefix, prefix_table, ext_out) -> np.ndarray:
+        # the windowed extend solver already emits the full new-layout table
+        return np.asarray(ext_out)
+
+    def chain_seed(self) -> bytes:
+        h = hashlib.sha256()
+        h.update(b"triangular")
+        h.update(str(self.weights.dtype).encode())
+        if self.dims is None:
+            h.update(b"none")
+        else:
+            h.update(str(self.dims.dtype).encode())
+            h.update(_arr_bytes(self.dims[:1]))
+        return h.digest()
+
+    def step_payloads(self, start: int = 0) -> list:
+        """Payload j: the logical weights of every chain ending at leaf j
+        (layout-independent slices) plus dims[j+1]."""
+        out = []
+        for j in range(start, self.n):
+            parts = [self.weights[lin_index(i, j - i, self.n), :j - i]
+                     for i in range(j)]
+            payload = b"".join(_arr_bytes(p) for p in parts)
+            if self.dims is not None:
+                payload += _arr_bytes(self.dims[j + 1:j + 2])
+            out.append(payload)
+        return out
+
+    def flat_payload_digest(self, upto: int) -> bytes:
+        return hashlib.sha256(
+            b"".join(self.step_payloads()[:upto])).digest()
+
+    def content_extends(self, prev: "TriangularSpec") -> bool:
+        """The weight layout changes as the chart widens, so compare the
+        layout-independent flat payload digests."""
+        n_old = prev.extend_length()
+        return self.flat_payload_digest(n_old) == \
+            prev.flat_payload_digest(n_old)
+
+    def prefix_digest_chain(self) -> dict:
+        return chain_digests(self.chain_seed(), self.step_payloads(),
+                             self.min_prefix_len())[0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -496,6 +793,229 @@ class GridSpec:
         return grid_traceback_np(
             args, self, start if start >= 0 else self.default_start(None))
 
+    def traceback_program(self):
+        """The batched walk (see :meth:`LinearSpec.traceback_program`)."""
+        import torch
+
+        from repro_torch.core.grid import grid_traceback
+
+        meta = self.static_meta()
+        default = self.default_start(None)
+        RC, C = self.rows * self.cols, self.cols
+
+        def walk(args, starts):
+            B = args.shape[0]
+            start = torch.as_tensor(np.asarray(
+                [default] * B if starts is None else starts, np.int64),
+                device=args.device)
+            out = grid_traceback(args, start, meta)
+            if self.schedule == "spandiag":
+                return [GridPath(nodes=x, stop=-1)
+                        for x in np.stack(_host(out), axis=2)]
+            cells, moves, count = out
+            cells, moves, count = _host([cells, moves,
+                                         count[:, None].expand_as(cells)])
+            return [GridPath(nodes=np.stack([c[:k] // RC, c[:k] % RC // C,
+                                             c[:k] % C, m[:k]], axis=1),
+                             stop=int(c[k]))
+                    for c, m, k in zip(cells, moves, count[:, 0])]
+
+        return walk
+
+    # --- streaming/extension hooks ------------------------------------------
+    def extend_length(self) -> int:
+        """Growth axis: appendable columns (antidiag) or chart width
+        (spandiag)."""
+        return int(self.cols) if self.schedule == "antidiag" else int(self.rows)
+
+    def frontier_cols(self) -> int:
+        """Trailing columns an antidiag extension reaches back into: max dj
+        over the moves, at least one."""
+        return max(1, max((int(m[3]) for m in self.moves), default=1))
+
+    def min_prefix_len(self) -> int:
+        if self.schedule == "antidiag":
+            return self.frontier_cols()
+        return 2
+
+    def split_spec(self, length: int) -> "GridSpec":
+        L = int(length)
+        if not self.min_prefix_len() <= L <= self.extend_length():
+            raise ValueError(f"prefix length {L} outside "
+                             f"[{self.min_prefix_len()}, {self.extend_length()}]")
+        if self.schedule == "antidiag":
+            return dataclasses.replace(
+                self, cols=L,
+                weights=np.ascontiguousarray(self.weights[:, :, :L]),
+                init=np.ascontiguousarray(self.init[:, :, :L]),
+                init_mask=np.ascontiguousarray(self.init_mask[:, :, :L]))
+        return dataclasses.replace(
+            self, rows=L, cols=L,
+            init=np.ascontiguousarray(self.init[:, :L]))
+
+    def extension_delta(self, prefix: "GridSpec") -> dict:
+        same = (isinstance(prefix, GridSpec)
+                and (prefix.schedule, prefix.op, prefix.planes)
+                == (self.schedule, self.op, self.planes)
+                and prefix.moves == self.moves
+                and prefix.rules == self.rules
+                and _same_array(prefix.rule_weights, self.rule_weights))
+        if self.schedule == "antidiag":
+            C = None if not same else prefix.cols
+            if (not same or prefix.rows != self.rows
+                    or not C < self.cols
+                    or not _same_array(prefix.weights,
+                                       self.weights[:, :, :C])
+                    or not _same_array(prefix.init, self.init[:, :, :C])
+                    or not _same_array(prefix.init_mask,
+                                       self.init_mask[:, :, :C])):
+                raise ValueError("spec is not a bitwise extension of the prefix")
+            return {"cols": int(self.cols - C),
+                    "weights": np.ascontiguousarray(self.weights[:, :, C:]),
+                    "init": np.ascontiguousarray(self.init[:, :, C:]),
+                    "init_mask": np.ascontiguousarray(self.init_mask[:, :, C:])}
+        if (not same or not prefix.rows < self.rows
+                or not _same_array(prefix.init, self.init[:, :prefix.rows])):
+            raise ValueError("spec is not a bitwise extension of the prefix")
+        return {"steps": int(self.rows - prefix.rows),
+                "init": np.ascontiguousarray(self.init[:, prefix.rows:])}
+
+    def extend_spec(self, delta: dict) -> "GridSpec":
+        """Append columns (antidiag) or leaves (spandiag)."""
+        if self.schedule == "antidiag":
+            k = int(delta["cols"])
+            if k < 1:
+                raise ValueError("extension must append at least one column")
+            w = np.asarray(delta["weights"], dtype=self.weights.dtype)
+            ini = np.asarray(delta["init"], dtype=self.init.dtype)
+            mask = np.asarray(delta["init_mask"], dtype=bool)
+            want = (len(self.moves), self.rows, k)
+            pwant = (self.planes, self.rows, k)
+            if w.shape != want or ini.shape != pwant or mask.shape != pwant:
+                raise ValueError(f"extension arrays must be {want}/{pwant}")
+            ext = dataclasses.replace(
+                self, cols=self.cols + k,
+                weights=np.concatenate([self.weights, w], axis=2),
+                init=np.concatenate([self.init, ini], axis=2),
+                init_mask=np.concatenate([self.init_mask, mask], axis=2))
+        else:
+            k = int(delta["steps"])
+            if k < 1:
+                raise ValueError("extension must append at least one leaf")
+            ini = np.asarray(delta["init"], dtype=self.init.dtype)
+            if ini.shape != (self.planes, k):
+                raise ValueError(f"extension init must be "
+                                 f"({self.planes}, {k}), got {ini.shape}")
+            ext = dataclasses.replace(
+                self, rows=self.rows + k, cols=self.cols + k,
+                init=np.concatenate([self.init, ini], axis=1))
+        ext.validate()
+        return ext
+
+    def extension_state(self, table, args=None) -> dict:
+        """antidiag: the last ``frontier_cols()`` columns. spandiag: the
+        full prefix chart (the split recurrence keeps every cell live)."""
+        if self.schedule == "antidiag":
+            W = self.frontier_cols()
+            t = np.asarray(table).reshape(self.planes, self.rows, self.cols)
+            return {"suffix": np.array(t[:, :, self.cols - W:])}
+        return {"suffix": np.array(np.asarray(table))}
+
+    def prefix_cell_map(self, prefix: "GridSpec") -> np.ndarray:
+        if self.schedule == "antidiag":
+            R, Cn, Co = self.rows, self.cols, prefix.cols
+            p = np.arange(self.planes, dtype=np.int64)[:, None, None]
+            i = np.arange(R, dtype=np.int64)[None, :, None]
+            j = np.arange(Co, dtype=np.int64)[None, None, :]
+            return (p * R * Cn + i * Cn + j).ravel()
+        no, nn = prefix.rows, self.rows
+        base = np.empty(num_cells(no), np.int64)
+        for d in range(no):
+            src, dst = lin_index(0, d, no), lin_index(0, d, nn)
+            base[src:src + (no - d)] = np.arange(dst, dst + (no - d),
+                                                 dtype=np.int64)
+        p = np.arange(self.planes, dtype=np.int64)[:, None]
+        return (p * num_cells(nn) + base[None, :]).ravel()
+
+    def saved_state_cells(self, prefix: "GridSpec") -> np.ndarray:
+        if self.schedule == "antidiag":
+            R, Cn, Co = self.rows, self.cols, prefix.cols
+            W = self.frontier_cols()
+            p = np.arange(self.planes, dtype=np.int64)[:, None, None]
+            i = np.arange(R, dtype=np.int64)[None, :, None]
+            j = np.arange(Co - W, Co, dtype=np.int64)[None, None, :]
+            return (p * R * Cn + i * Cn + j).ravel()
+        return self.prefix_cell_map(prefix)
+
+    def stitch_extension(self, prefix, prefix_table, ext_out) -> np.ndarray:
+        if self.schedule == "antidiag":
+            ext_out = np.asarray(ext_out)
+            full = np.empty((self.planes, self.rows, self.cols),
+                            ext_out.dtype)
+            full[:, :, :prefix.cols] = np.asarray(prefix_table).reshape(
+                self.planes, self.rows, prefix.cols)
+            full[:, :, prefix.cols:] = ext_out
+            return full.reshape(-1)
+        return np.asarray(ext_out)
+
+    def chain_seed(self) -> bytes:
+        h = hashlib.sha256()
+        h.update(b"grid")
+        h.update(self.schedule.encode())
+        h.update(self.op.encode())
+        if self.schedule == "antidiag":
+            h.update(repr((int(self.planes), int(self.rows))).encode())
+            h.update(repr(self.shape_key()[6]).encode())   # moves
+            h.update(str(self.weights.dtype).encode())
+            h.update(str(self.init.dtype).encode())
+        else:
+            h.update(str(int(self.planes)).encode())
+            h.update(repr(self.shape_key()[7]).encode())   # rules
+            _hash_array(h, self.rule_weights)
+            h.update(str(self.init.dtype).encode())
+        return h.digest()
+
+    def _payload_rows(self, start: int = 0,
+                      stop: Optional[int] = None) -> np.ndarray:
+        """Byte matrix of step payloads ``start..stop``, one row per step:
+        weight/init/mask column bytes (antidiag) or the leaf presets
+        (spandiag)."""
+        if self.schedule == "antidiag":
+            parts = [self.weights[:, :, start:stop],
+                     self.init[:, :, start:stop],
+                     self.init_mask[:, :, start:stop].astype(np.uint8)]
+            rows = [np.ascontiguousarray(np.moveaxis(p, 2, 0))
+                    .reshape(p.shape[2], p.shape[0] * p.shape[1])
+                    .view(np.uint8) for p in parts]
+            return np.concatenate(rows, axis=1)
+        return np.ascontiguousarray(
+            self.init[:, start:stop].T).view(np.uint8)
+
+    def step_payloads(self, start: int = 0) -> list:
+        """Payload j: everything column j contributes — weight/init/mask
+        columns (antidiag) or the leaf presets (spandiag)."""
+        rows = self._payload_rows(start)
+        buf, rb = rows.tobytes(), rows.shape[1]
+        return [buf[i * rb:(i + 1) * rb] for i in range(rows.shape[0])]
+
+    def flat_payload_digest(self, upto: int) -> bytes:
+        return hashlib.sha256(
+            self._payload_rows(0, upto).tobytes()).digest()
+
+    def content_extends(self, prev: "GridSpec") -> bool:
+        """Column prefixes are plain array slices: compare them directly."""
+        c = prev.extend_length()
+        if self.schedule == "antidiag":
+            return (np.array_equal(self.weights[:, :, :c], prev.weights)
+                    and np.array_equal(self.init[:, :, :c], prev.init)
+                    and np.array_equal(self.init_mask[:, :, :c],
+                                       prev.init_mask))
+        return bool(np.array_equal(self.init[:, :c], prev.init))
+
+    def prefix_digest_chain(self) -> dict:
+        return chain_digests(self.chain_seed(), self.step_payloads(),
+                             self.min_prefix_len())[0]
+
 
 Spec = Union[LinearSpec, TriangularSpec, GridSpec]
 
@@ -512,6 +1032,41 @@ def _hash_array(h, a: Optional[np.ndarray]) -> None:
     h.update(str(a.dtype).encode())
     h.update(str(a.shape).encode())
     h.update(a.tobytes())
+
+
+def _chain(prev: bytes, payload: bytes) -> bytes:
+    """One link of a prefix digest chain: the digest at step ``s`` commits
+    to the digest at ``s-1`` plus step ``s``'s payload, so equal chain
+    values at a length imply bit-equal logical prefixes."""
+    return hashlib.sha256(prev + payload).digest()
+
+
+def chain_digests(seed: bytes, payloads: list,
+                  lo: int, base: int = 0,
+                  acc: Optional[bytes] = None) -> tuple:
+    """Walk a digest chain: returns ``({L: digest for L >= lo}, acc)`` with
+    ``acc`` the chain value after the last payload. ``payloads`` are the
+    payloads of steps ``base..base+len(payloads)``; ``base`` / ``acc``
+    resume a partly walked chain."""
+    acc = seed if acc is None else acc
+    chain = {}
+    for i, payload in enumerate(payloads, start=base):
+        acc = _chain(acc, payload)
+        if i + 1 >= lo:
+            chain[i + 1] = acc
+    return chain, acc
+
+
+def _arr_bytes(a) -> bytes:
+    return np.ascontiguousarray(a).tobytes()
+
+
+def _same_array(a: Optional[np.ndarray], b: Optional[np.ndarray]) -> bool:
+    """Bitwise array equality (dtype + shape + values); None matches None."""
+    if a is None or b is None:
+        return a is None and b is None
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and bool(np.array_equal(a, b))
 
 
 def spec_digest(spec: Spec) -> str:

@@ -44,8 +44,13 @@ shared memory. Where that cap refuses a spec (a horizon ``a_1`` of more
 than some 57k cells), K1 or K2 keeps it past the budget, as no kernel
 route would serve it otherwise. On the CPU there is no gate (``repro``'s
 ``ref`` mode).
-K6 is not gated, unlike ``repro``'s ``_kernel_grid_supports``: it has no
-streaming twin, and its plain route is some 30× slower on the card.
+K6 has no on-chip gate, unlike ``repro``'s ``_kernel_grid_supports``: it
+has no streaming twin, and its plain route is some 30× slower on the card.
+On a CUDA device it admits only the specs its launchers take
+(:func:`_grid_supports`: the antidiag tile plan fits shared memory in both
+arg modes and its tile count fits int32; the spandiag rule table fits
+shared memory); any other spec goes to the plain ``grid_wavefront``, as
+``repro`` falls back through its gate. On the CPU it admits every spec.
 """
 from typing import Optional
 
@@ -53,7 +58,8 @@ import torch
 
 from repro_torch.core.mcm import num_cells
 from repro_torch.dp import backends as _dp_backends
-from repro_torch.kernels import _build, mcm_tiled, ops, sdp_chunked
+from repro_torch.kernels import (_build, grid_pipeline, mcm_tiled, ops,
+                                 sdp_chunked)
 
 
 def on_chip_budget(device) -> Optional[int]:
@@ -99,6 +105,28 @@ def _tiled_supports(spec, device) -> bool:
 def _tiled_wavefront_supports(spec, device) -> bool:
     return num_cells(spec.n) < 2 ** 31 and _fits_smem(
         mcm_tiled.smem_bytes(spec.n, fused=True), device)
+
+
+def _grid_supports(spec, device) -> bool:
+    """K6's domain on ``device``: int32 cell indices everywhere; on a CUDA
+    device also the launchers' own rules (``grid_pipeline._launch_antidiag``
+    / ``_launch_spandiag``). ``supports`` does not see ``reconstruct``, so
+    the antidiag plan must fit with and without the arg tile."""
+    if spec.planes * spec.cells >= 2 ** 31:
+        return False
+    if device.type != "cuda":
+        return True
+    if spec.schedule == "antidiag":
+        for with_args in (False, True):
+            plan = grid_pipeline.tile_plan(spec.planes, spec.moves, with_args)
+            if plan is None or (-(-spec.rows // plan.T)
+                                * -(-spec.cols // plan.T)) >= 2 ** 31:
+                return False
+        return True
+    NR = len(spec.rules)
+    return spec.rows * NR < 2 ** 31 and (
+        grid_pipeline.spandiag_smem_bytes(spec.planes, NR)
+        <= _build.SMEM_OPTIN_BYTES - grid_pipeline._STATIC_SMEM)
 
 
 def _device_factor(device) -> float:
@@ -157,7 +185,8 @@ _dp_backends.register(_dp_backends.grid_backend(
     "kernel_grid", ops.grid_blocked,
     cost=lambda s, device: (_dp_backends.grid_costs(s)["grid_wavefront"]
                             * _device_factor(device)),
-    supports=lambda s, device: s.planes * s.cells < 2 ** 31,
+    supports=_grid_supports,
     arg_fn=ops.grid_blocked_with_args, kernel=True,
-    doc="ops.grid_blocked: the grid_pipeline CUDA kernel on the card, its "
-        "plain PyTorch version on the CPU"))
+    doc="ops.grid_blocked: the grid_pipeline CUDA kernel on the card (specs "
+        "its tile plan or rule table fits), its plain PyTorch version on the "
+        "CPU"))

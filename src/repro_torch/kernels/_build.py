@@ -34,6 +34,10 @@ SMEM_OPTIN_BYTES = 232448
 #: source name -> {"seconds": wall time of its nvcc, "log": nvcc's output
 #: (ptxas registers, shared memory, spills)} for the builds this process ran
 BUILD_INFO: dict = {}
+#: kernel libraries this process has loaded (each built first if missing):
+#: a call that moves it paid a build or a first load, so its time says
+#: nothing about the kernel (``repro_torch.dp.backends.build_count``)
+LOADS = 0
 _LIBS: dict = {}
 _LOCK = threading.Lock()
 
@@ -81,11 +85,13 @@ def build_all(names=SOURCES) -> None:
 
 def load(name: str) -> ctypes.CDLL:
     """The ctypes handle of kernel library ``name``, built on first use."""
+    global LOADS
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             build_all()
             lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+            LOADS += 1
         return lib
 
 

@@ -371,3 +371,54 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tdp.batch_solve("mcm", [{"dims": [3, 4, 5]}], device="cuda")
     assert tdp.solve("mcm", dims=[3, 4, 5], device="cpu") == 60.0
+
+
+def _antidiag_spec(moves_count: int, planes: int = 8, rows: int = 4,
+                   cols: int = 4):
+    """An alignment-shaped spec whose move table is ``moves_count`` long
+    (the table of ``test_torch_grid.py``'s shared-memory refusal)."""
+    moves = tuple((p % 8, (p * 3) % 8, 1, p % 2) for p in range(moves_count))
+    mask = np.zeros((planes, rows, cols), bool)
+    mask[:, 0, :] = mask[:, :, 0] = True
+    spec = tdp.GridSpec(rows=rows, cols=cols, op="max", schedule="antidiag",
+                        planes=planes, moves=moves,
+                        weights=np.zeros((moves_count, rows, cols), np.float32),
+                        init=np.zeros((planes, rows, cols), np.float32),
+                        init_mask=mask)
+    spec.validate()
+    return spec
+
+
+def _spandiag_spec(rules_count: int, planes: int = 4, n: int = 3):
+    rules = tuple((r % planes, (r * 3) % planes, (r * 5 + 1) % planes)
+                  for r in range(rules_count))
+    spec = tdp.GridSpec(rows=n, cols=n, op="max", schedule="spandiag",
+                        planes=planes, rules=rules,
+                        rule_weights=np.zeros(rules_count, np.float32),
+                        init=np.zeros((planes, n), np.float32))
+    spec.validate()
+    return spec
+
+
+@pytest.mark.parametrize("reconstruct", [False, True])
+def test_grid_specs_k6_cannot_launch_go_to_the_plain_route(card, reconstruct):
+    """``kernel_grid`` admits on the card only what K6's launchers take: a
+    move table past shared memory (no tile plan at L = 9700, in both arg
+    modes) or a rule table past it goes to ``grid_wavefront``, as
+    ``repro`` falls back through its gate; L = 9000 still has a plan and
+    stays on the kernel. On the CPU every spec stays admitted."""
+    from repro_torch.kernels import grid_pipeline as tk6
+
+    fits, past = _antidiag_spec(9000), _antidiag_spec(9700)
+    assert all(tk6.tile_plan(8, fits.moves, a) is not None for a in (False, True))
+    assert all(tk6.tile_plan(8, past.moves, a) is None for a in (False, True))
+    chart = _spandiag_spec(15000)
+    assert tk6.spandiag_smem_bytes(4, 15000) > 232448
+    k6 = tdp.backends.get("kernel_grid")
+    for spec in (past, chart):
+        assert not k6.supports(spec, card)
+        assert k6.supports(spec, torch.device("cpu"))
+        assert _first(spec, card, reconstruct) == "grid_wavefront"
+    assert k6.supports(fits, card)
+    assert _first(fits, card, reconstruct) == "kernel_grid"
+    assert _first(_spandiag_spec(1024), card, reconstruct) == "kernel_grid"

@@ -7,6 +7,7 @@ device is present. This file imports no JAX; ``grid_edge_specs`` and
 Run on the card with ``python -m pytest -m gpu tests/test_torch_gpu.py``.
 """
 import ctypes
+import zlib
 
 import numpy as np
 import pytest
@@ -1007,3 +1008,124 @@ def test_reduced_engine_on_the_card_matches_cpu(cuda):
     assert outs[1] == outs[0] and len(outs[0]) == len(prompts)
     # the card's prefills, one launch per layer and prompt; decode has none
     assert k7.LAUNCHES["flash_attention"] - before == cfg.n_layers * len(prompts)
+
+
+def _k6_refused_specs() -> list:
+    """Grid specs K6's launchers refuse: a move table past shared memory
+    (8 planes, 9700 moves: no tile plan) and a rule table past it."""
+    moves = tuple((p % 8, (p * 3) % 8, 1, p % 2) for p in range(9700))
+    mask = np.zeros((8, 6, 5), bool)
+    mask[:, 0, :] = mask[:, :, 0] = True
+    rng = np.random.default_rng(3)
+    anti = dp.GridSpec(rows=6, cols=5, op="max", schedule="antidiag", planes=8,
+                       moves=moves, init_mask=mask,
+                       weights=rng.normal(size=(9700, 6, 5)).astype(np.float32),
+                       init=rng.normal(size=(8, 6, 5)).astype(np.float32))
+    rules = tuple((r % 4, (r * 3) % 4, (r * 5 + 1) % 4) for r in range(15000))
+    chart = dp.GridSpec(rows=4, cols=4, op="max", schedule="spandiag", planes=4,
+                        rules=rules,
+                        rule_weights=rng.normal(size=15000).astype(np.float32),
+                        init=rng.normal(size=(4, 4)).astype(np.float32))
+    return [anti, chart]
+
+
+def test_specs_k6_refuses_solve_on_the_plain_route_on_the_card(cuda):
+    """Such a spec dispatches to ``grid_wavefront`` on the card and solves
+    there (no raise), to the CPU port's table."""
+    for spec in _k6_refused_specs():
+        spec.validate()
+        assert dp.dispatch(spec, device=cuda).name == "grid_wavefront"
+        assert dp.dispatch(spec, reconstruct=True, device=cuda).name == "grid_wavefront"
+        before = dict(k6.LAUNCHES)
+        got = dp.solve_spec(spec, device=cuda)
+        assert k6.LAUNCHES == before
+        np.testing.assert_array_equal(got, dp.solve_spec(spec, device="cpu"))
+
+
+def test_engine_and_service_on_the_card_answer_the_cpu_answers(cuda):
+    """A small mixed batch through ``DPEngine`` and ``DPService`` on the
+    card: every drain of a kernel route is one kernel launch, and every
+    answer and decoded solution equals the CPU port's."""
+    rng = np.random.default_rng(21)
+    traffic = []
+    for name, size in (("mcm", 12), ("edit_distance", 24), ("viterbi", 20),
+                       ("needleman_wunsch", 20), ("cky", 8),
+                       ("unbounded_knapsack", 40)):
+        prob = dp.get_problem(name)
+        traffic += [(name, prob.sample(rng, size), i == 0) for i in range(3)]
+    traffic.append(traffic[1])                      # a repeat: dedup / cache
+    launches = (k1.LAUNCHES, k2.LAUNCHES, k3.LAUNCHES, k4.LAUNCHES, k6.LAUNCHES)
+
+    def total():
+        return sum(sum(d.values()) for d in launches)
+
+    def engine_run(device):
+        eng = dp.DPEngine(max_batch=8, feedback=False, device=device)
+        rids = [eng.submit(n, reconstruct=r, **kw) for n, kw, r in traffic]
+        out, kernel_drains, before = {}, 0, total()
+        while eng.pending():
+            resps = eng.step()
+            kernel_drains += dp.backends.get(resps[0].backend).kernel
+            out.update((r.rid, r) for r in resps)
+        return [out[r] for r in rids], kernel_drains, total() - before
+
+    cpu, _, cpu_launches = engine_run("cpu")
+    card, kernel_drains, card_launches = engine_run(cuda)
+    assert cpu_launches == 0 and kernel_drains > 0
+    assert card_launches == kernel_drains
+    # bit-equality holds per route: each card answer against the CPU port
+    # on the route that served it
+    for (name, kw, recon), c, g in zip(traffic, cpu, card):
+        want = dp.solve(name, backend=g.backend, reconstruct=recon, device="cpu", **kw)
+        assert np.float32(g.answer) == np.float32(want.value if recon else want), name
+        np.testing.assert_allclose(g.answer, c.answer, rtol=1e-5)
+        if recon:
+            assert g.solution.solution == want.solution, name
+
+    for device in ("cpu", cuda):
+        svc = dp.DPService(max_batch=8, device=device)
+        tids = [svc.submit(n, reconstruct=r, **kw) for n, kw, r in traffic]
+        out = svc.run()
+        assert svc.engine.stats["dedup_hits"] + svc.stats["cache_hits"] >= 1
+        for (name, kw, recon), tid in zip(traffic, tids):
+            res = out[tid]
+            want = dp.solve(name, backend=res.backend, reconstruct=recon,
+                            device="cpu", **kw)
+            assert res.status == "done"
+            assert np.float32(res.answer) == np.float32(want.value if recon else want)
+
+
+@pytest.mark.parametrize("name,size,route", [
+    ("edit_distance", 40, "kernel_blocked"), ("viterbi", 30, "kernel_tiled"),
+    ("mcm", 40, "kernel_wavefront"), ("optimal_bst", 30, "kernel_wavefront"),
+    ("gotoh", 40, "kernel_grid"), ("cky", 12, "kernel_grid")])
+def test_bucket_walk_on_the_card_equals_the_host_walks(cuda, name, size, route):
+    """A kernel route leaves a bucket's args on the card, the batched walk
+    runs there, and its paths equal each instance's host walk — also on
+    later walks of the same shape with other content (the tree walks
+    capture their steps on the second and replay them on the third)."""
+    from repro_torch.dp import reconstruct
+
+    prob = dp.get_problem(name)
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    kw0 = prob.sample(rng, size)
+    kws = [kw0]
+    while len(kws) < 4:                 # same shape, other content
+        kw = prob.sample(rng, size)
+        if prob.encode(**kw).shape_key() == prob.encode(**kw0).shape_key():
+            kws.append(kw)
+    specs = [prob.encode(**kw) for kw in kws]
+    tables, args = dp.backends.get(route).batch_run_with_args(specs, cuda)
+    assert args.device.type == "cuda"
+    starts = ([reconstruct.start_cell(prob, t, s) for t, s in zip(tables, specs)]
+              if specs[0].uses_start else None)
+    for order in ([0, 1, 2, 3], [3, 2, 1, 0], [1, 3, 0, 2]):
+        paths = reconstruct.traceback_batch(
+            args[order], specs[0], [starts[b] for b in order] if starts else None)
+        for b, row in enumerate(order):
+            host = specs[row].traceback_host(args[row].cpu().numpy(),
+                                             starts[row] if starts else -1)
+            for f in ("cells", "lanes", "nodes", "stop"):
+                if hasattr(host, f):
+                    np.testing.assert_array_equal(getattr(paths[b], f),
+                                                  getattr(host, f))

@@ -24,7 +24,12 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     code = ("import sys, repro_torch, repro_torch.dp, repro_torch.kernels.ops; "
             "import repro_torch.configs, repro_torch.models, repro_torch.serving; "
             "import repro_torch.models.convert, repro_torch.launch.serve; "
+            "import repro_torch.core.planner; "
             "from repro_torch import dp; dp.backends.ensure_registered(); "
+            "from repro_torch.dp import (DPEngine, DPRequest, DPResponse, "
+            "DPService, ServiceResult, Session, AdmissionError, PrefixIndex, "
+            "ResumeToken, resume_solve, Span, calibrate, routing_report, "
+            "autotune, engine, service, streaming, telemetry); "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad; print('clean')")
@@ -36,7 +41,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
 
 
 def test_sources_have_no_jax_or_repro_imports():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_kernel_floor.py"]
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_kernel_floor.py"]
+             + sorted((ROOT / "examples").glob("torch_*.py")))
     assert len(files) >= 15
     for f in files:
         hits = FORBIDDEN.findall(f.read_text())
@@ -64,3 +70,20 @@ def test_scan_pattern_catches_forbidden_imports():
     for ok in ("import repro_torch", "from repro_torch.dp import zoo",
                "import repro_torch.core.sdp", "# see repro.dp.zoo"):
         assert not FORBIDDEN.search(ok), ok
+
+
+def test_serving_stack_and_examples_are_scanned_on_their_own():
+    """The serving slice's modules and the port's examples exist and hold no
+    JAX or ``repro`` import, and the port's ``dp`` and ``core`` packages
+    read no environment variable."""
+    serving = [PORT / "dp" / f"{m}.py" for m in (
+        "telemetry", "autotune", "routing", "reconstruct", "engine",
+        "streaming", "service")] + [PORT / "core" / "planner.py"]
+    examples = [ROOT / "examples" / f"torch_{m}.py" for m in (
+        "quickstart", "dp_zoo", "mcm_planner", "dp_service")]
+    for f in serving + examples:
+        hits = FORBIDDEN.findall(f.read_text())
+        assert not hits, f"{f.relative_to(ROOT)} imports {hits}"
+    env = re.compile(r"os\.environ|getenv")
+    for f in sorted((PORT / "dp").glob("*.py")) + sorted((PORT / "core").glob("*.py")):
+        assert not env.search(f.read_text()), f.relative_to(ROOT)

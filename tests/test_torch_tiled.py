@@ -403,10 +403,14 @@ def test_tiled_wavefront_supports_admits_the_n_it_admitted(n):
 # the fused route through the public entry points
 # ---------------------------------------------------------------------------
 def _no_host_walk(monkeypatch):
+    """Fail any traceback walk outside the fused launch: the per-instance
+    host walk and the batched device walk alike."""
     def boom(*args, **kw):
-        raise AssertionError("the fused route must not walk on the host")
+        raise AssertionError("the fused route must not walk on the host "
+                             "or the device")
 
     monkeypatch.setattr(treconstruct, "traceback_host", boom)
+    monkeypatch.setattr(treconstruct, "traceback_batch", boom)
 
 
 @pytest.mark.parametrize("name", TRIANGULAR)
@@ -433,7 +437,8 @@ def test_fused_route_matches_reference_without_a_host_walk(monkeypatch, name):
 
 def test_fused_path_is_the_host_walk(monkeypatch):
     """The fused nodes equal the host walk's, and the non-fused route does
-    walk on the host (so the patch above would have caught a walk)."""
+    walk outside its launch (on the device, through the batched walk), so
+    the patch above would have caught a walk."""
     prob = tdp.get_problem("mcm")
     spec = prob.encode(**prob.sample(_rng("fused-path"), 12))
     b = tdp.backends.get("kernel_tiled_wavefront")
