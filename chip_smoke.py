@@ -90,6 +90,17 @@ D = 2..63 and MCM 8 x 256's D = 2..15) and its ``path_ms`` is their
 device time under ``torch.profiler`` (CUDA events around a K5 call time
 its Python wrapper, and are printed beside).
 
+Before the paths, the static schedule gate (``repro_torch.analysis``) runs
+at the card's own geometry: every route against every family probe (the
+kernel routes at the cluster sizes and grids the launchers take on this
+card, and at hand-made small plans), the extension proofs and the linter.
+After each of the main, grid and service paths, the geometry every kernel
+launch of the path recorded (walk plan, cluster size, tile plan, CTA
+count) is held against the geometry the descriptors assume for its shape,
+and the kernels' geometry rules are checked there (at path sizes the gate
+checks rules and geometry only; it simulates every cell at probe sizes).
+Any finding fails the run.
+
 Each answer is checked against the numpy oracle (or, where that is too slow,
 against the plain route on the card and the oracle at a reduced size), its
 decoded solution is recomputed to the optimum, and the kernels' launch
@@ -115,7 +126,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch import dp  # noqa: E402
+from repro_torch import analysis, dp  # noqa: E402
 from repro_torch import kernels as tkernels  # noqa: E402
 from repro_torch.core import mcm as core_mcm  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -125,6 +136,7 @@ from repro_torch.kernels import mcm_tiled as k4  # noqa: E402
 from repro_torch.kernels import sdp_chunked as k3  # noqa: E402
 from repro_torch.kernels import sdp_pipeline as k1  # noqa: E402
 from repro_torch.kernels import sdp_walk  # noqa: E402
+from repro_torch.kernels import schedule as kschedule  # noqa: E402
 from repro_torch.kernels import semiring_matmul as k5  # noqa: E402
 from repro_torch.kernels import chunked_scan as k8  # noqa: E402
 from repro_torch.kernels import flash_attention as k7  # noqa: E402
@@ -207,9 +219,12 @@ _COUNTERS = (k1.LAUNCHES, k2.LAUNCHES, k3.LAUNCHES, k4.LAUNCHES, k5.LAUNCHES,
 
 
 def reset_launches() -> None:
+    """Zero every kernel's launch counter and forget the DP kernels' launch
+    geometries."""
     for counts in _COUNTERS:
         for key in counts:
             counts[key] = 0
+    kschedule.forget_launches()
 
 
 def launches() -> dict:
@@ -1888,6 +1903,55 @@ def phase_scan(cuda) -> dict:
     return rec
 
 
+def card_line() -> str:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    return smi.stdout.strip() or f"nvidia-smi failed: {smi.stderr.strip()}"
+
+
+def phase_gate(cuda) -> None:
+    """The static schedule gate on the card: the verifier over every route
+    and family probe at the card's geometry (and the kernel routes'
+    hand-made plans), the extension proofs and the linter. Any finding
+    fails the run."""
+    print(card_line())
+    t0 = time.perf_counter()
+    findings, stats = analysis.run_all(cuda)
+    took = time.perf_counter() - t0
+    print(f"schedule gate: {took:.3f} s on {stats['device']}; "
+          f"{stats['schedules_verified']} schedules verified across "
+          f"{stats['routes']} routes ({', '.join(stats['routes_verified'])}), "
+          f"{stats['sweep_schedules_verified']} more at hand-made kernel "
+          f"geometries, {stats['extensions_verified']} extension proofs, "
+          f"{stats['files_scanned']} files linted")
+    for f in findings:
+        print(f"gate finding: {f.check} · {f.subject} [{f.probe}]: {f.message}")
+    require(not findings, f"schedule gate on the card: {len(findings)} finding(s)")
+    require(stats["routes"] == len(dp.backends.names()) == 14
+            and stats["schedules_verified"] >= stats["routes"],
+            f"schedule gate: {stats['routes']} routes, "
+            f"{stats['schedules_verified']} schedules verified")
+
+
+def gate_launches(path: str, cuda) -> None:
+    """Every DP kernel launch of ``path`` (recorded since the counters were
+    last reset, the path's checks included): its geometry against its
+    descriptor's, and the kernel's geometry rules at the path's shapes."""
+    t0 = time.perf_counter()
+    findings, stats = analysis.verify_launches(cuda)
+    took = time.perf_counter() - t0
+    recorded = sorted({name for name, _, _ in kschedule.recorded_launches()})
+    print(f"schedule gate on the {path} path: {stats['launch_shapes_checked']} "
+          f"launch shapes of {recorded} checked in {took:.3f} s")
+    for f in findings:
+        print(f"gate finding: {f.check} · {f.subject} [{f.probe}]: {f.message}")
+    launched = sorted(name for name, c in launches().items() if c > 0 and name.startswith(
+        ("sdp_pipeline", "sdp_chunked", "mcm_pipeline", "mcm_tiled", "grid_pipeline")))
+    require(not findings and launched == recorded,
+            f"{path} path: every launch's geometry equals its descriptor's "
+            f"({len(findings)} finding(s); launched {launched})")
+
+
 def print_plans(cuda) -> None:
     """K4's grid and warps per cell, K6 antidiag's tiles, K2's cluster and
     table home, K5's and K8's plans, and K6 spandiag's grid and warps per
@@ -2480,17 +2544,18 @@ def main() -> int:
         # (~10 s); in the full run the earlier paths have paid it
         device_profile(torch.cuda.synchronize, {}, cpu=False)
         reset_launches()
-        print(f"launches on the service path: {phase_service(cuda)}")
+        counts = phase_service(cuda)
+        print(f"launches on the service path: {counts}")
+        gate_launches("service", cuda)
         return 1 if _failures else 0
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True)
-    print(smi.stdout.strip() or f"nvidia-smi failed: {smi.stderr.strip()}")
+    print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     phase_build()
+    phase_gate(cuda)
     print_plans(cuda)
     rng = np.random.default_rng(SEED)
     records, sdp, dims = phase_kernels(rng, cuda)
@@ -2509,6 +2574,7 @@ def main() -> int:
     print_launch_times("main", times)
     counts = launches()
     print(f"launches on the main path: {counts}")
+    gate_launches("main", cuda)
     print("streaming kernels' launches on the main path: "
           + ", ".join(f"{k} {counts[k]}" for k in (*k3.LAUNCHES, *k4.LAUNCHES)))
     path_shapes = {**SDP_PATH_SHAPES, **MCM_PATH_SHAPES, **GRID_PATH_SHAPES}
@@ -2529,6 +2595,7 @@ def main() -> int:
     print_launch_times("grid", times)
     counts = launches()
     print(f"launches on the grid path: {counts}")
+    gate_launches("grid", cuda)
     for rec in grid_records:
         rec["launches"] = counts[rec["name"]]
         require(rec["launches"] > 0, f"{rec['name']} launched on the grid path")
@@ -2563,6 +2630,7 @@ def main() -> int:
     reset_launches()
     counts = phase_service(cuda)
     print(f"launches on the service path: {counts}")
+    gate_launches("service", cuda)
 
     del k4_table
     torch.cuda.empty_cache()

@@ -174,6 +174,7 @@ def blocked_to_linear(m: torch.Tensor) -> torch.Tensor:
 # tropical-GEMM tiling.
 # ---------------------------------------------------------------------------
 from repro_torch.dp import backends as _dp_backends  # noqa: E402
+from repro_torch.dp import schedule as _sched  # noqa: E402
 
 _TILES = (16, 8, 4, 2)
 
@@ -250,6 +251,7 @@ _dp_backends.register(_dp_backends.Backend(
                                 and _pick_tile(s.n) is not None
                                 and _dims_match_weights(s)),
     batch_run=_batch_run,
+    schedule=_sched.plain_route(_sched.blocked_mcm_schedule),
     doc="tropical-tile (min,+) GEMM MCM solver: the semiring_matmul CUDA "
         "kernel per block diagonal on the card, its plain version on the "
         "CPU; boundary wavefront plain PyTorch"))

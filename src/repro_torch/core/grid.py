@@ -439,10 +439,12 @@ def grid_traceback_np(args: np.ndarray, spec: GridSpec,
 # Backend registration (repro_torch.dp): the grid route.
 # ---------------------------------------------------------------------------
 from repro_torch.dp import backends as _dp_backends  # noqa: E402
+from repro_torch.dp import schedule as _sched  # noqa: E402
 
 _dp_backends.register(_dp_backends.grid_backend(
     "grid_wavefront", solve_grid,
     cost=lambda s, device: _dp_backends.grid_costs(s)["grid_wavefront"],
     arg_fn=solve_grid_with_args, run_extend=_run_extend,
+    schedule=_sched.plain_route(_sched.grid_wavefront_schedule),
     doc="masked wavefront over anti-diagonals (alignment grids) or span "
         "diagonals (parse charts): one gathered combine per frontier"))

@@ -538,6 +538,7 @@ def solve_pipeline_np(dims, order: str = "safe", check_conflicts: bool = False):
 # Backend registration (repro_torch.dp): the triangular routes.
 # ---------------------------------------------------------------------------
 from repro_torch.dp import backends as _dp_backends  # noqa: E402
+from repro_torch.dp import schedule as _sched  # noqa: E402
 
 def _run_extend(spec, n_old: int, state: dict, device) -> np.ndarray:
     """``Backend.run_extend`` for the wavefront route: the prefix
@@ -554,6 +555,7 @@ _dp_backends.register(_dp_backends.triangular_tab_backend(
     "wavefront", solve_wavefront_tab,
     cost=lambda s, device: _dp_backends.triangular_costs(s)["wavefront"],
     arg_fn=solve_wavefront_tab_with_args, run_extend=_run_extend,
+    schedule=_sched.plain_route(_sched.triangular_wavefront_schedule),
     doc="dense per-diagonal combine (n-1 vectorized steps)"))
 
 
@@ -570,4 +572,5 @@ _dp_backends.register(_dp_backends.Backend(
     # the tables are built on the host per instance: no batch path, the
     # routing layer loops ``run`` over a bucket
     batch_run=None,
+    schedule=_sched.plain_route(_sched.mcm_pipeline_schedule, order="safe"),
     doc="paper Fig.-8 pipeline (order=safe); O(n²) outer steps"))

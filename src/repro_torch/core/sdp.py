@@ -469,19 +469,27 @@ def _run_extend(spec, n_old: int, state: dict, device) -> np.ndarray:
 
 
 def _register_backends() -> None:
+    from repro_torch.dp import schedule as _sched
+
     table = [
         ("sequential", solve_sequential, None,
+         _sched.plain_route(_sched.linear_sequential_schedule, route="sequential"),
          "Fig.-1 double loop (oracle parity)"),
         ("tournament", solve_tournament, solve_tournament_with_args,
+         _sched.plain_route(_sched.linear_sequential_schedule, route="tournament",
+                            kind="sequential_tree"),
          "per-element gather + tree reduce (§II-B)"),
         ("pipeline", solve_pipeline, None,
+         _sched.plain_route(_sched.linear_pipeline_schedule),
          "the paper's Fig.-2 skewed pipeline, vectorized over stages"),
         ("blocked", solve_blocked, solve_blocked_with_args,
+         _sched.plain_route(_sched.linear_blocked_schedule),
          "blocked pipeline: min(a_k, B) outputs per step"),
         ("companion_scan", solve_companion_scan, None,
+         _sched.plain_route(_sched.linear_companion_scan_schedule),
          "log-depth associative scan over companion matrices (small a_1)"),
     ]
-    for name, fn, arg_fn, doc in table:
+    for name, fn, arg_fn, schedule, doc in table:
         _dp_backends.register(_dp_backends.linear_backend(
             name, fn,
             cost=lambda s, device, _n=name: _dp_backends.linear_costs(s)[_n],
@@ -489,7 +497,7 @@ def _register_backends() -> None:
                       if name == "companion_scan" else None),
             arg_fn=arg_fn,
             run_extend=_run_extend if name == "sequential" else None,
-            doc=doc))
+            schedule=schedule, doc=doc))
 
 
 _register_backends()

@@ -93,7 +93,11 @@ class Backend:
     loops on the host over the boundary-wavefront steps, so it is not a
     kernel route: on the card it ranks behind the kernel routes and, among
     the plain ones, by cost (ahead of ``wavefront`` from n = 64 on).
-    ``schedule`` stays None until the static schedule gate is ported."""
+    ``schedule(spec, device)`` is the route's schedule descriptor for the
+    static gate (``repro_torch.analysis``): a tuple of
+    ``repro_torch.dp.schedule.ScheduleModel``, one for each launch geometry
+    the route may take on ``device`` (one for a plain route). Every route
+    registers one."""
 
     name: str
     geometry: str
@@ -176,7 +180,8 @@ def _backend(name: str, geometry: str, call: Callable, fn: Callable,
              cost: Callable, supports: Optional[Callable],
              arg_fn: Optional[Callable], kernel: bool, doc: str,
              fused: Optional[Callable] = None,
-             run_extend: Optional[Callable] = None) -> Backend:
+             run_extend: Optional[Callable] = None,
+             schedule: Optional[Callable] = None) -> Backend:
     """A Backend whose batch paths run ``call(f, specs, device)`` with
     ``f = fn`` (the table) or ``f = arg_fn`` (``(table, args)``);
     ``fused(specs, device)`` (``(tables, argss, paths)``) is the fused
@@ -201,13 +206,14 @@ def _backend(name: str, geometry: str, call: Callable, fn: Callable,
                    batch_run=batch_run, run_with_args=run_with_args,
                    batch_run_with_args=batch_run_with_args,
                    batch_run_fused=fused, run_extend=run_extend,
-                   kernel=kernel, doc=doc)
+                   kernel=kernel, schedule=schedule, doc=doc)
 
 
 def linear_backend(name: str, fn: Callable, cost: Callable,
                    supports: Optional[Callable] = None,
                    arg_fn: Optional[Callable] = None, kernel: bool = False,
                    run_extend: Optional[Callable] = None,
+                   schedule: Optional[Callable] = None,
                    doc: str = "") -> Backend:
     """Wrap a batched S-DP solver ``fn(init, offsets, op, n, weights=None)``
     into a Backend. ``arg_fn`` (same signature, returns ``(st, args)``)
@@ -220,7 +226,7 @@ def linear_backend(name: str, fn: Callable, cost: Callable,
         return f(init, s0.offsets, s0.op, s0.n, weights=w)
 
     return _backend(name, "linear", call, fn, cost, supports, arg_fn, kernel,
-                    doc, run_extend=run_extend)
+                    doc, run_extend=run_extend, schedule=schedule)
 
 
 def triangular_tab_backend(name: str, fn: Callable, cost: Callable,
@@ -229,6 +235,7 @@ def triangular_tab_backend(name: str, fn: Callable, cost: Callable,
                            fused_fn: Optional[Callable] = None,
                            kernel: bool = False,
                            run_extend: Optional[Callable] = None,
+                           schedule: Optional[Callable] = None,
                            doc: str = "") -> Backend:
     """Wrap a batched weight-table triangular solver ``fn(wtab, n)`` into a
     Backend; ``arg_fn`` (returns ``(st, args)``) adds the arg-capable pair,
@@ -246,13 +253,14 @@ def triangular_tab_backend(name: str, fn: Callable, cost: Callable,
             return _rows(st), _rows(args), [TriangularPath(nodes=x) for x in nodes]
 
     return _backend(name, "triangular", call, fn, cost, supports, arg_fn,
-                    kernel, doc, fused, run_extend)
+                    kernel, doc, fused, run_extend, schedule)
 
 
 def grid_backend(name: str, fn: Callable, cost: Callable,
                  supports: Optional[Callable] = None,
                  arg_fn: Optional[Callable] = None, kernel: bool = False,
                  run_extend: Optional[Callable] = None,
+                 schedule: Optional[Callable] = None,
                  doc: str = "") -> Backend:
     """Wrap a batched grid solver ``fn(arrs, meta)`` — ``arrs`` one stacked
     tensor per ``GridSpec.device_arrays()`` slot, ``meta`` the shared
@@ -265,7 +273,7 @@ def grid_backend(name: str, fn: Callable, cost: Callable,
                  specs[0].static_meta())
 
     return _backend(name, "grid", call, fn, cost, supports, arg_fn, kernel,
-                    doc, run_extend=run_extend)
+                    doc, run_extend=run_extend, schedule=schedule)
 
 
 # shared cost vocabulary (the per-family step-count tables live on the

@@ -6,8 +6,9 @@ instance. Spec classes form an open **family protocol**: each family (a
 dataclass with a ``family`` tag) registers itself via
 :func:`register_family` and carries its behaviour as hooks on the class —
 shape keys, the route cost vocabulary, digest hashing, argument and
-traceback support — so the routing and reconstruction layers stay
-family-agnostic.
+traceback support, and the static schedule gate's dependency model and
+probe instances (``schedule_model``, ``probe_specs``) — so the routing,
+reconstruction and analysis layers stay family-agnostic.
 
 ``LinearSpec`` — the paper's (weighted) S-DP recurrence on a 1-D table,
 
@@ -185,6 +186,39 @@ class LinearSpec:
             "companion_scan": _log2(n) * (a1 ** 3) / 64.0 + a1,
         }
         return _floored(costs, _LINEAR_OVERHEAD, n)
+
+    def schedule_model(self):
+        """Ground-truth dependency structure for the schedule-hazard
+        verifier (``repro_torch.analysis``): candidate ``j`` of cell ``c``
+        reads the single operand ``c - a_{j+1}``; cells ``< a_1`` are
+        preset."""
+        from repro_torch.dp.schedule import DependencyModel
+
+        a1 = int(self.offsets[0])
+        cands = tuple(
+            () if c < a1 else tuple((c - int(a),) for a in self.offsets)
+            for c in range(self.n))
+        return DependencyModel(
+            label=f"linear(offsets={tuple(int(a) for a in self.offsets)}, "
+                  f"n={self.n}, op={self.op})",
+            cells=self.n, preset=frozenset(range(a1)), candidates=cands)
+
+    @classmethod
+    def probe_specs(cls) -> tuple:
+        """Small valid instances the static analyzer verifies every
+        registered route against (exhaustive symbolic simulation stays
+        trivial at these sizes). Coverage: multi-offset, weighted deep
+        fan-in, single-offset degenerate, and a non-selective op (the
+        linter's ``supports_args`` probe)."""
+
+        def mk(offsets, n, weighted=False, op="min"):
+            return cls(offsets=offsets, op=op, n=n,
+                       init=np.zeros(offsets[0], np.float32),
+                       weights=(np.ones((n, len(offsets)), np.float32)
+                                if weighted else None))
+
+        return (mk((2, 1), 6), mk((3, 2, 1), 8, weighted=True),
+                mk((1,), 4), mk((2, 1), 6, op="add"))
 
     def supports_args(self) -> bool:
         """Linear specs need a selective semigroup (min/max)."""
@@ -412,6 +446,41 @@ class TriangularSpec:
             "tiled_wavefront": float(n) * 0.85 + 24.0,
         }
         return _floored(costs, _TRIANGULAR_OVERHEAD, n)
+
+    def schedule_model(self):
+        """Split-recurrence dependencies: candidate ``e`` of cell
+        ``(i, i+d)`` reads ``(i, i+e)`` and ``(i+e+1, i+d)``; diagonal 0 is
+        preset. Candidates are ordered by split offset ``e`` ascending (the
+        canonical order every route's ``consume`` aligns with)."""
+        from repro_torch.dp.schedule import DependencyModel
+
+        n = self.n
+        cands = [()] * num_cells(n)
+        for d in range(1, n):
+            for i in range(n - d):
+                cands[lin_index(i, d, n)] = tuple(
+                    (lin_index(i, e, n), lin_index(i + e + 1, d - e - 1, n))
+                    for e in range(d))
+        return DependencyModel(
+            label=f"triangular(n={n})", cells=num_cells(n),
+            preset=frozenset(range(n)),      # lin_index(i, 0, n) == i
+            candidates=tuple(cands))
+
+    @classmethod
+    def probe_specs(cls) -> tuple:
+        """n=4 is the smallest width where the paper-order pipeline hazard
+        manifests; the n=6 probe carries real MCM dims so the
+        GEMM-structured ``blocked_mcm`` route (dims-gated, needs a divisible
+        tile) is exercised rather than silently skipped."""
+        from repro_torch.core.mcm import mcm_weight_fn, weight_table
+
+        dims = np.arange(1.0, 8.0)           # n + 1 = 7 matrix dimensions
+        return (
+            cls(n=4, weights=np.zeros((num_cells(4), 3), np.float32)),
+            cls(n=5, weights=np.zeros((num_cells(5), 4), np.float32)),
+            cls(n=6, weights=weight_table(6, mcm_weight_fn(dims)),
+                dims=dims),
+        )
 
     def supports_args(self) -> bool:
         """Triangular specs always reduce by min — always selective."""
@@ -751,6 +820,79 @@ class GridSpec:
             fan = max(1, len(self.rules))
         costs = {"grid_wavefront": float(fronts) * (1.0 + _log2(fan) / 4.0)}
         return _floored(costs, _GRID_OVERHEAD, min(self.rows, self.cols))
+
+    def schedule_model(self):
+        """Grid dependencies in plane-major flat cell ids. antidiag: each
+        non-preset cell reads ``(p_from, i-di, j-dj)`` per in-range move
+        targeting its plane, in move declaration order. spandiag: the
+        per-plane split recurrence, split-major then rule order. Cells of
+        planes no move/rule targets keep their initialized value — they
+        carry no candidates and routes may treat them as preset-final."""
+        from repro_torch.dp.schedule import DependencyModel
+
+        per = self.cells
+        cands = [()] * (self.planes * per)
+        preset = set()
+        if self.schedule == "antidiag":
+            R, C = self.rows, self.cols
+            for p in range(self.planes):
+                for i in range(R):
+                    for j in range(C):
+                        cell = p * per + i * C + j
+                        if bool(self.init_mask[p, i, j]):
+                            preset.add(cell)
+                            continue
+                        cands[cell] = tuple(
+                            (pf * per + (i - di) * C + (j - dj),)
+                            for (pt, pf, di, dj) in self.moves
+                            if pt == p and i >= di and j >= dj)
+        else:
+            n = self.rows
+            for p in range(self.planes):
+                for i in range(n):
+                    preset.add(p * per + i)   # diagonal 0
+                for d in range(1, n):
+                    for i in range(n - d):
+                        cands[p * per + lin_index(i, d, n)] = tuple(
+                            (b * per + lin_index(i, e, n),
+                             c * per + lin_index(i + e + 1, d - e - 1, n))
+                            for e in range(d)
+                            for (a, b, c) in self.rules if a == p)
+        return DependencyModel(
+            label=f"grid[{self.schedule}](planes={self.planes}, "
+                  f"rows={self.rows}, cols={self.cols})",
+            cells=self.planes * per, preset=frozenset(preset),
+            candidates=tuple(cands))
+
+    @classmethod
+    def probe_specs(cls) -> tuple:
+        """One single-plane and one multi-plane probe per schedule: an
+        edit-distance-shaped 3×4 antidiag, a Gotoh-like two-plane 3×3
+        (plane 1 feeding back into plane 0), a one-nonterminal CKY chart,
+        and a three-rule two-nonterminal chart."""
+        mask1 = np.zeros((1, 3, 4), bool)
+        mask1[:, 0, :] = mask1[:, :, 0] = True
+        mask2 = np.zeros((2, 3, 3), bool)
+        mask2[:, 0, :] = mask2[:, :, 0] = True
+        return (
+            cls(rows=3, cols=4, op="min", schedule="antidiag", planes=1,
+                moves=((0, 0, 1, 0), (0, 0, 0, 1), (0, 0, 1, 1)),
+                weights=np.zeros((3, 3, 4), np.float32),
+                init=np.zeros((1, 3, 4), np.float32), init_mask=mask1),
+            cls(rows=3, cols=3, op="max", schedule="antidiag", planes=2,
+                moves=((0, 0, 1, 1), (0, 1, 1, 1),
+                       (1, 0, 0, 1), (1, 1, 0, 1)),
+                weights=np.zeros((4, 3, 3), np.float32),
+                init=np.zeros((2, 3, 3), np.float32), init_mask=mask2),
+            cls(rows=4, cols=4, op="min", schedule="spandiag", planes=1,
+                rules=((0, 0, 0),),
+                rule_weights=np.zeros((1,), np.float32),
+                init=np.zeros((1, 4), np.float32)),
+            cls(rows=4, cols=4, op="max", schedule="spandiag", planes=2,
+                rules=((0, 0, 1), (1, 0, 0), (0, 1, 1)),
+                rule_weights=np.zeros((3,), np.float32),
+                init=np.zeros((2, 4), np.float32)),
+        )
 
     def supports_args(self) -> bool:
         return True         # validate() restricts op to min/max

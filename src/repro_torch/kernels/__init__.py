@@ -26,6 +26,9 @@ version, and their registration as dispatchable routes.
 Routes: ``kernel_blocked`` (K1) and ``kernel_tiled`` (K3) for the linear
 family, ``kernel_wavefront`` (K2) and ``kernel_tiled_wavefront`` (K4, with
 a fused pair) for the triangular one, ``kernel_grid`` (K6) for the grid.
+Each registers its schedule descriptor (``schedule``: the kernels' own read
+and finalize order and geometry rules) for the static gate,
+``repro_torch.analysis``.
 Their costs keep ``repro``'s factor structure: the resident routes ×0.5
 where the kernel runs (a CUDA device) and ×1.25 where the plain version
 stands in (the CPU); the streaming routes ×0.6 + 8 and ×1.2 + 8 (linear),
@@ -52,6 +55,7 @@ arg modes and its tile count fits int32; the spandiag rule table fits
 shared memory); any other spec goes to the plain ``grid_wavefront``, as
 ``repro`` falls back through its gate. On the CPU it admits every spec.
 """
+import functools
 from typing import Optional
 
 import torch
@@ -60,6 +64,7 @@ from repro_torch.core.mcm import num_cells
 from repro_torch.dp import backends as _dp_backends
 from repro_torch.kernels import (_build, grid_pipeline, mcm_tiled, ops,
                                  sdp_chunked)
+from repro_torch.kernels import schedule as _schedule
 
 
 def on_chip_budget(device) -> Optional[int]:
@@ -145,6 +150,7 @@ _dp_backends.register(_dp_backends.linear_backend(
         _resident(_linear_vmem_bytes(s), device)
         or not _tiled_supports(s, device)),
     arg_fn=ops.sdp_blocked_with_args, kernel=True,
+    schedule=functools.partial(_schedule.schedules, "kernel_blocked"),
     doc="ops.sdp_blocked: the sdp_pipeline CUDA kernel on the card (working "
         "set within L2, or a window too large for kernel_tiled), its plain "
         "PyTorch version on the CPU"))
@@ -155,6 +161,7 @@ _dp_backends.register(_dp_backends.linear_backend(
                             * _tiled_factor(device) + 8.0),
     supports=_tiled_supports,
     arg_fn=ops.sdp_chunked_with_args, kernel=True,
+    schedule=functools.partial(_schedule.schedules, "kernel_tiled"),
     doc="ops.sdp_chunked: the sdp_chunked CUDA kernel on the card (the last "
         "a_1 cells in a shared-memory ring; no cap on n), its plain PyTorch "
         "version on the CPU"))
@@ -167,6 +174,7 @@ _dp_backends.register(_dp_backends.triangular_tab_backend(
         _resident(_triangular_vmem_bytes(s), device)
         or not _tiled_wavefront_supports(s, device)),
     arg_fn=ops.mcm_blocked_with_args, kernel=True,
+    schedule=functools.partial(_schedule.schedules, "kernel_wavefront"),
     doc="ops.mcm_blocked: the mcm_pipeline CUDA kernel on the card (working "
         "set within L2, or a stack too large for kernel_tiled_wavefront), its "
         "plain PyTorch version on the CPU"))
@@ -177,6 +185,7 @@ _dp_backends.register(_dp_backends.triangular_tab_backend(
                             * _tiled_factor(device)),
     supports=_tiled_wavefront_supports,
     arg_fn=ops.mcm_tiled_with_args, fused_fn=ops.mcm_tiled_fused, kernel=True,
+    schedule=functools.partial(_schedule.schedules, "kernel_tiled_wavefront"),
     doc="ops.mcm_tiled: the mcm_tiled CUDA kernel on the card (row x split "
         "tiles staged in shared memory, traceback fused into the launch; no "
         "cap on n), its plain PyTorch version on the CPU"))
@@ -187,6 +196,7 @@ _dp_backends.register(_dp_backends.grid_backend(
                             * _device_factor(device)),
     supports=_grid_supports,
     arg_fn=ops.grid_blocked_with_args, kernel=True,
+    schedule=functools.partial(_schedule.schedules, "kernel_grid"),
     doc="ops.grid_blocked: the grid_pipeline CUDA kernel on the card (specs "
         "its tile plan or rule table fits), its plain PyTorch version on the "
         "CPU"))

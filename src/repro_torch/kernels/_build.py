@@ -95,6 +95,14 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def record(table: dict, name: str, shape: tuple, **geometry) -> None:
+    """Keep the geometry a launch of kernel wrapper ``name`` ran with at
+    ``shape`` in its module's ``GEOMETRY`` table (per shape, the last
+    launch's). The static schedule gate holds it against the geometry its
+    descriptors assume (``repro_torch.analysis.verifier.verify_launches``)."""
+    table.setdefault(name, {})[shape] = geometry
+
+
 #: cudaErrorCooperativeLaunchTooLarge: a cooperative grid larger than the
 #: card keeps resident, refused before it runs
 COOPERATIVE_TOO_LARGE = 720

@@ -50,6 +50,8 @@ from repro_torch.kernels import _build
 #: kernel launches per wrapper (incremented only where a kernel launches)
 LAUNCHES = {"grid_pipeline_antidiag": 0, "grid_pipeline_antidiag_with_args": 0,
             "grid_pipeline_spandiag": 0, "grid_pipeline_spandiag_with_args": 0}
+#: geometry of the last launch at each shape, per wrapper (``_build.record``)
+GEOMETRY: dict = {}
 
 
 #: tile sides the antidiag plan tries, largest first, and the deepest halo
@@ -88,31 +90,38 @@ def _tile_smem(T: int, HI: int, HJ: int, tab: int, P: int, L: int,
     return S1, SW, 4 * (tab + P * (T + HI) * S1 + planes * T * SW)
 
 
+def tile_plan_at(P: int, moves, with_args: bool, T: int) -> TilePlan:
+    """The antidiag plan at tile side ``T``: the halo the moves reach (at
+    most :data:`HALO`), the row strides, a thread for each (plane, row)
+    pair in whole warps, and the shared memory it takes."""
+    L = len(moves)
+    HI = min(max(int(m[2]) for m in moves), HALO)
+    HJ = min(max(int(m[3]) for m in moves), HALO)
+    tab = -(-(P + 1 + 4 * L) // 4) * 4
+    S1, SW, smem = _tile_smem(T, HI, HJ, tab, P, L, with_args)
+    return TilePlan(T, HI, HJ, S1, SW, tab, -(-P * T // 32) * 32, smem)
+
+
 def tile_plan(P: int, moves, with_args: bool):
     """The largest tile of :data:`TILE_SIDES` with a thread for each of its
     ``P·T`` (plane, row) pairs in one CTA whose staged planes (table with
     halo, weights, mask and, with args, the arg tile) and move table fit
     the shared memory a block can use; None if not even a 1 × 1 tile
     does."""
-    L = len(moves)
-    HI = min(max(int(m[2]) for m in moves), HALO)
-    HJ = min(max(int(m[3]) for m in moves), HALO)
-    tab = -(-(P + 1 + 4 * L) // 4) * 4
     for T in (t for t in TILE_SIDES if P * t <= 1024):
-        S1, SW, smem = _tile_smem(T, HI, HJ, tab, P, L, with_args)
-        if smem <= _build.SMEM_OPTIN_BYTES - _STATIC_SMEM:
-            return TilePlan(T, HI, HJ, S1, SW, tab,
-                            -(-P * T // 32) * 32, smem)
+        plan = tile_plan_at(P, moves, with_args, T)
+        if plan.smem <= _build.SMEM_OPTIN_BYTES - _STATIC_SMEM:
+            return plan
     return None
 
 
 _BLOCKS_PER_SM: dict = {}
 
 
-def antidiag_ctas(op: str, with_args: bool, plan: TilePlan, tiles: int, device) -> int:
-    """The antidiag grid on ``device``: every CTA the occupancy API says
-    the SMs keep resident at ``plan``'s threads and shared memory (asked
-    once per shape), at most one per tile. Raises if an SM keeps none."""
+def antidiag_blocks_per_sm(op: str, with_args: bool, plan: TilePlan, device) -> int:
+    """CTAs of the antidiag variant one SM of ``device`` keeps resident at
+    ``plan``'s threads and shared memory (the occupancy API, asked once per
+    shape)."""
     dev = torch.device(device)
     key = (dev.index, op, with_args, plan.threads, plan.smem)
     if key not in _BLOCKS_PER_SM:
@@ -122,7 +131,15 @@ def antidiag_ctas(op: str, with_args: bool, plan: TilePlan, tiles: int, device) 
         with torch.cuda.device(dev):
             _BLOCKS_PER_SM[key] = fn(int(op == "min"), int(with_args), plan.threads,
                                      plan.smem)
-    per_sm = _BLOCKS_PER_SM[key]
+    return _BLOCKS_PER_SM[key]
+
+
+def antidiag_ctas(op: str, with_args: bool, plan: TilePlan, tiles: int, device) -> int:
+    """The antidiag grid on ``device``: every CTA the SMs keep resident
+    (:func:`antidiag_blocks_per_sm`), at most one per tile. Raises if an SM
+    keeps none."""
+    dev = torch.device(device)
+    per_sm = antidiag_blocks_per_sm(op, with_args, plan, dev)
     if per_sm < 1:
         raise RuntimeError(f"grid_pipeline_antidiag: the card keeps no CTA of "
                            f"{plan.threads} threads and {plan.smem} bytes of shared "
@@ -153,10 +170,9 @@ def spandiag_warps(cand: int, triples: int, ctas: int) -> int:
     return g
 
 
-def spandiag_ctas(op: str, with_args: bool, P: int, NR: int, device) -> int:
-    """The spandiag grid on ``device``: :data:`SD_CTAS_PER_SM` CTAs on every
-    SM, fewer if the occupancy API says an SM keeps fewer resident (asked
-    once per variant and shared memory). Raises if it keeps none."""
+def spandiag_blocks_per_sm(op: str, with_args: bool, P: int, NR: int, device) -> int:
+    """CTAs of the spandiag variant one SM of ``device`` keeps resident
+    (the occupancy API, asked once per variant and shared memory)."""
     dev = torch.device(device)
     smem = spandiag_smem_bytes(P, NR)
     key = (dev.index, "spandiag", op, with_args, smem)
@@ -166,7 +182,16 @@ def spandiag_ctas(op: str, with_args: bool, P: int, NR: int, device) -> int:
         fn.restype = ctypes.c_int
         with torch.cuda.device(dev):
             _BLOCKS_PER_SM[key] = fn(int(op == "min"), int(with_args), smem)
-    per_sm = _BLOCKS_PER_SM[key]
+    return _BLOCKS_PER_SM[key]
+
+
+def spandiag_ctas(op: str, with_args: bool, P: int, NR: int, device) -> int:
+    """The spandiag grid on ``device``: :data:`SD_CTAS_PER_SM` CTAs on every
+    SM, fewer if the occupancy API says an SM keeps fewer resident. Raises
+    if it keeps none."""
+    dev = torch.device(device)
+    smem = spandiag_smem_bytes(P, NR)
+    per_sm = spandiag_blocks_per_sm(op, with_args, P, NR, dev)
     if per_sm < 1:
         raise RuntimeError(f"grid_pipeline_spandiag: the card keeps no CTA of "
                            f"{SD_THREADS} threads and {smem} bytes of shared "
@@ -392,6 +417,8 @@ def _launch_antidiag(arrs, meta, with_args: bool, grid=None):
                  st.data_ptr(), None if ar is None else ar.data_ptr(), sync.data_ptr()],
                 [B, P, R, C, L, int(op == "min"), plan.T, plan.HI, plan.HJ, plan.S1,
                  plan.SW, plan.tab, plan.threads, G, plan.smem])
+    _build.record(GEOMETRY, name, (op, P, moves, R, C, B), G=G, tiles=tiles,
+                  **dataclasses.asdict(plan))
     return unbatched(squeeze, st.reshape(B, -1),
                      None if ar is None else ar.reshape(B, -1), with_args)
 
@@ -422,6 +449,7 @@ def _launch_spandiag(arrs, meta, with_args: bool, grid=None):
                 [rw.data_ptr(), init.data_ptr(), rtab.data_ptr(), st.data_ptr(),
                  None if ar is None else ar.data_ptr(), cm.data_ptr(), bar.data_ptr()],
                 [B, P, n, NR, int(op == "min"), G])
+    _build.record(GEOMETRY, name, (op, P, n, NR), G=G, smem=spandiag_smem_bytes(P, NR))
     return unbatched(squeeze, st, ar, with_args)
 
 

@@ -26,6 +26,8 @@ from repro_torch.kernels import _build
 
 #: kernel launches per wrapper (incremented only where a kernel launches)
 LAUNCHES = {"mcm_pipeline": 0, "mcm_pipeline_with_args": 0}
+#: geometry of the last launch at each shape, per wrapper (``_build.record``)
+GEOMETRY: dict = {}
 
 #: threads of one CTA; bytes of its merge slots (a value and a split a warp)
 THREADS = 512
@@ -163,6 +165,8 @@ def _launch(wtab, n, with_args, cluster=None):
                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, name)
     LAUNCHES[name] += 1
+    _build.record(GEOMETRY, name, (n, bt), C=C, home=table_home(n),
+                  smem=smem_bytes(n))
     if squeeze:
         st = st[0]
         ar = None if ar is None else ar[0]

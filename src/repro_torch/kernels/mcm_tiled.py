@@ -41,6 +41,8 @@ WARPS = THREADS // 32
 
 #: kernel launches per wrapper (incremented only where a kernel launches)
 LAUNCHES = {"mcm_tiled": 0, "mcm_tiled_with_args": 0, "mcm_tiled_fused": 0}
+#: geometry of the last launch at each shape, per wrapper (``_build.record``)
+GEOMETRY: dict = {}
 
 
 def _lanes(n: int) -> int:
@@ -93,10 +95,9 @@ def warps_per_cell(d: int, cells_d: int, ctas: int) -> int:
 _BLOCKS_PER_SM: dict = {}
 
 
-def ctas(with_args: bool, fused: bool, n: int, device) -> int:
-    """The kernel's grid on ``device``: :data:`CTAS_PER_SM` on every SM,
-    fewer if the occupancy API says an SM keeps fewer resident (asked once
-    per variant and shared memory). Raises if it keeps none."""
+def blocks_per_sm(with_args: bool, fused: bool, n: int, device) -> int:
+    """CTAs of the variant one SM of ``device`` keeps resident (the
+    occupancy API, asked once per variant and shared memory)."""
     smem = spread_smem_bytes(n, fused)
     dev = torch.device(device)
     key = (dev.index, with_args or fused, fused, smem)
@@ -106,7 +107,16 @@ def ctas(with_args: bool, fused: bool, n: int, device) -> int:
         fn.restype = ctypes.c_int
         with torch.cuda.device(dev):
             _BLOCKS_PER_SM[key] = fn(int(with_args or fused), int(fused), smem)
-    per_sm = _BLOCKS_PER_SM[key]
+    return _BLOCKS_PER_SM[key]
+
+
+def ctas(with_args: bool, fused: bool, n: int, device) -> int:
+    """The kernel's grid on ``device``: :data:`CTAS_PER_SM` on every SM,
+    fewer if the occupancy API says an SM keeps fewer resident. Raises if
+    it keeps none."""
+    smem = spread_smem_bytes(n, fused)
+    dev = torch.device(device)
+    per_sm = blocks_per_sm(with_args, fused, n, dev)
     if per_sm < 1:
         raise RuntimeError(f"mcm_tiled: the card keeps no CTA of {THREADS} threads "
                            f"and {smem} bytes of shared memory resident")
@@ -218,6 +228,7 @@ def _launch(wtab, n, with_args, fused, grid=None):
                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, name)
     LAUNCHES[name] += 1
+    _build.record(GEOMETRY, name, (n,), G=G, smem=smem)
     return _result(st, ar, nodes, squeeze, with_args, fused)
 
 

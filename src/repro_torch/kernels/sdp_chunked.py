@@ -31,6 +31,8 @@ from repro_torch.kernels.sdp_pipeline import _check_args, _runs_tensor, fold_lan
 
 #: kernel launches per wrapper (incremented only where a kernel launches)
 LAUNCHES = {"sdp_chunked": 0, "sdp_chunked_with_args": 0}
+#: geometry of the last launch at each shape, per wrapper (``_build.record``)
+GEOMETRY: dict = {}
 
 
 def _plain_ring(offsets, block: int = 512) -> tuple:
@@ -165,6 +167,10 @@ def _launch(init, offsets, op, n, block, weights, with_args):
                     torch.cuda.current_stream(dev).cuda_stream)
         _build.check(rc, name)
         LAUNCHES[name] += 1
+        _build.record(GEOMETRY, name, (offsets, op, weighted), Q=p.Q, R=p.R,
+                      near=p.near, stage=p.stage, C=C, S=S,
+                      threads=sdp_walk.threads(p, C, S),
+                      smem=sdp_walk.smem_bytes(offsets, p, C, S))
     if squeeze:
         st = st[0]
         ar = None if ar is None else ar[0]

@@ -1129,3 +1129,39 @@ def test_bucket_walk_on_the_card_equals_the_host_walks(cuda, name, size, route):
                 if hasattr(host, f):
                     np.testing.assert_array_equal(getattr(paths[b], f),
                                                   getattr(host, f))
+
+
+def test_schedule_gate_on_the_card(cuda):
+    """The static schedule gate at the card's own geometry is clean; a
+    solve on every kernel route records launch geometries equal to the
+    descriptors' (both K6 schedules, K4's fused twin); a launch forced off
+    the launcher's geometry is flagged."""
+    from repro_torch.analysis import run_all, verify_launches
+    from repro_torch.kernels import schedule as kschedule
+
+    findings, stats = run_all(cuda)
+    assert findings == [], [f"{f.check}:{f.subject}:{f.message}" for f in findings]
+    assert stats["routes"] == 14 and stats["schedules_verified"] >= 14
+
+    kschedule.forget_launches()
+    rng = np.random.default_rng(0)
+    for name, size, route in [
+            ("edit_distance", 200, "kernel_blocked"), ("viterbi", 30, "kernel_tiled"),
+            ("mcm", 40, "kernel_wavefront"), ("mcm", 40, "kernel_tiled_wavefront"),
+            ("gotoh", 100, "kernel_grid"), ("cky", 12, "kernel_grid")]:
+        kw = dp.get_problem(name).sample(rng, size)
+        for recon in (False, True):
+            dp.solve(name, backend=route, reconstruct=recon, device=cuda, **kw)
+    recorded = {name for name, _, _ in kschedule.recorded_launches()}
+    assert {"sdp_pipeline", "sdp_chunked_with_args", "mcm_pipeline_with_args",
+            "mcm_tiled", "grid_pipeline_antidiag_with_args",
+            "grid_pipeline_spandiag_with_args"} <= recorded, recorded
+    findings, stats = verify_launches(cuda)
+    assert findings == [], [f"{f.check}:{f.subject}:{f.message}" for f in findings]
+    assert stats["launch_shapes_checked"] == len(kschedule.recorded_launches())
+
+    w = torch.zeros((1, num_cells(40), 39), dtype=torch.float32, device=cuda)
+    k4._launch(w, 40, False, False, grid=1)
+    findings, _ = verify_launches(cuda)
+    assert [f.check for f in findings] == ["geometry_mismatch"]
+    kschedule.forget_launches()

@@ -87,3 +87,29 @@ def test_serving_stack_and_examples_are_scanned_on_their_own():
     env = re.compile(r"os\.environ|getenv")
     for f in sorted((PORT / "dp").glob("*.py")) + sorted((PORT / "core").glob("*.py")):
         assert not env.search(f.read_text()), f.relative_to(ROOT)
+
+
+def test_analysis_is_scanned_on_its_own():
+    """The static schedule gate's modules and the kernel routes' schedule
+    descriptors exist, import no JAX and no ``repro``, read no environment
+    variable, and load neither when imported."""
+    files = [PORT / "analysis" / f"{m}.py" for m in (
+        "__init__", "__main__", "findings", "verifier", "extension", "linter")] + [
+        PORT / "dp" / "schedule.py", PORT / "core" / "schedule.py",
+        PORT / "kernels" / "schedule.py"]
+    env = re.compile(r"os\.environ|getenv")
+    for f in files + sorted((PORT / "analysis").glob("*.py")):
+        text = f.read_text()
+        assert not FORBIDDEN.findall(text), f"{f.relative_to(ROOT)} imports JAX or repro"
+        assert not env.search(text), f.relative_to(ROOT)
+    code = ("import sys, repro_torch.analysis, repro_torch.analysis.__main__; "
+            "import repro_torch.core.schedule, repro_torch.kernels.schedule; "
+            "from repro_torch.analysis import run_all; "
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "assert not bad, bad; print('clean')")
+    env_vars = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env_vars, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
