@@ -4,6 +4,7 @@
     python3 chip_smoke.py --dp-shapes     # K1-K6 and K8 alone at their paths' shapes
     python3 chip_smoke.py --dp-shapes --sweep   # and K5 / K8 under forced plans
     python3 chip_smoke.py --service       # the service path alone
+    python3 chip_smoke.py --families      # the MoE and SSM families alone
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc, at first
 use), holds each kernel against its plain PyTorch version on the card at the
@@ -58,6 +59,32 @@ then the LM serving path, whose prefill runs the flash-attention kernel K7:
     the traffic must), float32 its CUDA-core body; at the served prompt
     and at S = 32768 the CUDA-core body is also run on the same bf16
     tensors, for the two bodies' times and errors side by side;
+
+then the MoE and SSM families through the same engine, each phase freeing
+the card before the next:
+
+  * granite-moe-3b-a800m at its published width (32 layers, d 1536, 40
+    experts, top-8, expert d_ff 512, bf16) and rwkv6-1.6b (24 layers, d
+    2048, 32 heads of 64, d_ff 7168), weights from seed 0, each serving the
+    LM path's traffic: prefill seconds, decode-step ms, tokens/s, peak
+    memory; granite's share of (token, k) assignments dropped by capacity
+    in prefill and decode, K7 exactly once a layer and prefill (256, all on
+    the tensor-core body), K7 at a served prompt's tensors (hd 64), its
+    prefill logits through K7 against the plain version, layer 0's MoE
+    against a dense oracle (every expert computes every token, drop-free)
+    and twice for equal bits; rwkv6's K7 count 0 and ``chunked_gla`` at
+    layer 0's inputs against its step-by-step version; for both, three
+    decode steps against prefills of the longer prompt (float32,
+    drop-free), and one prefill and one decode step under the profiler;
+  * arctic-480b at full width (128 experts, top-2, the dense residual) cut
+    to depth 2 of its 35 layers — a layer is 25.35 GiB of bf16 weights,
+    two fill ~51.6 GiB of the 80 GB card with the embeddings — serving one
+    2000-token request (K7 twice), with the peak memory of its weights'
+    creation and of its traffic;
+  * the reduced granite-moe, arctic, jamba-1.5-large-398b (one period:
+    attention, Mamba, MoE every other layer; a full period is ~83 GiB) and
+    rwkv6 in float32, the same weights and engine scenario on the CPU and
+    on the card: equal tokens, prefill logits within 1e-4;
 
 then the service path: ``dp.DPService(max_batch=32)`` on the card answering
 256 seeded requests over eight problems (mcm 128-256, half reconstructed,
@@ -142,8 +169,9 @@ from repro_torch.kernels import chunked_scan as k8  # noqa: E402
 from repro_torch.kernels import flash_attention as k7  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.models.attention import _project_qkv  # noqa: E402
-from repro_torch.models.layers import rmsnorm  # noqa: E402
+from repro_torch.models import moe, ssm  # noqa: E402
+from repro_torch.models.attention import _project_qkv, attn_forward  # noqa: E402
+from repro_torch.models.layers import rmsnorm, silu  # noqa: E402
 from repro_torch.models.model import CausalLM  # noqa: E402
 from repro_torch.serving import Engine, Request, Scheduler  # noqa: E402
 
@@ -168,6 +196,19 @@ BLOCKED_TILE, K5_SQUARE = 16, 1024
 #: engine's slots and cache length; K7 timed at one layer of prefill_32k
 LM_ARCH, LM_REQUESTS, LM_NEW, LM_PROMPT = "qwen3-14b", 8, 16, (300, 2000)
 LM_BATCH, LM_MAX_LEN, LONG_S = 4, 2064, 32768
+#: the MoE and SSM families served at their published widths with the LM
+#: path's traffic; arctic-480b cut to its first ARCTIC_DEPTH of 35 layers
+#: (25.35 GiB of bf16 weights a layer: two fit the 80 GB card with their
+#: embeddings, ~51.6 GiB), one request of ARCTIC_PROMPT tokens; the reduced
+#: configs held on the card against the CPU
+MOE_ARCH, SSM_ARCH, ARCTIC_ARCH = "granite-moe-3b-a800m", "rwkv6-1.6b", "arctic-480b"
+ARCTIC_DEPTH, ARCTIC_PROMPT = 2, 2000
+REDUCED_ARCHS = (MOE_ARCH, ARCTIC_ARCH, "jamba-1.5-large-398b", SSM_ARCH)
+#: the MoE block against its dense oracle (bf16, share of max|out|); decode
+#: steps against prefills of the longer prompt and chunked_gla against its
+#: step-by-step version (float32, shares of max|logit| and max|y|); the
+#: reduced configs' prefill logits, card against CPU (float32, absolute)
+MOE_ORACLE_RTOL, DECODE_RTOL, GLA_RTOL, REDUCED_TOL = 2e-2, 1e-3, 1e-4, 1e-4
 #: K8's check: prefill_32k's length by rwkv6-1.6b's width
 SCAN_T, SCAN_D = 32768, 2048
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s and the
@@ -1683,19 +1724,35 @@ def k7_record(name: str, q, k, v, reps: int) -> dict:
 
 
 @contextlib.contextmanager
-def compute_dtype(model, dtype):
-    """Run ``model`` with another compute dtype on the same weights (each
-    matmul casts its weight as it goes); None leaves it as it is."""
+def replaced_config(model, **fields):
+    """Run ``model`` with some config fields replaced (the compute dtype,
+    the MoE capacity factor) on the same weights: each matmul casts its
+    weight as it goes."""
     cfg = model.cfg
-    if dtype is not None:
-        new = dataclasses.replace(cfg, compute_dtype=dtype)
-        for m in (model, *model.layers):
-            m.cfg = new
+    new = dataclasses.replace(cfg, **fields)
+    for m in (model, *model.layers):
+        m.cfg = new
     try:
-        yield
+        yield new
     finally:
         for m in (model, *model.layers):
             m.cfg = cfg
+
+
+def compute_dtype(model, dtype):
+    """Run ``model`` with another compute dtype; None leaves it as it is."""
+    return replaced_config(model, **({} if dtype is None else {"compute_dtype": dtype}))
+
+
+def drop_free(model, dtype):
+    """Another compute dtype and, for MoE configs, a capacity no token
+    outgrows (``capacity_factor = n_experts``)."""
+    cfg = model.cfg
+    fields = {"compute_dtype": dtype}
+    if cfg.moe is not None:
+        fields["moe"] = dataclasses.replace(cfg.moe,
+                                            capacity_factor=float(cfg.moe.n_experts))
+    return replaced_config(model, **fields)
 
 
 def heads_major(x):
@@ -1703,30 +1760,38 @@ def heads_major(x):
     return x.transpose(1, 2)
 
 
-def phase_lm(cuda) -> tuple:
-    """The LM serving path through the port's entry points: qwen3-14b at its
-    published width from seed 0 on the card, 8 requests through the
-    Engine and Scheduler. K7's counter is zeroed before the traffic and
-    read after it; the checks after it (K7 at a served prompt's tensors,
-    the prefill logits through the kernel against the plain version) run
-    outside that count. Returns (records, launches of the traffic)."""
-    t_all = time.perf_counter()
-    cfg = get_config(LM_ARCH)
+def lm_traffic(cfg) -> tuple:
+    """(prompt lengths, prompts) of the LM traffic from the seed: lengths in
+    ``LM_PROMPT``, tokens in ``cfg``'s vocabulary."""
+    rng = np.random.default_rng(SEED)
+    lengths = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, size=LM_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in lengths]
+    return lengths, prompts
+
+
+def init_model(cfg, cuda, label: str):
+    """``CausalLM.from_seed`` on the card, its time and peak memory printed."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
     t0 = time.perf_counter()
     model = CausalLM.from_seed(cfg, seed=SEED, device=cuda)
     torch.cuda.synchronize()
     gib = sum(p.numel() * p.element_size() for p in model.parameters()) / 2 ** 30
-    print(f"lm: {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads, "
+    print(f"{label}: {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads, "
           f"{cfg.n_kv_heads} kv heads, hd {cfg.hd}, vocab {cfg.vocab_size}): "
           f"{cfg.param_count()} parameters, {gib:.2f} GiB {cfg.param_dtype}, "
-          f"init from seed {SEED} on the card in {time.perf_counter() - t0:.2f} s")
-    rng = np.random.default_rng(SEED)
-    lengths = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, size=LM_REQUESTS)
-    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in lengths]
-    require(any(n % 64 for n in lengths), f"lm prompt lengths {lengths.tolist()}: "
-            "at least one not a multiple of 64")
+          f"init from seed {SEED} on the card in {time.perf_counter() - t0:.2f} s, peak "
+          f"device memory {torch.cuda.max_memory_allocated(cuda) / 2 ** 30:.3f} GiB")
+    return model
 
-    engine = Engine(model, max_batch=LM_BATCH, max_len=LM_MAX_LEN)
+
+def serve_traffic(model, prompts, label: str, max_batch: int = LM_BATCH) -> tuple:
+    """The prompts through ``Engine`` (``max_batch`` slots, ``LM_MAX_LEN``
+    positions) and ``Scheduler``, ``LM_NEW`` tokens each, with the kernels'
+    counters zeroed before and read after. Prints each request's prefill
+    seconds and the traffic's line; returns (done by rid, engine, launches)."""
+    cuda = model.device
+    engine = Engine(model, max_batch=max_batch, max_len=LM_MAX_LEN)
     sched = Scheduler(engine)
     prefill_s, step_ms = {}, []
     admit, step = engine.admit, engine.step
@@ -1759,50 +1824,67 @@ def phase_lm(cuda) -> tuple:
 
     done = sorted(done, key=lambda r: r.rid)
     new_tokens = sum(len(r.out) for r in done)
+    n_prompt = sum(len(p) for p in prompts)
     for r in done:
         print(f"  request {r.rid}: prompt {len(r.prompt)} tokens, prefill "
               f"{prefill_s[r.rid]:.3f} s, {len(r.out)} tokens {r.out[:6]}...")
-    print(f"lm traffic: {len(done)} requests, {new_tokens} new tokens and "
-          f"{int(lengths.sum())} prompt tokens in {wall:.3f} s "
+    print(f"{label} traffic: {len(done)} requests, {new_tokens} new tokens and "
+          f"{n_prompt} prompt tokens in {wall:.3f} s "
           f"({new_tokens / wall:.2f} new tokens/s, "
-          f"{(new_tokens + int(lengths.sum())) / wall:.2f} tokens/s in all); "
+          f"{(new_tokens + n_prompt) / wall:.2f} tokens/s in all); "
           f"{engine.steps_run} decode steps, mean {np.mean(step_ms):.3f} ms, median "
           f"{np.median(step_ms):.3f} (min {min(step_ms):.3f}, max {max(step_ms):.3f}); prefill "
           f"{sum(prefill_s.values()):.3f} s in all; peak device memory {peak:.3f} GiB")
-    require(len(done) == LM_REQUESTS and all(len(r.out) == LM_NEW for r in done),
-            f"lm: all {LM_REQUESTS} requests finished with {LM_NEW} tokens")
-    require(all(0 <= t < cfg.vocab_size for r in done for t in r.out),
-            "lm: every token lies in the vocabulary")
-    require(counts["flash_attention"] == cfg.n_layers * LM_REQUESTS,
-            f"lm: K7 launched {counts['flash_attention']} times on the traffic, "
-            f"{cfg.n_layers} x {LM_REQUESTS} prefills (decode launches none)")
+    require(len(done) == len(prompts) and all(len(r.out) == LM_NEW for r in done),
+            f"{label}: all {len(prompts)} requests finished with {LM_NEW} tokens")
+    require(all(0 <= t < model.cfg.vocab_size for r in done for t in r.out),
+            f"{label}: every token lies in the vocabulary")
+    return done, engine, counts
+
+
+def require_k7_traffic(label: str, counts: dict, want: int, what: str) -> None:
+    """K7's launches on a traffic: exactly ``want``, all on the tensor-core
+    body."""
+    require(counts["flash_attention"] == want,
+            f"{label}: K7 launched {counts['flash_attention']} times on the traffic, "
+            f"{what} (decode launches none)")
     require(counts["flash_attention_tc"] == counts["flash_attention"],
-            f"lm: {counts['flash_attention_tc']} of K7's {counts['flash_attention']} "
+            f"{label}: {counts['flash_attention_tc']} of K7's {counts['flash_attention']} "
             "launches on the traffic ran the tensor-core body (all must)")
 
-    # K7 at one served prompt's real tensors (layer 0), bf16 and float32
-    rid = next(i for i, n in enumerate(lengths) if n % 64)
-    s = int(lengths[rid])
-    tokens = torch.as_tensor(prompts[rid], dtype=torch.int64, device=cuda)[None]
+
+def layer0_input(model, tokens):
+    """Layer 0's normed input (the mixer's) for a (1, S) prompt."""
     with torch.no_grad():
-        blk = model.layers[0]
-        h = rmsnorm(model.embed_tokens(tokens), blk.ln1, cfg.norm_eps)
-        q, k, v = (heads_major(t) for t in _project_qkv(
-            blk.mixer, cfg, h, torch.arange(s, device=cuda)[None]))
-    records = [k7_record("flash_attention", q, k, v, reps=10)]
+        return rmsnorm(model.embed_tokens(tokens), model.layers[0].ln1, model.cfg.norm_eps)
+
+
+def layer0_qkv(model, tokens) -> tuple:
+    """Layer 0's q, k, v for a (1, S) prompt, heads-major as K7 gets them."""
+    s = tokens.shape[1]
+    with torch.no_grad():
+        h = layer0_input(model, tokens)
+        return tuple(heads_major(t) for t in _project_qkv(
+            model.layers[0].mixer, model.cfg, h, torch.arange(s, device=tokens.device)[None]))
+
+
+def k7_float32_check(label: str, q, k, v, s: int) -> None:
     qf, kf, vf = (t.float() for t in (q, k, v))
     e32 = max_err(k7.flash_attention(qf, kf, vf), k7.flash_attention_plain(qf, kf, vf))
-    require(e32 <= K7_TOL[torch.float32], f"flash_attention float32 at request {rid}'s "
+    require(e32 <= K7_TOL[torch.float32], f"flash_attention float32 at {label}'s "
             f"tensors (S {s}): max_abs_err {e32} within {K7_TOL[torch.float32]}")
-    del q, k, v, qf, kf, vf
 
-    # the prefill logits of that request through K7 and through the plain
-    # version. In bf16, rounding through 40 random layers spreads the plain
-    # version against itself (KV chunk 512 against 128) by more than 3e-2
-    # of max|logit|, so the bound is held in float32 compute on the same
-    # weights, where it measures K7; the bf16 numbers are printed beside
-    # that floor, and the argmax must agree wherever the plain logits'
-    # top-2 margin exceeds the bound.
+
+def prefill_logits_check(model, tokens, rid: int, first_token: int, label: str = "lm") -> None:
+    """The prefill logits of a served request through K7 and through the
+    plain version. In bf16, rounding through many random layers spreads the
+    plain version against itself (KV chunk 512 against 128) by more than
+    3e-2 of max|logit|, so the bound is held in float32 compute on the same
+    weights, where it measures K7; the bf16 numbers are printed beside that
+    floor, and the argmax must agree wherever the plain logits' top-2
+    margin exceeds the bound."""
+    s = tokens.shape[1]
+
     def logits_via(attention):
         with mock.patch.object(ops, "flash_attention", attention):
             return model.prefill(tokens)[0]
@@ -1812,42 +1894,76 @@ def phase_lm(cuda) -> tuple:
                 k7.flash_attention_plain(q, k, v, causal=causal, chunk=chunk))
 
     logits_k = logits_via(ops.flash_attention)
-    require(int(logits_k[0].argmax()) == done[rid].out[0],
-            f"lm request {rid}: served first token equals the prefill's argmax")
-    for label, dtype in (("bf16 as served", None), ("float32 compute", torch.float32)):
+    require(int(logits_k[0].argmax()) == first_token,
+            f"{label} request {rid}: served first token equals the prefill's argmax")
+    for how, dtype in (("bf16 as served", None), ("float32 compute", torch.float32)):
         with compute_dtype(model, dtype):
             lk = logits_via(ops.flash_attention) if dtype else logits_k
             lp = logits_via(plain_at(k7.PLAIN_CHUNK))
             floor = max_err(lp, logits_via(plain_at(128)))
         tol = LOGITS_RTOL * float(lp.abs().max())
         err = max_err(lk, lp)
-        print(f"lm prefill logits, {label} (request {rid}, S {s}): max |logit| "
+        print(f"{label} prefill logits, {how} (request {rid}, S {s}): max |logit| "
               f"{float(lp.abs().max())}; K7 vs plain max_abs_err {err}, mean "
               f"{float((lk - lp).abs().mean())}; plain chunk 512 vs 128 {floor}")
         if dtype is not None:
-            require(err <= tol, f"lm prefill logits, {label}: K7 vs plain max_abs_err "
+            require(err <= tol, f"{label} prefill logits, {how}: K7 vs plain max_abs_err "
                     f"{err} within {tol}")
         top2 = lp[0].topk(2).values
         margin = float(top2[0] - top2[1])
         if margin > tol:
             require(int(lk[0].argmax()) == int(lp[0].argmax()),
-                    f"lm prefill argmax agrees, {label} (plain top-2 margin {margin} > {tol})")
+                    f"{label} prefill argmax agrees, {how} (plain top-2 margin {margin} > {tol})")
         else:
-            print(f"lm prefill, {label}: plain top-2 margin {margin} within {tol}; "
+            print(f"{label} prefill, {how}: plain top-2 margin {margin} within {tol}; "
                   "argmax not compared")
-    del lk, lp
 
-    # where the time goes: one prefill and one decode step of the 4 slots
-    _, host_ms, groups = device_profile(lambda: model.prefill(tokens), LM_GROUPS)
-    describe_profile(f"lm prefill S {s} (request {rid})", host_ms, groups)
-    tok = torch.zeros((LM_BATCH, 1), dtype=torch.int64, device=cuda)
+
+def profile_prefill_and_decode(model, engine, tokens, rid: int, label: str,
+                               groups: dict = LM_GROUPS) -> None:
+    """Where the time goes: one prefill of a served prompt and one decode
+    step of the engine's slots, under ``torch.profiler``."""
+    cuda = model.device
+    _, host_ms, by = device_profile(lambda: model.prefill(tokens), groups)
+    describe_profile(f"{label} prefill S {tokens.shape[1]} (request {rid})", host_ms, by)
+    tok = torch.zeros((engine.b, 1), dtype=torch.int64, device=cuda)
     pos = torch.as_tensor(engine.pos, dtype=torch.int64, device=cuda)
-    _, host_ms, groups = device_profile(lambda: model.decode_step(tok, engine.cache, pos),
-                                        LM_GROUPS)
-    describe_profile(f"lm decode step, batch {LM_BATCH}, positions {engine.pos.tolist()}",
-                     host_ms, groups)
+    _, host_ms, by = device_profile(lambda: model.decode_step(tok, engine.cache, pos), groups)
+    describe_profile(f"{label} decode step, batch {engine.b}, positions "
+                     f"{engine.pos.tolist()}", host_ms, by)
 
-    del model, engine, sched, logits_k, tokens, h, tok, pos
+
+def phase_lm(cuda) -> tuple:
+    """The LM serving path through the port's entry points: qwen3-14b at its
+    published width from seed 0 on the card, 8 requests through the
+    Engine and Scheduler. K7's counter is zeroed before the traffic and
+    read after it; the checks after it (K7 at a served prompt's tensors,
+    the prefill logits through the kernel against the plain version) run
+    outside that count. Returns (records, launches of the traffic)."""
+    t_all = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    model = init_model(cfg, cuda, "lm")
+    lengths, prompts = lm_traffic(cfg)
+    require(any(n % 64 for n in lengths), f"lm prompt lengths {lengths.tolist()}: "
+            "at least one not a multiple of 64")
+    done, engine, counts = serve_traffic(model, prompts, "lm")
+    require_k7_traffic("lm", counts, cfg.n_layers * LM_REQUESTS,
+                       f"{cfg.n_layers} x {LM_REQUESTS} prefills")
+
+    # K7 at one served prompt's real tensors (layer 0), bf16 and float32
+    rid = next(i for i, n in enumerate(lengths) if n % 64)
+    s = int(lengths[rid])
+    tokens = torch.as_tensor(prompts[rid], dtype=torch.int64, device=cuda)[None]
+    q, k, v = layer0_qkv(model, tokens)
+    records = [k7_record("flash_attention", q, k, v, reps=10)]
+    k7_float32_check(f"request {rid}", q, k, v, s)
+    del q, k, v
+
+    prefill_logits_check(model, tokens, rid, done[rid].out[0])
+    # where the time goes: one prefill and one decode step of the 4 slots
+    profile_prefill_and_decode(model, engine, tokens, rid, "lm")
+
+    del model, engine, tokens
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1874,6 +1990,258 @@ def phase_lm(cuda) -> tuple:
     torch.cuda.empty_cache()
     print(f"lm path: {time.perf_counter() - t_all:.2f} s")
     return records, counts
+
+
+#: device-time groups of the MoE and SSM phases' profiles: the LM path's
+#: and the top-k sort, the slot cumsum and the dispatch's gathers and scatters
+FAMILY_GROUPS = {**LM_GROUPS, "sort (top-k)": ("sort", "radix"), "scan (cumsum)": ("scan",),
+                 "gather / scatter": ("index", "scatter", "gather")}
+
+
+def moe_dense_oracle(p, cfg, x):
+    """The MoE block with every expert computing every token (as
+    ``tests/test_models.py::moe_oracle``): no capacity, no dispatch; the
+    chosen experts' outputs combined by one weighted product."""
+    m, cd = cfg.moe, cfg.compute_dtype
+    tokens = x.reshape(-1, x.shape[-1])
+    probs = torch.softmax((tokens @ p["router"].to(cd)).float(), dim=-1)
+    top_w, top_e = moe.top_k(probs, m.top_k)
+    top_w = top_w / top_w.sum(-1, keepdim=True)
+    g = torch.einsum("nd,edf->enf", tokens, p["w_gate"].to(cd))
+    u = torch.einsum("nd,edf->enf", tokens, p["w_up"].to(cd))
+    y = torch.einsum("enf,efd->end", silu(g) * u, p["w_down"].to(cd))
+    picked = y.permute(1, 0, 2)[torch.arange(tokens.shape[0], device=x.device)[:, None], top_e]
+    out = torch.einsum("nk,nkd->nd", top_w.to(cd), picked)
+    if m.dense_residual:
+        gg = silu(tokens @ p["res_gate"].to(cd)) * (tokens @ p["res_up"].to(cd))
+        out = out + gg @ p["res_down"].to(cd)
+    return out.reshape(x.shape)
+
+
+def moe_layer0_input(model, tokens):
+    """The MoE input of layer 0 (attention, then the second norm) for a
+    (1, S) prompt."""
+    cfg, blk = model.cfg, model.layers[0]
+    with torch.no_grad():
+        h = layer0_input(model, tokens)
+        pos = torch.arange(tokens.shape[1], device=tokens.device)[None]
+        x = model.embed_tokens(tokens) + attn_forward(blk.mixer, cfg, h, pos)[0]
+        return rmsnorm(x, blk.ln2, cfg.norm_eps)
+
+
+def decode_against_prefill(model, prompt, label: str, steps: int = 3) -> None:
+    """Prefill of the first T tokens, then ``steps`` decode steps on the next
+    ones, each against the last logits of a prefill of the longer prompt:
+    in float32 compute, MoE drop-free, within ``DECODE_RTOL`` of max|logit|."""
+    cuda = model.device
+    toks = torch.as_tensor(prompt, dtype=torch.int64, device=cuda)[None]
+    t = toks.shape[1] - steps
+    with drop_free(model, torch.float32):
+        _, cache = model.prefill(toks[:, :t], max_len=t + steps, cache_dtype=torch.float32)
+        worst = 0.0
+        for i in range(steps):
+            got, cache = model.decode_step(toks[:, t + i:t + i + 1], cache, t + i)
+            want, _ = model.prefill(toks[:, :t + i + 1])
+            err = max_err(got, want)
+            tol = DECODE_RTOL * float(want.abs().max())
+            worst = max(worst, err / float(want.abs().max()))
+            require(err <= tol, f"{label}: decode step {i + 1} after a prefill of {t} "
+                    f"against a prefill of {t + i + 1}: max_abs_err {err} within {tol}")
+    print(f"{label}: decode against prefill, worst error {worst:.3e} of max|logit|")
+
+
+def phase_moe(cuda) -> tuple:
+    """granite-moe-3b-a800m at its published width, the LM path's traffic
+    through the engine, and its checks: K7 exactly once a layer and
+    prefill, all on the tensor-core body; the capacity drops by mode; K7
+    at a served prompt; the prefill logits through K7 against the plain
+    version; one MoE layer against its dense oracle and run twice; decode
+    against prefill. Returns (K7 record, launches of the traffic)."""
+    t_all = time.perf_counter()
+    cfg = get_config(MOE_ARCH)
+    model = init_model(cfg, cuda, "moe")
+    print(f"moe: {cfg.moe.n_experts} experts, top-{cfg.moe.top_k}, expert d_ff "
+          f"{cfg.moe.d_ff}, capacity factor {cfg.moe.capacity_factor}; "
+          f"{cfg.active_param_count()} parameters active a token")
+    for blk in model.layers:
+        blk.moe_stats = {}
+    lengths, prompts = lm_traffic(cfg)
+    done, engine, counts = serve_traffic(model, prompts, "moe")
+    require_k7_traffic("moe", counts, cfg.n_layers * LM_REQUESTS,
+                       f"{cfg.n_layers} x {LM_REQUESTS} prefills")
+    for mode in ("prefill", "decode"):
+        assigned = sum(b.moe_stats[mode]["assigned"] for b in model.layers)
+        by_layer = [int(b.moe_stats[mode]["dropped"]) / b.moe_stats[mode]["assigned"]
+                    for b in model.layers]
+        dropped = sum(int(b.moe_stats[mode]["dropped"]) for b in model.layers)
+        print(f"moe {mode}: {dropped} of {assigned} (token, k) assignments dropped by "
+              f"capacity ({dropped / assigned:.4%}); by layer: layer 0 {by_layer[0]:.4%}, "
+              f"median {np.median(by_layer):.4%}, max {max(by_layer):.4%}")
+    for blk in model.layers:
+        blk.moe_stats = None
+
+    rid = next(i for i, n in enumerate(lengths) if n % 64)
+    s = int(lengths[rid])
+    tokens = torch.as_tensor(prompts[rid], dtype=torch.int64, device=cuda)[None]
+    q, k, v = layer0_qkv(model, tokens)
+    record = k7_record("flash_attention_granite_moe", q, k, v, reps=10)
+    k7_float32_check(f"moe request {rid}", q, k, v, s)
+    del q, k, v
+    prefill_logits_check(model, tokens, rid, done[rid].out[0], label="moe")
+
+    # one MoE layer at the served prompt's hidden states
+    p = model.layers[0].mlp
+    x = moe_layer0_input(model, tokens)
+    a, _ = moe.moe_forward(p, cfg, x)
+    b, _ = moe.moe_forward(p, cfg, x)
+    require(torch.equal(a, b), f"moe layer 0 at request {rid} (S {s}): two runs give "
+            "equal bits")
+    for dtype in (torch.bfloat16, torch.float32):
+        with drop_free(model, dtype) as dcfg:
+            xd = x.to(dtype)
+            got, _ = moe.moe_forward(p, dcfg, xd)
+            want = moe_dense_oracle(p, dcfg, xd)
+        err, scale = max_err(got, want), float(want.abs().max())
+        print(f"moe layer 0 drop-free against the dense oracle, {dtype}: max_abs_err "
+              f"{err}, max|out| {scale} ({err / scale:.3e} of it)")
+        if dtype == torch.bfloat16:
+            require(err <= MOE_ORACLE_RTOL * scale, f"moe layer 0 against the dense "
+                    f"oracle in bf16: {err} within {MOE_ORACLE_RTOL} of max|out|")
+    del a, b, x, got, want
+    decode_against_prefill(model, prompts[rid], "moe")
+    profile_prefill_and_decode(model, engine, tokens, rid, "moe", FAMILY_GROUPS)
+    del model, engine, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"moe path: {time.perf_counter() - t_all:.2f} s")
+    record["launches"] = counts["flash_attention"]
+    return record, counts
+
+
+def phase_ssm(cuda) -> dict:
+    """rwkv6-1.6b at its published width, the LM path's traffic through the
+    engine (no attention: K7 never launches), ``chunked_gla`` at layer 0's
+    inputs for a served prompt against its step-by-step version on the
+    card, and decode against prefill. Returns the traffic's launches."""
+    t_all = time.perf_counter()
+    cfg = get_config(SSM_ARCH)
+    model = init_model(cfg, cuda, "ssm")
+    lengths, prompts = lm_traffic(cfg)
+    done, engine, counts = serve_traffic(model, prompts, "ssm")
+    require(counts["flash_attention"] == 0,
+            f"ssm: K7 launched {counts['flash_attention']} times (rwkv6 has no attention)")
+
+    rid = next(i for i, n in enumerate(lengths) if n % 64)
+    s = int(lengths[rid])
+    tokens = torch.as_tensor(prompts[rid], dtype=torch.int64, device=cuda)[None]
+    blk = model.layers[0]
+    with torch.no_grad():
+        h = layer0_input(model, tokens)
+        r, k, v, _, ld = ssm.rwkv_projections(blk.mixer, cfg, h,
+                                              torch.zeros_like(h[:, :1]))
+        r, k, v = r.float(), k.float(), v.float()
+        h0 = torch.zeros((1, cfg.ssm.n_heads, cfg.ssm.d_state, cfg.ssm.d_head),
+                         device=cuda)
+        (y, h_last), ms = timed_once(lambda: ssm.chunked_gla(
+            r, k, v, ld, h0, chunk=cfg.ssm.chunk, mode="bonus", u=blk.mixer["u"]))
+        (want_y, want_h), plain_ms = timed_once(lambda: ssm.gla_reference(
+            r, k, v, ld, h0, mode="bonus", u=blk.mixer["u"]))
+    err_y, err_h = max_err(y, want_y), max_err(h_last, want_h)
+    scale_y, scale_h = float(want_y.abs().max()), float(want_h.abs().max())
+    print(f"ssm chunked_gla at layer 0 of request {rid} (S {s}, {cfg.ssm.n_heads} heads "
+          f"of {cfg.ssm.d_state} x {cfg.ssm.d_head}, chunk {cfg.ssm.chunk}): {ms:.3f} ms "
+          f"against the step-by-step {plain_ms:.3f} ms; max_abs_err y {err_y} "
+          f"(max|y| {scale_y}), state {err_h} (max|h| {scale_h})")
+    require(err_y <= GLA_RTOL * scale_y and err_h <= GLA_RTOL * scale_h,
+            f"ssm chunked_gla against gla_reference: within {GLA_RTOL} of max|y| and max|h|")
+    del r, k, v, ld, y, want_y, h_last, want_h
+    decode_against_prefill(model, prompts[rid], "ssm")
+    profile_prefill_and_decode(model, engine, tokens, rid, "ssm", FAMILY_GROUPS)
+    del model, engine, tokens, h
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"ssm path: {time.perf_counter() - t_all:.2f} s")
+    return counts
+
+
+def phase_arctic(cuda) -> dict:
+    """arctic-480b at full width (128 experts, top-2, the dense residual) and
+    depth ``ARCTIC_DEPTH``: weights from the seed, one request of
+    ``ARCTIC_PROMPT`` tokens and ``LM_NEW`` new ones. Returns the traffic's
+    launches."""
+    t_all = time.perf_counter()
+    full = get_config(ARCTIC_ARCH)
+    cfg = dataclasses.replace(full, n_layers=ARCTIC_DEPTH)
+    per_layer = (full.param_count() - 2 * full.vocab_size * full.d_model) / full.n_layers
+    print(f"arctic: depth cut to {ARCTIC_DEPTH} of {full.n_layers} layers at full width: "
+          f"{2 * per_layer / 2 ** 30:.2f} GiB of bf16 weights a layer, the card 80 GB")
+    model = init_model(cfg, cuda, "arctic")
+    rng = np.random.default_rng(SEED)
+    prompt = rng.integers(0, cfg.vocab_size, size=ARCTIC_PROMPT).astype(np.int32)
+    done, _, counts = serve_traffic(model, [prompt], "arctic", max_batch=1)
+    require_k7_traffic("arctic", counts, cfg.n_layers, f"{cfg.n_layers} layers x 1 prefill")
+    tokens = torch.as_tensor(prompt, dtype=torch.int64, device=cuda)[None]
+    logits, _ = model.prefill(tokens)
+    require(bool(torch.isfinite(logits).all()) and int(logits[0].argmax()) == done[0].out[0],
+            "arctic: prefill logits finite, their argmax the served first token")
+    del model, logits, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"arctic path: {time.perf_counter() - t_all:.2f} s")
+    return counts
+
+
+def phase_reduced(cuda) -> None:
+    """The reduced granite-moe, arctic, jamba (one period: attention, Mamba,
+    MoE every other layer) and rwkv6 in float32: the same weights and the
+    same engine scenario on the CPU and on the card give equal tokens, and
+    the prefill logits agree within ``REDUCED_TOL``."""
+    t_all = time.perf_counter()
+    rng = np.random.default_rng(SEED + 5)
+    lengths = (5, 70, 9, 130, 3)
+    for arch in REDUCED_ARCHS:
+        cfg = get_config(arch).reduced()
+        prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in lengths]
+        cpu_model = CausalLM.from_seed(cfg, seed=SEED, device="cpu")
+        card_model = CausalLM(cfg, device=cuda)
+        card_model.load_state_dict(cpu_model.state_dict())
+        outs, logits = [], []
+        for model in (cpu_model, card_model):
+            sched = Scheduler(Engine(model, max_batch=3, max_len=160))
+            for i, p in enumerate(prompts):
+                sched.submit(Request(rid=i, prompt=p, max_new_tokens=6))
+            outs.append({r.rid: r.out for r in sched.run()})
+            toks = torch.as_tensor(prompts[3], dtype=torch.int64, device=model.device)[None]
+            logits.append(model.prefill(toks)[0].cpu())
+        err = max_err(logits[1], logits[0])
+        require(outs[1] == outs[0] and len(outs[0]) == len(prompts),
+                f"reduced {arch}: the card's tokens equal the CPU's ({len(prompts)} requests)")
+        require(err <= REDUCED_TOL, f"reduced {arch}: prefill logits on the card against "
+                f"the CPU, max_abs_err {err} within {REDUCED_TOL}")
+    torch.cuda.empty_cache()
+    print(f"reduced families: {time.perf_counter() - t_all:.2f} s")
+
+
+def phase_families(cuda) -> dict:
+    """The MoE and SSM phases, each freeing the card before the next, with
+    their seconds. Returns granite's K7 record."""
+    t_all = time.perf_counter()
+    seconds = {}
+    t0 = time.perf_counter()
+    record, counts = phase_moe(cuda)
+    print(f"launches on the moe path's traffic: {counts}")
+    seconds["moe"] = time.perf_counter() - t0
+    for name, phase in (("ssm", phase_ssm), ("arctic", phase_arctic)):
+        t0 = time.perf_counter()
+        counts = phase(cuda)
+        print(f"launches on the {name} path's traffic: {counts}")
+        seconds[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_reduced(cuda)
+    seconds["reduced"] = time.perf_counter() - t0
+    print("family phases' seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
+          + f"; {time.perf_counter() - t_all:.2f} in all")
+    return record
 
 
 def phase_scan(cuda) -> dict:
@@ -2538,6 +2906,13 @@ def main() -> int:
     cuda = torch.device("cuda", 0)
     if sys.argv[1:2] == ["--dp-shapes"] and set(sys.argv[2:]) <= {"--sweep"}:
         return dp_shapes_only(cuda, sweep=sys.argv[2:] == ["--sweep"])
+    if sys.argv[1:] == ["--families"]:
+        phase_build()
+        device_profile(torch.cuda.synchronize, {}, cpu=False)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(card_line())
+        print(json.dumps(phase_families(cuda)))
+        return 1 if _failures else 0
     if sys.argv[1:] == ["--service"]:
         phase_build()
         # the process's first profiler start initialises the card's tracing
@@ -2641,6 +3016,8 @@ def main() -> int:
         rec["launches"] = counts["flash_attention"]
         require(rec["launches"] > 0, f"{rec['name']} launched on the lm path")
     records += lm_records
+    torch.cuda.empty_cache()
+    records.append(phase_families(cuda))
     records.append(phase_scan(cuda))
 
     if _failures:

@@ -133,9 +133,18 @@ class ModelConfig:
     # ------------------------------------------------------------------
     def param_count(self) -> int:
         """Exact parameter count of the port's model, built on the meta
-        device (no memory). Raises NotImplementedError for the block kinds
-        the port does not have yet (MoE, SSM)."""
+        device (no memory), for every block kind (dense, MoE, Mamba, RWKV6)."""
         from repro_torch.models.model import CausalLM
 
         m = CausalLM(self, device="meta")
         return sum(p.numel() for p in m.parameters())
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k of n_experts)."""
+        total = self.param_count()
+        if self.moe is None:
+            return total
+        m = self.moe
+        n_moe_layers = sum(1 for i in range(self.n_layers) if self.mlp_of(i) == "moe")
+        unused = (m.n_experts - m.top_k) * 3 * self.d_model * m.d_ff * n_moe_layers
+        return total - unused

@@ -23,8 +23,9 @@ CONFIG = ModelConfig(
     vocab_size=65536,
     head_dim=128,
     moe=MoEConfig(n_experts=16, top_k=2, d_ff=24576, every=2, offset=1),
-    # chunk=32 keeps in-chunk cumulative |log decay| within the GLA clip
-    # window at init scale (see models/ssm.py _LCLIP and DESIGN.md)
+    # chunk=32 keeps in-chunk cumulative |log decay| within the reference
+    # GLA's clip window at init scale (the port's chunked_gla has no clip;
+    # see models/ssm.py)
     ssm=SSMConfig(kind="mamba", n_heads=256, d_head=64, d_state=16, chunk=32),
     attn_every=8,
     attn_offset=7,

@@ -1,9 +1,10 @@
 """Serving CLI: the continuous-batching engine over a reduced config,
 batched requests, throughput report (port of ``repro/launch/serve.py``).
+``--arch`` takes any of the ten configs (dense, MoE, hybrid, SSM).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \
         --requests 12 --max-new 24            # on the card
-    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b --device cpu
 """
 from __future__ import annotations
 

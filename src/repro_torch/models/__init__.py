@@ -1,1 +1,2 @@
-"""Model zoo (port of ``repro/models``): dense causal LMs for serving."""
+"""Model zoo (port of ``repro/models``): causal LMs for serving — dense, MoE,
+hybrid (attention + Mamba) and SSM (RWKV6) blocks."""

@@ -1,10 +1,11 @@
 """Causal LM (port of ``repro/models/model.py``): parameters, forward in the
 prefill and decode modes, prefill and decode steps.
 
-Dense architectures only (``models/transformer.py``). The reference's
-frontend-embedding stubs (VLM, audio) and training (``loss_fn``,
-``chunked_xent``, the ``train`` mode) wait for later slices (ROADMAP queue
-1 item 15).
+Every block kind of the ten configs (``models/transformer.py``): dense,
+MoE (``models/moe.py``), and the Mamba and RWKV6 mixers with their state
+caches (``models/ssm.py``). The reference's frontend-embedding stubs (VLM,
+audio) and training (``loss_fn``, ``chunked_xent``, the ``train`` mode) wait
+for later slices (ROADMAP queue 1 item 6).
 """
 from __future__ import annotations
 

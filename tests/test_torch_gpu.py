@@ -1165,3 +1165,95 @@ def test_schedule_gate_on_the_card(cuda):
     findings, _ = verify_launches(cuda)
     assert [f.check for f in findings] == ["geometry_mismatch"]
     kschedule.forget_launches()
+
+
+# ---------------------------------------------------------------------------
+# the MoE and SSM blocks on the card
+# ---------------------------------------------------------------------------
+def _moe_case(cuda, dtype, n_tokens=300, seed=0):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import moe_defs
+
+    cfg = get_config("granite-moe-3b-a800m")
+    cfg = dataclasses.replace(cfg, compute_dtype=dtype, param_dtype=dtype)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    p = {k: (torch.randn(d.shape, generator=g, device=cuda) * d.scale).to(dtype)
+         for k, d in moe_defs(cfg).items()}
+    x = torch.randn((1, n_tokens, cfg.d_model), generator=g, device=cuda).to(dtype)
+    return cfg, p, x
+
+
+def test_moe_combine_bit_equal_across_runs(cuda):
+    """granite-moe's MoE block at full width in bf16: two calls on the same
+    inputs give the same bits (the combine sums a token's top-8 in order,
+    no atomics)."""
+    from repro_torch.models.moe import moe_forward
+
+    cfg, p, x = _moe_case(cuda, torch.bfloat16)
+    a, aux_a = moe_forward(p, cfg, x)
+    b, aux_b = moe_forward(p, cfg, x)
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+    assert a.dtype == torch.bfloat16 and torch.isfinite(a.float()).all()
+
+
+def test_stable_top_k_on_tied_logits_on_the_card(cuda):
+    """Tied probabilities on the card: the lower expert first, as on the
+    CPU (``jax.lax.top_k``'s order), including a whole row of ties."""
+    from repro_torch.models.moe import top_k
+
+    rows = torch.tensor([[0.1, .3, .3, .3, 0, .3], [0.5] * 6, [0.2, 0.1] * 3])
+    rng = np.random.default_rng(0)
+    ties = torch.from_numpy(rng.integers(0, 4, size=(4096, 40)).astype(np.float32) / 4)
+    for probs, k in ((rows, 3), (ties, 8)):
+        want_v, want_i = top_k(probs, k)
+        got_v, got_i = top_k(probs.to(cuda), k)
+        assert torch.equal(got_i.cpu(), want_i) and torch.equal(got_v.cpu(), want_v)
+    assert top_k(rows.to(cuda), 3)[1][0].tolist() == [1, 2, 3]
+
+
+@pytest.mark.parametrize("mode", ["bonus", "inclusive"])
+def test_chunked_gla_matches_gla_reference_on_the_card(cuda, mode):
+    """rwkv6-1.6b's head count and widths (32 heads of 64 by 64), vector
+    decay, chunk 32 and a ragged tail: within 1e-4 of max|y| in float32."""
+    from repro_torch.models.ssm import chunked_gla, gla_reference
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    b, t, h, k, v = 2, 333, 32, 64, 64
+    q, kk = (torch.randn((b, t, h, k), generator=g, device=cuda) * 0.125 for _ in range(2))
+    vv = torch.randn((b, t, h, v), generator=g, device=cuda)
+    ld = -torch.exp(torch.randn((b, t, h, k), generator=g, device=cuda) - 3)
+    h0 = torch.randn((b, h, k, v), generator=g, device=cuda) * 0.3
+    u = torch.randn((h, k), generator=g, device=cuda) * 0.5
+    y, h_last = chunked_gla(q, kk, vv, ld, h0, chunk=32, mode=mode, u=u)
+    want_y, want_h = gla_reference(q, kk, vv, ld, h0, mode=mode, u=u)
+    assert float((y - want_y).abs().max()) <= 1e-4 * float(want_y.abs().max())
+    assert float((h_last - want_h).abs().max()) <= 1e-4 * float(want_h.abs().max())
+
+
+def test_reduced_jamba_engine_on_the_card_matches_cpu(cuda):
+    """The reduced jamba (one period: attention, Mamba, MoE every other
+    layer) served on the card gives the CPU engine's tokens, from the same
+    weights; its attention layer's prefills go through K7."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import CausalLM
+    from repro_torch.serving import Engine, Request, Scheduler
+
+    cfg = get_config("jamba-1.5-large-398b").reduced()
+    cpu_model = CausalLM.from_seed(cfg, seed=0, device="cpu")
+    card_model = CausalLM(cfg, device=cuda)
+    card_model.load_state_dict(cpu_model.state_dict())
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (5, 70, 9, 130, 3)]
+    outs = []
+    for model in (cpu_model, card_model):
+        before = k7.LAUNCHES["flash_attention"]
+        sched = Scheduler(Engine(model, max_batch=3, max_len=160))
+        for i, p in enumerate(prompts):
+            sched.submit(Request(rid=i, prompt=p, max_new_tokens=6))
+        outs.append({r.rid: r.out for r in sched.run()})
+    assert outs[1] == outs[0] and len(outs[0]) == len(prompts)
+    n_attn = sum(cfg.mixer_of(i) == "attn" for i in range(cfg.n_layers))
+    assert k7.LAUNCHES["flash_attention"] - before == n_attn * len(prompts)

@@ -24,6 +24,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     code = ("import sys, repro_torch, repro_torch.dp, repro_torch.kernels.ops; "
             "import repro_torch.configs, repro_torch.models, repro_torch.serving; "
             "import repro_torch.models.convert, repro_torch.launch.serve; "
+            "import repro_torch.models.moe, repro_torch.models.ssm; "
             "import repro_torch.core.planner; "
             "from repro_torch import dp; dp.backends.ensure_registered(); "
             "from repro_torch.dp import (DPEngine, DPRequest, DPResponse, "
@@ -54,6 +55,7 @@ def test_lm_sources_are_scanned_on_their_own():
     lm = [PORT / p for p in (
         "configs/__init__.py", "configs/base.py", "configs/qwen3_14b.py",
         "models/layers.py", "models/attention.py", "models/transformer.py",
+        "models/moe.py", "models/ssm.py",
         "models/model.py", "models/convert.py", "serving/engine.py",
         "serving/scheduler.py", "launch/serve.py", "kernels/flash_attention.py",
         "kernels/chunked_scan.py")]

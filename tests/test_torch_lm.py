@@ -1,11 +1,13 @@
-"""The LM serving path of the port — configs, layers, the dense model, the
-weight conversion, the engine and scheduler — against ``repro`` on the
-same inputs and weights (CPU, reduced configs, float32).
+"""The LM serving path of the port — configs, layers, the model (dense,
+MoE, Mamba and RWKV6 blocks), the weight conversion, the engine and
+scheduler — against ``repro`` on the same inputs and weights (CPU, reduced
+configs, float32).
 
 Weights are the reference's ``init_params`` carried across by
 ``params_from_reference``. Prefill and decode logits agree within
-``LOGIT_TOL`` = 1e-5 (float32, sums in another order: measured ~2e-7);
-float32 caches within ``LOGIT_TOL`` too. With an int8 cache a value that a
+``LOGIT_TOL`` = 1e-5 (float32, sums in another order: measured ~2e-7,
+~3e-7 for jamba's hybrid stack); float32 caches, the SSM states among
+them, within ``LOGIT_TOL`` too (measured under 5e-7). With an int8 cache a value that a
 last-bit difference puts on the other side of a rounding boundary
 quantizes one code apart, so int8 codes agree within one step and the
 decode logits within ``INT8_LOGIT_TOL`` = 5e-4. The engines must give the
@@ -32,6 +34,8 @@ from repro_torch.models.model import CausalLM, param_defs  # noqa: E402
 
 LOGIT_TOL, INT8_LOGIT_TOL = 1e-5, 5e-4
 DENSE = ("qwen3-14b", "phi3-mini-3.8b", "granite-20b", "stablelm-12b")
+#: the MoE, hybrid and SSM families
+MOE_SSM = ("granite-moe-3b-a800m", "arctic-480b", "jamba-1.5-large-398b", "rwkv6-1.6b")
 
 
 def _np(tree):
@@ -69,13 +73,27 @@ def test_configs_match_reference(arch):
 
 @pytest.mark.parametrize("arch", jconfigs.list_archs())
 def test_param_count_matches_reference_or_names_the_roadmap(arch):
-    cfg = tconfigs.get_config(arch)
-    if any(cfg.mixer_of(i) != "attn" or cfg.mlp_of(i) != "dense"
-           for i in range(cfg.n_layers)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 15"):
-            cfg.param_count()
-        return
-    assert cfg.param_count() == jconfigs.get_config(arch).param_count()
+    """Every block kind is ported: both counts equal the reference's for
+    every arch, at full size and reduced."""
+    for cfg, ref in ((tconfigs.get_config(arch), jconfigs.get_config(arch)),
+                     (tconfigs.get_config(arch).reduced(), jconfigs.get_config(arch).reduced())):
+        assert cfg.param_count() == ref.param_count()
+        assert cfg.active_param_count() == ref.active_param_count()
+
+
+def test_moe_and_ssm_sizes_fit_the_card_as_planned():
+    """The sizes that decide what runs whole on one 80 GB card in bf16:
+    granite-moe and rwkv6 whole, arctic two layers, jamba not one period."""
+    get = tconfigs.get_config
+    assert get("granite-moe-3b-a800m").param_count() == 3_374_295_552
+    assert get("granite-moe-3b-a800m").active_param_count() == 958_376_448
+    assert get("rwkv6-1.6b").param_count() == 1_678_313_472
+    arctic = get("arctic-480b")
+    per_layer = (arctic.param_count() - 2 * arctic.vocab_size * arctic.d_model) / arctic.n_layers
+    assert 25.3 < 2 * per_layer / 2 ** 30 < 25.4
+    jamba = get("jamba-1.5-large-398b")
+    period = dataclasses.replace(jamba, n_layers=jamba.scan_period).param_count()
+    assert 2 * period / 2 ** 30 > 80
 
 
 def test_full_qwen3_14b_is_14_8b_parameters():
@@ -150,8 +168,10 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch):
 # the model against the reference
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("cache", ["float32", "int8"])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE_SSM)
 def test_prefill_cache_and_decode_match_reference(arch, cache):
+    """Prefill logits, every cache entry (KV, int8 codes and scales, the
+    Mamba and RWKV states, ``x_cm``) and three decode steps."""
     jcfg = jconfigs.get_config(arch).reduced()
     cfg = tconfigs.get_config(arch).reduced()
     params = jmodel.init_params(jcfg, jax.random.PRNGKey(0))
@@ -180,10 +200,39 @@ def test_prefill_cache_and_decode_match_reference(arch, cache):
         tok, pos = np.array(jnp.argmax(jl, -1), np.int32)[:, None], pos + 1
 
 
-def test_moe_and_ssm_blocks_name_the_roadmap():
-    for arch in ("arctic-480b", "jamba-1.5-large-398b", "rwkv6-1.6b"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 15"):
-            CausalLM(tconfigs.get_config(arch).reduced(), device="meta")
+@pytest.mark.parametrize("arch", jconfigs.list_archs())
+def test_every_reduced_config_prefills_and_decodes(arch):
+    """``CausalLM`` builds, prefills and decodes every config's reduced
+    variant from a seed on the CPU; training mode stays unported."""
+    cfg = tconfigs.get_config(arch).reduced()
+    model = CausalLM.from_seed(cfg, seed=0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 9)))
+    logits, cache = model.prefill(toks, max_len=12)
+    assert logits.shape == (2, cfg.vocab_size) and torch.isfinite(logits).all()
+    logits, cache = model.decode_step(logits.argmax(-1, keepdim=True), cache, 9)
+    assert torch.isfinite(logits).all()
+    with pytest.raises(NotImplementedError, match="training slice"):
+        model.forward(toks, mode="train", cache=cache)
+
+
+def test_engine_scatters_state_caches_into_the_slot():
+    """``admit`` writes a request's states into its slot (axis 0) and the
+    decode step advances the states of every slot, idle ones too, as the
+    reference's engine does."""
+    cfg = tconfigs.get_config("rwkv6-1.6b").reduced()
+    model = CausalLM.from_seed(cfg, seed=0, device="cpu")
+    engine = tserving.Engine(model, max_batch=3, max_len=32)
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, size=6).astype(np.int32)
+    engine.admit(tserving.Request(rid=0, prompt=prompt, max_new_tokens=4))
+    _, one = model.prefill(torch.from_numpy(prompt).long()[None], max_len=32)
+    for big, small in zip(engine.cache, one):
+        assert sorted(big) == ["h", "x_cm", "x_prev"]
+        for name in big:
+            assert torch.equal(big[name][0], small[name][0])
+            assert not big[name][1:].any()
+    idle = [c["h"][1:].clone() for c in engine.cache]
+    engine.step()
+    assert all(not torch.equal(c["h"][1:], h) for c, h in zip(engine.cache, idle))
 
 
 # ---------------------------------------------------------------------------
@@ -245,6 +294,20 @@ def _scenario(pkg, setup, name):
 def test_engine_tokens_equal_reference_engine(served, name):
     ref_setup, model = served
     want, want_steps = _scenario(jserving, ref_setup, name)
+    got, got_steps = _scenario(tserving, model, name)
+    assert got == want and got_steps == want_steps
+    assert len(got) == {"batch": 3, "recycle": 7, "interleave": 2}[name]
+
+
+@pytest.mark.parametrize("name", ["batch", "recycle", "interleave"])
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "rwkv6-1.6b"])
+def test_moe_and_ssm_engine_tokens_equal_reference_engine(arch, name):
+    """The three scenarios on an MoE and an SSM config: MoE capacity in
+    decode counts every slot, SSM states ride in the slots."""
+    jcfg = jconfigs.get_config(arch).reduced()
+    params = jmodel.init_params(jcfg, jax.random.PRNGKey(0))
+    model = params_from_reference(_np(params), tconfigs.get_config(arch).reduced(), "cpu")
+    want, want_steps = _scenario(jserving, (jcfg, params), name)
     got, got_steps = _scenario(tserving, model, name)
     assert got == want and got_steps == want_steps
     assert len(got) == {"batch": 3, "recycle": 7, "interleave": 2}[name]
