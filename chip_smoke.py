@@ -5,6 +5,10 @@
     python3 chip_smoke.py --dp-shapes --sweep   # and K5 / K8 under forced plans
     python3 chip_smoke.py --service       # the service path alone
     python3 chip_smoke.py --families      # the MoE and SSM families alone
+    python3 chip_smoke.py --train         # the training path alone
+    python3 chip_smoke.py --train-witness # phi3's 6 steps on a 6-step schedule,
+                                          # bf16 and float32 compute (not in the
+                                          # default run)
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc, at first
 use), holds each kernel against its plain PyTorch version on the card at the
@@ -85,6 +89,38 @@ the card before the next:
     attention, Mamba, MoE every other layer; a full period is ~83 GiB) and
     rwkv6 in float32, the same weights and engine scenario on the CPU and
     on the card: equal tokens, prefill logits within 1e-4;
+
+then the training path, freeing the card before it:
+
+  * phi3-mini-3.8b at its published width and depth (32 layers, d 3072, 32
+    heads of 96, d_ff 8192, vocabulary 32064, bf16), weights from seed 0:
+    its bf16 gradients at one 512-token sequence against float32-compute
+    ones (K7's and K7b's CUDA-core bodies; cosine per parameter); then the
+    first 6 steps of a 2000-step run of ``launch.train.build_step`` (AdamW
+    with float32 moments, lr 3e-4 warmup-cosine, so 3e-6 to 1.8e-5 over
+    these steps: on a 6-step schedule the random model's loss rises, see
+    ``--train-witness``) on batches of 2 x 4096
+    tokens from ``SyntheticLM``: seconds a step, tokens/s, model-FLOP
+    utilisation against 989 TFLOP/s and peak memory; losses and grad norms
+    finite, the last loss below the first, a held-out batch's loss lower
+    after; with remat K7's forward launches twice a layer a step (the
+    forward and the recompute, all on the tensor-core body) and its
+    backward K7b once; one more step under ``torch.profiler`` (gradients,
+    then the AdamW update);
+  * K7b at one layer of that step's tensors and at qwen3-14b's served
+    shape (Hq 40, Hkv 8, hd 128, S 1746), against the plain backward on
+    the card, twice for equal bits, timed beside
+    ``scaled_dot_product_attention``'s backward (the yardstick, never on
+    the path);
+  * the reduced qwen3-14b, granite-moe and rwkv6 in float32: 3 steps on
+    the card and on the CPU from the same weights, losses within 1e-4;
+  * the training CLI's supervisor on the card (reduced qwen3-14b, 12
+    steps, a checkpoint every 4, a failure injected at step 6): the
+    recovered run's final loss within 1e-5 of a failure-free run's, and
+    whether their bits are equal; then ``launch.train.main`` itself on its
+    default device with the failure-free run's flags: its last loss within
+    1e-5 of that run's, one metrics row a step, checkpoints to the last
+    step;
 
 then the service path: ``dp.DPService(max_batch=32)`` on the card answering
 256 seeded requests over eight problems (mcm 128-256, half reconstructed,
@@ -172,7 +208,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import moe, ssm  # noqa: E402
 from repro_torch.models.attention import _project_qkv, attn_forward  # noqa: E402
 from repro_torch.models.layers import rmsnorm, silu  # noqa: E402
-from repro_torch.models.model import CausalLM  # noqa: E402
+from repro_torch.models.model import CausalLM, loss_fn  # noqa: E402
 from repro_torch.serving import Engine, Request, Scheduler  # noqa: E402
 
 SEED = 0
@@ -209,6 +245,25 @@ REDUCED_ARCHS = (MOE_ARCH, ARCTIC_ARCH, "jamba-1.5-large-398b", SSM_ARCH)
 #: step-by-step version (float32, shares of max|logit| and max|y|); the
 #: reduced configs' prefill logits, card against CPU (float32, absolute)
 MOE_ORACLE_RTOL, DECODE_RTOL, GLA_RTOL, REDUCED_TOL = 2e-2, 1e-3, 1e-4, 1e-4
+#: the training path: the arch trained at its published width and depth,
+#: the batch (sequences x tokens), steps and peak lr, and the length of the
+#: run whose schedule the steps follow (warmup over its first 100 steps:
+#: with a 6-step schedule, warmup over 10 at 3e-5 a step, Adam's sign-like
+#: first steps make the loss of the random 3.8 B model climb, on a fixed
+#: batch too); the bf16 gradients held against float32-compute ones at one
+#: shorter sequence (cosine per parameter, at least GRAD_COS); the reduced configs
+#: held card against CPU (float32 losses, relative) over their steps; the
+#: supervisor's run (steps, checkpoint interval, the injected failure's
+#: step) and its bound against a failure-free run (relative: the card's
+#: embedding backward and cuBLAS may change bits between runs)
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = "phi3-mini-3.8b", 2, 4096, 6, 3e-4
+TRAIN_SCHEDULE, GRAD_SEQ, GRAD_COS = 2000, 512, 0.99
+TRAIN_REDUCED, TRAIN_REDUCED_STEPS, TRAIN_RTOL = (LM_ARCH, MOE_ARCH, SSM_ARCH), 3, 1e-4
+FT_STEPS, FT_EVERY, FT_FAIL, FT_RTOL = 12, 4, 6, 1e-5
+#: K7b against its plain backward on the card, a share of each gradient's
+#: max |value| (float32 sums in another order; bf16 gradients round to 8
+#: bits)
+K7B_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 #: K8's check: prefill_32k's length by rwkv6-1.6b's width
 SCAN_T, SCAN_D = 32768, 2048
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s and the
@@ -2244,6 +2299,371 @@ def phase_families(cuda) -> dict:
     return record
 
 
+# ---------------------------------------------------------------------------
+# The training path (K7 forward and recompute, K7b)
+# ---------------------------------------------------------------------------
+def train_model_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step (the recompute not counted): 6 per
+    parameter of every matrix product and token (the embedding's gather
+    does none), and attention's 12·hd per unmasked (query, key) pair and
+    head (4·hd forward, 8·hd backward)."""
+    matmul = cfg.param_count() - cfg.vocab_size * cfg.d_model
+    pairs = batch * cfg.n_heads * seq * (seq + 1) // 2
+    n_attn = sum(cfg.mixer_of(i) == "attn" for i in range(cfg.n_layers))
+    return 6.0 * matmul * batch * seq + 12.0 * cfg.hd * pairs * n_attn
+
+
+def train_batches(cfg, batch: int, seq: int, device):
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+
+    data = SyntheticLM(cfg.vocab_size, seq, batch, seed=SEED,
+                       frontend_tokens=cfg.n_frontend_tokens, d_model=cfg.d_model)
+    return lambda i: to_device(data.batch(i), device)
+
+
+def k7b_record(name: str, q, k, v, reps: int) -> dict:
+    """K7b at bf16 (B, Hq, S, D) q and GQA k, v (their o and log-sum-exp
+    from K7's forward, dO seeded) against the plain backward on the card,
+    twice for equal bits, timed beside SDPA's backward (the yardstick: one
+    PyTorch call, used nowhere in the port). Bound: q, k, v, o, dO read and
+    dQ, dK, dV written once (the log-sum-exp too); 10·D FLOP a unmasked
+    pair (S, dP, dV, dQ, dK) over the bf16 tensor-core peak."""
+    g = torch.Generator(device=q.device).manual_seed(SEED + 7)
+    do = torch.randn(q.shape, generator=g, device=q.device).to(q.dtype)
+    o, lse = k7._launch(q, k, v, True, k7.body_for(q, k, v), with_lse=True)
+    got = k7.flash_attention_backward(q, k, v, o, lse, do)
+    again = k7.flash_attention_backward(q, k, v, o, lse, do)
+    want, plain = timed_once(lambda: k7.flash_attention_backward_plain(q, k, v, o, lse, do))
+    err, share = 0.0, 0.0
+    for part, a, b, w in zip("qkv", got, again, want):
+        require(torch.equal(a, b), f"{name} d{part}: two runs give equal bits")
+        e = max_err(a, w)
+        err, share = max(err, e), max(share, e / max(float(w.float().abs().max()), 1e-12))
+    tol = K7B_TOL[q.dtype]
+    require(share <= tol, f"{name} {tuple(q.shape)} by {tuple(k.shape)} {q.dtype}: "
+            f"max_abs_err {err}, {share:.3e} of max|grad|, within {tol}")
+    del got, again, want
+    ms = cuda_ms(lambda: k7.flash_attention_backward(q, k, v, o, lse, do), reps)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                           enable_gqa=True)
+    lib = cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), reps)
+    del out, leaves
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    nbytes = q.element_size() * d * s * b * (4 * hq + 4 * hkv) + 4 * b * hq * s
+    flops = 10 * d * b * hq * s * (s + 1) // 2
+    print(f"{name}: K7b {ms:.3f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain {plain:.3f} ms, "
+          f"SDPA backward {lib:.3f} ms ({flops / lib / 1e9:.2f} TFLOP/s)")
+    return kernel_record(name, "src/repro_torch/csrc/flash_attention_bwd.cu",
+                         "src/repro/kernels/ops.py:316", err, ms, plain, nbytes, flops,
+                         peak=BF16_OPS_PER_S, library_ms=lib)
+
+
+def grads_against_float32(model) -> None:
+    """The model's bf16 gradients at one ``GRAD_SEQ``-token sequence
+    against the same weights' gradients in float32 compute (K7's and K7b's
+    CUDA-core bodies, float32 products): the cosine of every parameter's
+    pair at least ``GRAD_COS``."""
+    cfg = model.cfg
+    params = dict(model.named_parameters())
+    batch = train_batches(cfg, 1, GRAD_SEQ, model.device)(0)
+    grads = []
+    for dtype in (cfg.compute_dtype, torch.float32):
+        with compute_dtype(model, dtype):
+            loss, _ = loss_fn(model, batch)
+            grads.append((float(loss.detach()), torch.autograd.grad(loss, list(params.values()))))
+    (l16, g16), (l32, g32) = grads
+    cos = sorted((float((a.float() * b).sum() / (a.float().norm() * b.norm() + 1e-30)), n)
+                 for n, a, b in zip(params, g16, g32))
+    print(f"train: {cfg.compute_dtype} loss {l16} against float32 compute {l32} at "
+          f"{GRAD_SEQ} tokens; gradient cosine per parameter: lowest {cos[:3]}, median "
+          f"{cos[len(cos) // 2][0]:.6f}")
+    require(cos[0][0] >= GRAD_COS, f"train: every parameter's bf16 gradient within cosine "
+            f"{GRAD_COS} of its float32-compute one (lowest {cos[0][0]:.6f}, {cos[0][1]})")
+
+
+def train_full(cuda) -> tuple:
+    """phi3-mini-3.8b at full width and depth: ``TRAIN_STEPS`` steps of
+    ``build_step`` with the counters zeroed before them and read after,
+    then one step under the profiler and K7b at layer 0's tensors.
+    Returns (K7b's record, the steps' launches)."""
+    from repro_torch.launch import train
+    from repro_torch.models.attention import _project_qkv
+    from repro_torch.optim import adamw, schedules
+
+    cfg = get_config(TRAIN_ARCH)
+    model = init_model(cfg, cuda, "train")
+    batches = train_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, cuda)
+    state = train.init_state(model)
+    grads_against_float32(model)
+    held = batches(TRAIN_SCHEDULE)
+    with torch.no_grad():
+        held_before = float(loss_fn(model, held)[0])
+    step = train.build_step(model, cfg, TRAIN_LR, TRAIN_SCHEDULE)
+    gib = sum(t.numel() * t.element_size() for t in (
+        *state[0].values(), *state[1]["m"].values(), *state[1]["v"].values())) / 2 ** 30
+    print(f"train: {cfg.name} weights and float32 AdamW moments {gib:.2f} GiB")
+    flops = train_model_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    reset_launches()
+    rows, per_step = [], []
+    t_all = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        batch = batches(i)
+        before = launches()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        after = launches()
+        per_step.append({k: after[k] - before[k] for k in
+                         ("flash_attention", "flash_attention_tc", "flash_attention_bwd")})
+        row = {k: float(v) for k, v in m.items()}
+        rows.append(row)
+        print(f"train step {i}: loss {row['loss']:.4f}, grad_norm {row['grad_norm']:.4f}, lr "
+              f"{row['lr']:.3e}; {dt:.3f} s, {tokens / dt:.1f} tokens/s, model-FLOP "
+              f"utilisation {flops / dt / BF16_OPS_PER_S:.4f} of 989 TFLOP/s")
+    wall = time.perf_counter() - t_all
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated(cuda) / 2 ** 30
+    print(f"train: {TRAIN_STEPS} steps of {tokens} tokens in {wall:.3f} s "
+          f"(the first of a {TRAIN_SCHEDULE}-step schedule) "
+          f"({TRAIN_STEPS * tokens / wall:.1f} tokens/s, {flops / 1e12:.2f} model TFLOP a "
+          f"step); peak device memory {peak:.3f} GiB; launches {counts}")
+    with torch.no_grad():
+        held_after = float(loss_fn(model, held)[0])
+    require(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in rows),
+            "train: every loss and grad norm finite")
+    require(rows[-1]["loss"] < rows[0]["loss"],
+            f"train: the last loss {rows[-1]['loss']} below the first {rows[0]['loss']}")
+    require(held_after < held_before, f"train: a held-out batch's loss {held_before} -> "
+            f"{held_after}, lower after the steps")
+    want = {"flash_attention": 2 * cfg.n_layers, "flash_attention_tc": 2 * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers}
+    require(all(c == want for c in per_step), f"train: each step launched {want} "
+            f"(K7 forward and recompute on the tensor-core body, K7b once a layer): {per_step}")
+    require(peak < 75.0, f"train: peak device memory {peak:.3f} GiB under 75")
+
+    # where the time goes: one more step under the profiler, the gradients
+    # and the AdamW update apart
+    params, opt_state = state
+    batch = batches(TRAIN_STEPS)
+    opt_cfg = adamw.AdamWConfig(lr=schedules.warmup_cosine(TRAIN_LR, TRAIN_SCHEDULE // 20,
+                                                           TRAIN_SCHEDULE))
+
+    def grads():
+        loss, _ = loss_fn(model, batch)
+        return dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+
+    groups = {**LM_GROUPS, "flash_attention_bwd (K7b)": ("dq_kernel", "dkv_kernel")}
+    g, host_ms, by = device_profile(grads, groups, cpu=False)
+    describe_profile("train step: loss and gradients", host_ms, by)
+    _, host_ms, by = device_profile(lambda: adamw.apply(opt_cfg, g, opt_state, params),
+                                    groups, cpu=False)
+    describe_profile("train step: AdamW update", host_ms, by)
+    del g
+
+    # K7b at layer 0's tensors of the first batch
+    tokens0 = batches(0)["tokens"]
+    with torch.no_grad():
+        h = rmsnorm(model.embed_tokens(tokens0), model.layers[0].ln1, cfg.norm_eps)
+        positions = torch.arange(TRAIN_SEQ, device=cuda).expand(TRAIN_BATCH, TRAIN_SEQ)
+        q, k, v = (heads_major(t) for t in _project_qkv(model.layers[0].mixer, cfg, h,
+                                                          positions))
+    del model, state, params, opt_state, h, step, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    record = k7b_record("flash_attention_bwd", q, k, v, reps=3)
+    return record, counts
+
+
+def train_reduced(cuda) -> None:
+    """The reduced configs in float32: ``TRAIN_REDUCED_STEPS`` steps on the
+    card and on the CPU from the same weights and batches."""
+    from repro_torch.launch import train
+
+    for arch in TRAIN_REDUCED:
+        cfg = get_config(arch).reduced()
+        cpu_model = CausalLM.from_seed(cfg, seed=SEED, device="cpu")
+        card_model = CausalLM(cfg, device=cuda)
+        card_model.load_state_dict(cpu_model.state_dict())
+        losses = []
+        for model in (cpu_model, card_model):
+            batches = train_batches(cfg, 4, 64, model.device)
+            step, state = train.build_step(model, cfg, 1e-3, 10), train.init_state(model)
+            out = []
+            for i in range(TRAIN_REDUCED_STEPS):
+                state, m = step(state, batches(i))
+                out.append(float(m["loss"]))
+            losses.append(np.array(out))
+        err = float(np.max(np.abs(losses[1] - losses[0]) / np.abs(losses[0])))
+        require(err <= TRAIN_RTOL, f"reduced {arch}: {TRAIN_REDUCED_STEPS} train steps on the "
+                f"card {losses[1].tolist()} against the CPU {losses[0].tolist()}, relative "
+                f"{err:.3e} within {TRAIN_RTOL}")
+
+
+def train_supervised(cuda) -> float:
+    """The training CLI's pieces on the card (reduced qwen3-14b): the
+    supervisor over ``FT_STEPS`` steps with a checkpoint every
+    ``FT_EVERY``, once with a failure injected at ``FT_FAIL`` and once
+    without, each from the seed's weights. Returns the failure-free run's
+    last loss."""
+    import tempfile
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.launch import train
+    from repro_torch.runtime.fault_tolerance import FTConfig, InjectedFailure, Supervisor
+
+    cfg = get_config(LM_ARCH).reduced()
+    runs = []
+    for fail in (True, False):
+        fired = []
+
+        def hook(step):
+            if fail and step == FT_FAIL and not fired:
+                fired.append(step)
+                raise InjectedFailure("node lost")
+
+        model = CausalLM.from_seed(cfg, seed=SEED, device=cuda)
+        with tempfile.TemporaryDirectory() as ck_dir:
+            sup = Supervisor(train.build_step(model, cfg, 1e-3, FT_STEPS),
+                             Checkpointer(ck_dir, keep=2),
+                             FTConfig(checkpoint_every=FT_EVERY), failure_hook=hook)
+            state, log = sup.run(train.init_state(model), train_batches(cfg, 4, 64, cuda),
+                                 0, FT_STEPS)
+        runs.append((sup.stats, log, {n: p.detach().clone() for n, p in state[0].items()}))
+    (stats, log, params), (_, clean_log, clean_params) = runs
+    last, clean = log[-1]["loss"], clean_log[-1]["loss"]
+    bits = all(torch.equal(params[n], clean_params[n]) for n in params)
+    print(f"supervisor on the card: {stats}; final loss {last} against the failure-free "
+          f"{clean}; weights bit-equal: {bits}")
+    require(stats.restarts == 1 and stats.steps_replayed == FT_FAIL - FT_EVERY,
+            f"supervisor: one restart, {FT_FAIL - FT_EVERY} steps replayed ({stats})")
+    require(abs(last - clean) <= FT_RTOL * abs(clean), f"supervisor: the recovered run's "
+            f"final loss {last} within {FT_RTOL} of the failure-free run's {clean}")
+    return clean
+
+
+def train_cli(cuda, clean: float) -> None:
+    """``launch.train.main`` on its default device (the card) with the
+    flags of ``train_supervised``'s failure-free run: reduced qwen3-14b,
+    ``FT_STEPS`` steps of 4 x 64 tokens at lr 1e-3, a checkpoint every
+    ``FT_EVERY``. Its last loss within ``FT_RTOL`` of that run's ``clean``,
+    K7b launched, one metrics row a step, the last checkpoint at the last
+    step."""
+    import os
+    import tempfile
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.launch import train
+
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        ck_dir, metrics = os.path.join(tmp, "ckpt"), os.path.join(tmp, "metrics.jsonl")
+        last = train.main(["--arch", LM_ARCH, "--reduced", "--steps", str(FT_STEPS),
+                           "--ckpt-every", str(FT_EVERY), "--batch", "4", "--seq", "64",
+                           "--lr", "1e-3", "--seed", str(SEED), "--ckpt-dir", ck_dir,
+                           "--metrics", metrics])
+        with open(metrics) as f:
+            rows = [json.loads(line) for line in f]
+        latest = Checkpointer(ck_dir).latest_step()
+    counts = launches()
+    print(f"train CLI on its default device: last loss {last} against the supervised "
+          f"failure-free run's {clean}, equal bits: {last == clean}; {len(rows)} metrics "
+          f"rows, latest checkpoint {latest}; K7b launches {counts['flash_attention_bwd']}")
+    require(counts["flash_attention_bwd"] > 0, "train CLI: K7b launched, so it ran on the card")
+    require(len(rows) == FT_STEPS and latest == FT_STEPS, f"train CLI: {FT_STEPS} metrics "
+            f"rows ({len(rows)}) and the latest checkpoint at step {FT_STEPS} ({latest})")
+    require(abs(last - clean) <= FT_RTOL * abs(clean), f"train CLI: the last loss {last} "
+            f"within {FT_RTOL} of the supervised failure-free run's {clean}")
+
+
+def train_witness(cuda) -> None:
+    """phi3-mini-3.8b from the seed's weights, ``TRAIN_STEPS`` steps of
+    ``build_step`` on a schedule as long as the run (``TRAIN_LR`` warmed up
+    over 10 steps: 3e-5 to 1.8e-4), twice from the same weights and
+    batches: in bf16 compute, then in float32 compute (K7's CUDA-core body,
+    K7b's float32 instance, float32 products). Prints both loss
+    trajectories and whether each last loss is below its first; checks only
+    that every loss and grad norm is finite."""
+    from repro_torch.launch import train
+
+    cfg = get_config(TRAIN_ARCH)
+    model = init_model(cfg, cuda, "witness")
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    batches = train_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, cuda)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for dtype in (cfg.compute_dtype, torch.float32):
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(start[n])
+        torch.cuda.reset_peak_memory_stats(cuda)
+        with compute_dtype(model, dtype) as run_cfg:
+            state = train.init_state(model)
+            step = train.build_step(model, run_cfg, TRAIN_LR, TRAIN_STEPS)
+            rows = []
+            for i in range(TRAIN_STEPS):
+                t0 = time.perf_counter()
+                state, m = step(state, batches(i))
+                rows.append({k: float(v) for k, v in m.items()})
+                dt = time.perf_counter() - t0
+                print(f"witness {dtype} step {i}: loss {rows[-1]['loss']:.4f}, grad_norm "
+                      f"{rows[-1]['grad_norm']:.4f}, lr {rows[-1]['lr']:.3e}; {dt:.3f} s, "
+                      f"{tokens / dt:.1f} tokens/s")
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        losses = [r["loss"] for r in rows]
+        print(f"witness {dtype}: {TRAIN_STEPS} steps on a {TRAIN_STEPS}-step schedule, losses "
+              f"{losses}; the last below the first: {losses[-1] < losses[0]}; peak device "
+              f"memory {torch.cuda.max_memory_allocated(cuda) / 2 ** 30:.3f} GiB")
+        require(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in rows),
+                f"witness {dtype}: every loss and grad norm finite")
+
+
+def phase_train(cuda) -> list:
+    """The training path's parts, each freeing the card before the next.
+    Returns K7b's records (phi3's layer, qwen3-14b's served shape) with the
+    full run's launches."""
+    t_all = time.perf_counter()
+    seconds = {}
+    t0 = time.perf_counter()
+    record, counts = train_full(cuda)
+    record["launches"] = counts["flash_attention_bwd"]
+    require(record["launches"] > 0, "flash_attention_bwd launched on the train path")
+    seconds["full"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    g = torch.Generator(device=cuda).manual_seed(SEED)
+    qw = get_config(LM_ARCH)
+    s = 1746
+    q, k, v = (heads_major(torch.randn((1, s, hh, qw.hd), generator=g, device=cuda)
+                           .to(torch.bfloat16)) for hh in (qw.n_heads, qw.n_kv_heads,
+                                                           qw.n_kv_heads))
+    served = k7b_record("flash_attention_bwd_served", q, k, v, reps=5)
+    served["launches"] = record["launches"]
+    del q, k, v
+    torch.cuda.empty_cache()
+    seconds["k7b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_reduced(cuda)
+    seconds["reduced"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    clean = train_supervised(cuda)
+    seconds["supervisor"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_cli(cuda, clean)
+    seconds["cli"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    print("train phases' seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
+          + f"; {time.perf_counter() - t_all:.2f} in all")
+    return [record, served]
+
+
 def phase_scan(cuda) -> dict:
     """K8 through its entry point ``ops.linear_scan`` at T = 32768 (the
     prefill_32k length) by D = 2048 (rwkv6-1.6b's width), float32, its
@@ -2913,6 +3333,19 @@ def main() -> int:
         print(card_line())
         print(json.dumps(phase_families(cuda)))
         return 1 if _failures else 0
+    if sys.argv[1:] == ["--train"]:
+        phase_build()
+        device_profile(torch.cuda.synchronize, {}, cpu=False)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(card_line())
+        print(json.dumps(phase_train(cuda)))
+        return 1 if _failures else 0
+    if sys.argv[1:] == ["--train-witness"]:
+        phase_build()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(card_line())
+        train_witness(cuda)
+        return 1 if _failures else 0
     if sys.argv[1:] == ["--service"]:
         phase_build()
         # the process's first profiler start initialises the card's tracing
@@ -3018,6 +3451,9 @@ def main() -> int:
     records += lm_records
     torch.cuda.empty_cache()
     records.append(phase_families(cuda))
+    gc.collect()
+    torch.cuda.empty_cache()
+    records += phase_train(cuda)
     records.append(phase_scan(cuda))
 
     if _failures:

@@ -37,6 +37,11 @@
 // 989 TFLOP/s in bf16, is ~15x lower). Tensor cores (wgmma) and TMA are
 // later work.
 //
+// For training, a launch may also write each row's log-sum-exp (natural
+// log, float32 (B, Hq, Sq)): (m + log2 l)·ln 2 from the running max m and
+// sum l of the scaled base-2 scores, by the row group's first thread. The
+// serving path passes a null pointer and nothing more is written.
+//
 // Built with --fmad=false; the products use explicit __fmaf_rn.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,7 +77,8 @@ __host__ __device__ constexpr int smem_floats_for(int D) {
 template <typename T, int DC>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int group,
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int group,
                        int Sq, int Sk, int D, long long qsb, long long qsh,
                        long long qss, long long ksb, long long ksh,
                        long long kss, long long vsb, long long vsh,
@@ -188,6 +194,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * r + i;
     if (row >= Sq) continue;
+    if (lse != nullptr && c == 0)
+      lse[((long long)b * gridDim.y + h) * Sq + row] =
+          __fmul_rn(__fadd_rn(m[i], log2f(l[i])), 0.69314718055994531f);
     const float li = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < DC; ++j) {
@@ -198,7 +207,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int DC>
-int launch_dc(const void* q, const void* k, const void* v, void* o, int B,
+int launch_dc(const void* q, const void* k, const void* v, void* o, float* lse, int B,
               int Hq, int group, int Sq, int Sk, int D, const long long* st,
               float qscale, int causal, cudaStream_t s) {
   const size_t smem = sizeof(float) * smem_floats_for<DC>(D);
@@ -209,18 +218,18 @@ int launch_dc(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   kern<<<grid, THREADS, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), group, Sq, Sk, D, st[0], st[1], st[2], st[3], st[4],
+      static_cast<T*>(o), lse, group, Sq, Sk, D, st[0], st[1], st[2], st[3], st[4],
       st[5], st[6], st[7], st[8], qscale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_t(const void* q, const void* k, const void* v, void* o, int B,
+int launch_t(const void* q, const void* k, const void* v, void* o, float* lse, int B,
              int Hq, int group, int Sq, int Sk, int D, const long long* st,
              float qscale, int causal, cudaStream_t s) {
 #define K7_CASE(N)                                                          \
   case N:                                                                   \
-    return launch_dc<T, N>(q, k, v, o, B, Hq, group, Sq, Sk, D, st, qscale, \
+    return launch_dc<T, N>(q, k, v, o, lse, B, Hq, group, Sq, Sk, D, st, qscale, \
                            causal, s);
   switch ((D + 15) / 16) {
     K7_CASE(1) K7_CASE(2) K7_CASE(3) K7_CASE(4) K7_CASE(5) K7_CASE(6)
@@ -243,10 +252,12 @@ extern "C" int flash_attention_smem_bytes(int D) {
 
 // q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D) with unit stride along D and
 // element strides st = {q: b, h, s; k: b, h, s; v: b, h, s}; o (B, Hq, Sq,
-// D) contiguous. dtype 0 = float32, 1 = bfloat16; qscale = log2(e)/sqrt(D).
+// D) contiguous; lse null or float32 (B, Hq, Sq) contiguous, then written.
+// dtype 0 = float32, 1 = bfloat16; qscale = log2(e)/sqrt(D).
 // Returns the launch's cudaError_t.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int dtype, int B,
+                                      const void* v, void* o, void* lse,
+                                      int dtype, int B,
                                       int Hq, int Hkv, int Sq, int Sk, int D,
                                       const long long* strides, float qscale,
                                       int causal, void* stream) {
@@ -257,10 +268,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int group = Hq / Hkv;
   if (dtype == 0)
-    return launch_t<float>(q, k, v, o, B, Hq, group, Sq, Sk, D, strides, qscale,
+    return launch_t<float>(q, k, v, o, static_cast<float*>(lse), B, Hq, group, Sq, Sk, D, strides, qscale,
                            causal, s);
   if (dtype == 1)
-    return launch_t<__nv_bfloat16>(q, k, v, o, B, Hq, group, Sq, Sk, D, strides,
+    return launch_t<__nv_bfloat16>(q, k, v, o, static_cast<float*>(lse), B, Hq, group, Sq, Sk, D, strides,
                                    qscale, causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

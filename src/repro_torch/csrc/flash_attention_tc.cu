@@ -54,6 +54,12 @@
 //     heaviest causal tiles launch first: the query tile is the grid's
 //     slowest index, reversed.
 //
+// For training, a launch may also write each row's log-sum-exp (natural
+// log, float32 (B, Hq, Sq)): (m + log2 l)·ln 2 from the row's running max
+// and quad-reduced sum, by the quad's first lane after the last tile. The
+// serving path passes a null pointer and nothing more is written; ptxas
+// still reports no spill with it.
+//
 // Built with --fmad=false like the other sources: the scaling uses explicit
 // __fmaf_rn.
 #include <cuda.h>
@@ -386,8 +392,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap kmap,
                           const __grid_constant__ CUtensorMap vmap,
-                          __nv_bfloat16* __restrict__ o, int group, int Sq, int Sk,
-                          int D, float qscale, int causal) {
+                          __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                          int group, int Sq, int Sk, int D, float qscale, int causal) {
   using T = Tile<DP>;
   constexpr int BK = T::BK;
   extern __shared__ uint8_t smem_raw[];
@@ -559,6 +565,9 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int i = 0; i < 2; ++i) {
       const int row = row0 + 8 * i;
       if (row >= Sq) continue;
+      if (lse != nullptr && col0 == 0)
+        lse[(static_cast<long long>(b) * gridDim.x + h) * Sq + row] =
+            __fmul_rn(__fadd_rn(m[i], log2f(l[i])), 0.69314718055994531f);
       const float li = fmaxf(l[i], 1e-30f);
 #pragma unroll
       for (int j = 0; j < DP / 8; ++j) {
@@ -616,8 +625,8 @@ CUresult make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, 
 }
 
 template <int DP>
-int launch_dp(const void* q, const void* k, const void* v, void* o, int B, int Hq,
-              int Hkv, int Sq, int Sk, int D, const long long* st, float qscale,
+int launch_dp(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+              int Hq, int Hkv, int Sq, int Sk, int D, const long long* st, float qscale,
               int causal, cudaStream_t stream) {
   using T = Tile<DP>;
   EncodeTiled encode = encode_tiled();
@@ -633,7 +642,7 @@ int launch_dp(const void* q, const void* k, const void* v, void* o, int B, int H
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(Hq, B, (Sq + BQ - 1) / BQ);
   kern<<<grid, THREADS, T::SMEM, stream>>>(maps[0], maps[1], maps[2],
-                                           static_cast<__nv_bfloat16*>(o), Hq / Hkv,
+                                           static_cast<__nv_bfloat16*>(o), lse, Hq / Hkv,
                                            Sq, Sk, D, qscale, causal);
   return static_cast<int>(cudaGetLastError());
 }
@@ -650,24 +659,27 @@ extern "C" int flash_attention_tc_smem_bytes(int D) {
 // flash_attention_launch's interface (csrc/flash_attention.cu): q (B, Hq,
 // Sq, D), k and v (B, Hkv, Sk, D) with unit stride along D and element
 // strides st = {q: b, h, s; k: b, h, s; v: b, h, s}; o (B, Hq, Sq, D)
-// contiguous; qscale = log2(e)/sqrt(D). Here dtype must be 1 (bfloat16),
+// contiguous; lse null or float32 (B, Hq, Sq) contiguous, then written;
+// qscale = log2(e)/sqrt(D). Here dtype must be 1 (bfloat16),
 // D % 8 == 0, D <= 256 and every stride and pointer a multiple of 16
 // bytes. Returns the launch's cudaError_t, or MAP_ERROR + libcuda's
 // CUresult when a tensor map cannot be made.
 extern "C" int flash_attention_tc_launch(const void* q, const void* k, const void* v,
-                                         void* o, int dtype, int B, int Hq, int Hkv,
-                                         int Sq, int Sk, int D, const long long* strides,
-                                         float qscale, int causal, void* stream) {
+                                         void* o, void* lse, int dtype, int B, int Hq,
+                                         int Hkv, int Sq, int Sk, int D,
+                                         const long long* strides, float qscale,
+                                         int causal, void* stream) {
   if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
   if (dtype != 1 || Hkv <= 0 || Hq % Hkv || D < 8 || D > 256 || D % 8 || Sk <= 0 ||
       B > 65535 || Hq > 65535 || (Sq + BQ - 1) / BQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* L = static_cast<float*>(lse);
   if (D <= 64)
-    return launch_dp<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, strides, qscale, causal, s);
+    return launch_dp<64>(q, k, v, o, L, B, Hq, Hkv, Sq, Sk, D, strides, qscale, causal, s);
   if (D <= 128)
-    return launch_dp<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, strides, qscale, causal, s);
+    return launch_dp<128>(q, k, v, o, L, B, Hq, Hkv, Sq, Sk, D, strides, qscale, causal, s);
   if (D <= 192)
-    return launch_dp<192>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, strides, qscale, causal, s);
-  return launch_dp<256>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, strides, qscale, causal, s);
+    return launch_dp<192>(q, k, v, o, L, B, Hq, Hkv, Sq, Sk, D, strides, qscale, causal, s);
+  return launch_dp<256>(q, k, v, o, L, B, Hq, Hkv, Sq, Sk, D, strides, qscale, causal, s);
 }

@@ -19,7 +19,9 @@ version, and their registration as dispatchable routes.
                           combine of blocked MCM, replacing K5
   * ``flash_attention`` — causal online-softmax attention with GQA read in
                           place, the prefill of the LM path
-                          (``ops.flash_attention``), replacing K7
+                          (``ops.flash_attention``), replacing K7; its
+                          gradient (``FlashAttention``) runs the backward
+                          kernel K7b, ``csrc/flash_attention_bwd.cu``
   * ``chunked_scan``  — gated linear scan behind ``ops.linear_scan``,
                         replacing K8
 

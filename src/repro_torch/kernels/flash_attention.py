@@ -28,6 +28,17 @@ rule on dtype, head dim and alignment, never by trying:
   * ``csrc/flash_attention.cu`` (:data:`CUDA_CORES`): everything else
     (float32, odd head dims, unaligned views), all in float32 FMAs. Float32
     stays there, off TF32, to keep its 1e-4 bound.
+
+Training (K7b). :func:`flash_attention` called with grad enabled on an
+input that needs one goes through :class:`FlashAttention`: its forward is
+the same launch asked also for the row log-sum-exp, and its backward is
+``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_backward`), with
+:func:`flash_attention_backward_plain` for CPU tensors. The log-sum-exp
+contract, kept by both bodies and the plain version: a float32
+``(B, Hq, Sq)`` tensor, ``lse[b, h, i] = log sum_j exp(q_i . k_j / sqrt(D))``
+in natural log over the keys row i sees (float64 from the plain version
+for float64 inputs). Without a gradient (serving) the kernels get a null
+pointer and write none.
 """
 from __future__ import annotations
 
@@ -40,13 +51,17 @@ from repro_torch.kernels import _build
 
 #: kernel launches per wrapper (incremented only where a kernel launches):
 #: every K7 launch, and those of them that ran the tensor-core body
-LAUNCHES = {"flash_attention": 0, "flash_attention_tc": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_tc": 0, "flash_attention_bwd": 0}
+#: (the backward K7b counts its calls under "flash_attention_bwd")
 #: the two CUDA bodies, as :func:`body_for` names them
 TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
 #: KV chunk of the plain version (the reference's default)
 PLAIN_CHUNK = 512
 #: widest head the kernel takes (its tiles fill the shared memory there)
 MAX_HEAD_DIM = 256
+#: widest head the backward takes (its four float32 tiles and the score
+#: tile fill the 227 KB of shared memory there); every config's is <= 128
+MAX_BWD_HEAD_DIM = 192
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -66,9 +81,18 @@ def gqa_broadcast(k, hq: int):
     return k.repeat_interleave(rep, dim=1) if rep > 1 else k
 
 
-def flash_attention_plain(q, k, v, causal: bool = True, chunk: int = PLAIN_CHUNK):
+def _acc_dtype(q) -> torch.dtype:
+    """The plain versions' arithmetic: float32, or float64 for float64."""
+    return torch.promote_types(q.dtype, torch.float32)
+
+
+def flash_attention_plain(q, k, v, causal: bool = True, chunk: int = PLAIN_CHUNK,
+                          return_lse: bool = False):
     """The kernel's function in PyTorch: KV chunks of ``chunk`` with an
-    online softmax (``_flash_ref_chunked``)."""
+    online softmax (``_flash_ref_chunked``), in float32 (float64 inputs,
+    which only the plain versions take, stay float64). With ``return_lse``
+    it returns ``(o, lse)``, lse the (B, Hq, Sq) row log-sum-exp in natural
+    log (the module's contract)."""
     b, h, sq, d = q.shape
     k, v = gqa_broadcast(k, h), gqa_broadcast(v, h)
     sk = k.shape[2]
@@ -78,15 +102,16 @@ def flash_attention_plain(q, k, v, causal: bool = True, chunk: int = PLAIN_CHUNK
     if padded:  # ragged tail: pad KV to whole chunks, mask below
         pad = (0, 0, 0, nk * chunk - sk)
         k, v = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
-    qf = q.float() * (1.0 / (d ** 0.5))
+    ad = _acc_dtype(q)
+    qf = q.to(ad) * (1.0 / (d ** 0.5))
     q_pos = torch.arange(sq, device=q.device) + (sk - sq)
-    acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
-    m = torch.full((b, h, sq), float("-inf"), dtype=torch.float32, device=q.device)
-    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, sq, d), dtype=ad, device=q.device)
+    m = torch.full((b, h, sq), float("-inf"), dtype=ad, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=ad, device=q.device)
     for i in range(nk):
         k0 = i * chunk
-        kc = k[:, :, k0:k0 + chunk].float()
-        vc = v[:, :, k0:k0 + chunk].float()
+        kc = k[:, :, k0:k0 + chunk].to(ad)
+        vc = v[:, :, k0:k0 + chunk].to(ad)
         s = qf @ kc.transpose(-1, -2)
         if causal or padded:  # aligned non-causal stays mask-free
             k_pos = k0 + torch.arange(chunk, device=q.device)
@@ -100,7 +125,44 @@ def flash_attention_plain(q, k, v, causal: bool = True, chunk: int = PLAIN_CHUNK
         l = alpha * l + p.sum(dim=-1)
         acc = alpha[..., None] * acc + p @ vc
         m = m_new
-    return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+    o = (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+    return (o, m + torch.log(l)) if return_lse else o
+
+
+def flash_attention_backward_plain(q, k, v, o, lse, do, causal: bool = True,
+                                   chunk: int = PLAIN_CHUNK):
+    """K7b's function in PyTorch: (dq, dk, dv) of attention at q, k, v
+    given its output ``o``, its log-sum-exp ``lse`` and the output's
+    gradient ``do``. Over KV chunks of ``chunk``: P = exp(S/sqrt(D) - lse)
+    recomputed, Δ = rowsum(dO ∘ O), dS = P ∘ (dO Vᵀ - Δ), dQ = dS K /
+    sqrt(D), dK = dSᵀ Q / sqrt(D), dV = Pᵀ dO; a kv head's dK and dV summed
+    over its group of query heads. Float32 arithmetic (float64 for float64
+    inputs), the gradients in the inputs' dtypes."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = 1.0 / (d ** 0.5)
+    ad = _acc_dtype(q)
+    kf, vf = gqa_broadcast(k, h).to(ad), gqa_broadcast(v, h).to(ad)
+    qf, dof = q.to(ad), do.to(ad)
+    delta = (dof * o.to(ad)).sum(dim=-1)
+    dq = torch.zeros((b, h, sq, d), dtype=ad, device=q.device)
+    dk = torch.zeros((b, h, sk, d), dtype=ad, device=q.device)
+    dv = torch.zeros((b, h, sk, d), dtype=ad, device=q.device)
+    q_pos = torch.arange(sq, device=q.device) + (sk - sq)
+    for k0 in range(0, sk, chunk):
+        kc, vc = kf[:, :, k0:k0 + chunk], vf[:, :, k0:k0 + chunk]
+        p = torch.exp((qf @ kc.transpose(-1, -2)) * scale - lse[..., None])
+        if causal:
+            k_pos = k0 + torch.arange(kc.shape[2], device=q.device)
+            p = torch.where(q_pos[:, None] >= k_pos[None, :], p, 0.0)
+        dv[:, :, k0:k0 + chunk] = p.transpose(-1, -2) @ dof
+        ds = p * (dof @ vc.transpose(-1, -2) - delta[..., None])
+        dq += (ds @ kc) * scale
+        dk[:, :, k0:k0 + chunk] = (ds.transpose(-1, -2) @ qf) * scale
+    dk = dk.reshape(b, hkv, g, sk, d).sum(dim=2)
+    dv = dv.reshape(b, hkv, g, sk, d).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def body_for(q, k, v) -> str:
@@ -119,11 +181,9 @@ def body_for(q, k, v) -> str:
     return CUDA_CORES
 
 
-def _launch(q, k, v, causal: bool, body: str):
-    """Launch ``body`` (:data:`TENSOR_CORES` or :data:`CUDA_CORES`) on
-    CUDA tensors after the checks; :func:`flash_attention` passes
-    :func:`body_for`'s choice."""
-    name = "flash_attention"
+def _check_qkv(name: str, q, k, v, max_d: int) -> None:
+    """The checks K7 and K7b share: 4-D GQA q, k, v of one dtype and
+    device, head dim in 1..``max_d`` with unit stride."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"{name}: q, k, v must be 4-D (B, H, S, D)")
     b, hq, sq, d = q.shape
@@ -136,44 +196,140 @@ def _launch(q, k, v, causal: bool, body: str):
         raise ValueError(f"{name}: q, k, v must all be float32 or bfloat16")
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"{name}: q, k, v must lie on one device")
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head dim {d} outside 1..{MAX_HEAD_DIM}")
+    if not 1 <= d <= max_d:
+        raise ValueError(f"{name}: head dim {d} outside 1..{max_d}")
     if b > 65535 or hq > 65535:
         raise ValueError(f"{name}: batch and heads must be at most 65535")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError(f"{name}: the head dim must have unit stride")
+
+
+def _strides(*tensors):
+    """The (B, H, S) element strides of each tensor, as the C side reads
+    them."""
+    return (ctypes.c_longlong * (3 * len(tensors)))(
+        *(t.stride(i) for t in tensors for i in range(3)))
+
+
+def _launch(q, k, v, causal: bool, body: str, with_lse: bool = False):
+    """Launch ``body`` (:data:`TENSOR_CORES` or :data:`CUDA_CORES`) on
+    CUDA tensors after the checks; :func:`flash_attention` passes
+    :func:`body_for`'s choice. With ``with_lse`` the launch also writes the
+    row log-sum-exp and ``(o, lse)`` is returned."""
+    name = "flash_attention"
+    _check_qkv(name, q, k, v, MAX_HEAD_DIM)
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
     o = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if b * hq * sq * d == 0:
-        return o
+        return (o, lse) if with_lse else o
     if sk == 0:
         raise ValueError(f"{name}: no keys")
-    strides = (ctypes.c_longlong * 9)(*(t.stride(i) for t in (q, k, v)
-                                        for i in range(3)))
     lib = "flash_attention_tc" if body == TENSOR_CORES else name
     fn = getattr(_build.load(lib), f"{lib}_launch")   # one C interface for both
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                None if lse is None else lse.data_ptr(),
                 _DTYPES[q.dtype], b, hq, hkv, sq, sk, d,
-                ctypes.cast(strides, ctypes.c_void_p),
+                ctypes.cast(_strides(q, k, v), ctypes.c_void_p),
                 math.log2(math.e) / math.sqrt(d), int(causal),
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, lib)
     LAUNCHES[name] += 1
     if lib != name:
         LAUNCHES[lib] += 1
-    return o
+    return (o, lse) if with_lse else o
+
+
+def _launch_backward(q, k, v, o, lse, do, causal: bool):
+    """Launch K7b (``csrc/flash_attention_bwd.cu``: a dQ pass, then a dK/dV
+    pass) on CUDA tensors after the checks. ``do`` is read through its
+    strides; only a head dim without unit stride is copied (contiguous)
+    first."""
+    name = "flash_attention_bwd"
+    _check_qkv(name, q, k, v, MAX_BWD_HEAD_DIM)
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
+        raise ValueError(f"{name}: o {tuple(o.shape)} and do {tuple(do.shape)} must "
+                         f"have q's shape {tuple(q.shape)}")
+    if o.dtype != q.dtype or do.dtype != q.dtype or o.stride(3) != 1:
+        raise ValueError(f"{name}: o and do must have q's dtype, o a unit-stride head dim")
+    if tuple(lse.shape) != (b, hq, sq) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"{name}: lse must be a contiguous float32 (B, Hq, Sq) tensor")
+    if any(t.device != q.device for t in (o, lse, do)):
+        raise ValueError(f"{name}: every input must lie on q's device")
+    if do.stride(3) != 1:
+        do = do.contiguous()
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty((b, hkv, sk, d), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, hkv, sk, d), dtype=v.dtype, device=v.device)
+    if b * hq * sq * d == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    fn = _build.load(name).flash_attention_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), _DTYPES[q.dtype], b, hq, hkv, sq, sk, d,
+                ctypes.cast(_strides(q, k, v, o, do), ctypes.c_void_p),
+                math.log2(math.e) / math.sqrt(d), 1.0 / math.sqrt(d), int(causal),
+                torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, name)
+    LAUNCHES[name] += 1
+    return dq, dk, dv
+
+
+def flash_attention_backward(q, k, v, o, lse, do, causal: bool = True):
+    """(dq, dk, dv) of K7 at q, k, v: K7b for CUDA tensors, the plain
+    version for CPU ones."""
+    if q.is_cuda:
+        return _launch_backward(q, k, v, o, lse, do, causal)
+    return flash_attention_backward_plain(q, k, v, o, lse, do, causal=causal)
+
+
+class FlashAttention(torch.autograd.Function):
+    """K7 with its gradient: the forward launch writes the log-sum-exp
+    beside o, and the backward is K7b (on the CPU, the plain versions of
+    both). q, k, v, o and the log-sum-exp are saved."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        if q.is_cuda:
+            o, lse = _launch(q, k, v, causal, body_for(q, k, v), with_lse=True)
+        else:
+            o, lse = flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do, ctx.causal)
+        return dq, dk, dv, None
 
 
 def flash_attention(q, k, v, causal: bool = True):
     """Attention of q over GQA k, v: the CUDA kernel for CUDA tensors, the
-    plain version for CPU ones. A causal call with more queries than keys
+    plain version for CPU ones; differentiable through
+    :class:`FlashAttention` when an input needs a gradient (one launch, no
+    log-sum-exp, otherwise). A causal call with more queries than keys
     raises (a query row would see no key)."""
     if causal and q.shape[2] > k.shape[2]:
         raise ValueError(f"flash_attention: causal with Sq={q.shape[2]} > "
                          f"Sk={k.shape[2]} leaves query rows without keys")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal)
     if q.is_cuda:
         return _launch(q, k, v, causal, body_for(q, k, v))
     return flash_attention_plain(q, k, v, causal=causal)

@@ -37,13 +37,15 @@ def chunked_scan_ref(x, decay, h0):
     return torch.stack(rows), h
 
 
-def attention_ref(q, k, v, causal=True):
-    """Exact softmax attention, scale ``1/sqrt(D)``. q: (B, H, Sq, D); k, v:
-    (B, H, Sk, D) (kv already GQA-broadcast); the causal mask is aligned at
-    the end (query i sees keys up to i + Sk - Sq)."""
+def attention_ref(q, k, v, causal=True, scale=None):
+    """Exact softmax attention, the logits times ``scale`` (divided by
+    ``sqrt(D)`` when it is None). q: (B, H, Sq, D); k, v: (B, H, Sk, D) (kv
+    already GQA-broadcast); the causal mask is aligned at the end (query i
+    sees keys up to i + Sk - Sq)."""
     *_, sq, d = q.shape
     sk = k.shape[-2]
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(d)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    logits = logits / math.sqrt(d) if scale is None else logits * scale
     if causal:
         qi = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
         ki = torch.arange(sk, device=q.device)[None, :]

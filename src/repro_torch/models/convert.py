@@ -41,15 +41,22 @@ def _unstack(tree: dict, cfg) -> dict:
     return out
 
 
-def params_from_reference(params_np: dict, cfg, device) -> CausalLM:
-    """A :class:`CausalLM` holding the reference's weights, in
-    ``cfg.param_dtype`` on ``device``."""
-    model = CausalLM(cfg, device=device)
+def reference_flat(params_np: dict, cfg) -> dict:
+    """The reference's parameter tree (or a tree of its shape, such as its
+    gradients) as ``{port parameter name: array}``."""
     flat = {"embed": params_np["embed"], "ln_f": params_np["ln_f"]}
     if not cfg.tie_embeddings:
         flat["lm_head"] = params_np["lm_head"]
     for i, leaves in _unstack(params_np["groups"], cfg).items():
         flat.update({f"layers.{i}.{k}": v for k, v in leaves.items()})
+    return flat
+
+
+def params_from_reference(params_np: dict, cfg, device) -> CausalLM:
+    """A :class:`CausalLM` holding the reference's weights, in
+    ``cfg.param_dtype`` on ``device``."""
+    model = CausalLM(cfg, device=device)
+    flat = reference_flat(params_np, cfg)
     own = dict(model.named_parameters())
     if set(own) != set(flat):
         raise ValueError(f"parameter names differ: port only {sorted(set(own) - set(flat))}, "

@@ -6,7 +6,9 @@ The reference stacks its parameters ``(n_groups, …)`` and runs one
 layer's weights live in one block; ``models/convert.py`` unstacks the
 reference's tree). A block's mixer is attention, Mamba or RWKV6 and its MLP
 dense SwiGLU, MoE or the RWKV channel mix, by the config's layer pattern.
-Training (mode ``"train"``) is not ported yet (ROADMAP queue 1 item 6).
+Mode ``"train"`` runs a block with no cache (``CausalLM.forward`` groups
+the blocks by ``cfg.scan_period`` and checkpoints each group, as the
+reference remats its scan body).
 """
 from __future__ import annotations
 
@@ -71,41 +73,55 @@ class Block(nn.Module):
         self.mlp = nn.ParameterDict({k: _empty(d, cfg, device)
                                      for k, d in defs["mlp"].items()})
 
-    def forward(self, x, positions, mode: str, cache: dict, pos=None):
-        """mode "prefill" fills ``cache`` (in place) over the whole prompt;
-        "decode" runs T = 1 against it at ``pos``, advancing the SSM states
-        of every row of the batch."""
-        if mode not in ("prefill", "decode"):
-            raise NotImplementedError(f"mode {mode!r} is not ported yet (the "
-                                      "training slice, ROADMAP queue 1 item 6)")
+    def forward(self, x, positions, mode: str, cache: dict = None, pos=None):
+        """mode "train" runs the block with no cache; "prefill" fills
+        ``cache`` (in place) over the whole prompt; "decode" runs T = 1
+        against it at ``pos``, advancing the SSM states of every row of the
+        batch. Returns (x, aux): aux the MoE block's load-balance loss, 0.0
+        for the other MLPs."""
+        if mode not in ("train", "prefill", "decode"):
+            raise ValueError(f"unknown mode {mode!r}")
         cfg = self.cfg
-        decode = mode == "decode"
+        decode, train = mode == "decode", mode == "train"
         h = rmsnorm(x, self.ln1, cfg.norm_eps)
         if self.mixer_kind == "attn":
             if decode:
                 mix, _ = attn_decode(self.mixer, cfg, h, cache, pos)
             else:
                 mix, (k, v) = attn_forward(self.mixer, cfg, h, positions)
-                write_kv(cache, k, v, slice(None), slice(0, k.shape[1]))
+                if not train:
+                    write_kv(cache, k, v, slice(None), slice(0, k.shape[1]))
         else:
             names = _STATE[self.mixer_kind]
             state = {n: cache[n] for n in names} if decode else None
             mix, new = _SSM_FORWARD[self.mixer_kind](self.mixer, cfg, h, state)
-            for n in names:
-                cache[n].copy_(new[n])
+            if not train:
+                for n in names:
+                    cache[n].copy_(new[n])
         x = x + mix
         h2 = rmsnorm(x, self.ln2, cfg.norm_eps)
+        aux = 0.0
         if self.mlp_kind == "moe":
             stats = None if self.moe_stats is None else self.moe_stats.setdefault(mode, {})
-            out, _ = moe.moe_forward(self.mlp, cfg, h2, stats=stats)
+            out, aux = moe.moe_forward(self.mlp, cfg, h2, stats=stats)
         elif self.mlp_kind == "rwkv_cm":
             out, x_cm = ssm.rwkv_cm_forward(self.mlp, cfg, h2,
                                             cache["x_cm"] if decode else None)
-            cache["x_cm"].copy_(x_cm)
+            if not train:
+                cache["x_cm"].copy_(x_cm)
         else:
             out = swiglu(h2, self.mlp["w_gate"], self.mlp["w_up"],
                          self.mlp["w_down"], cfg.compute_dtype)
-        return x + out
+        return x + out, aux
+
+
+def train_group(blocks, x, aux, positions) -> tuple:
+    """Blocks in mode "train" (one scan body of the reference): returns
+    (x, aux + the blocks' aux losses, added in layer order)."""
+    for block in blocks:
+        x, a = block(x, positions, "train")
+        aux = aux + a
+    return x, aux
 
 
 def empty_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,

@@ -1257,3 +1257,120 @@ def test_reduced_jamba_engine_on_the_card_matches_cpu(cuda):
     assert outs[1] == outs[0] and len(outs[0]) == len(prompts)
     n_attn = sum(cfg.mixer_of(i) == "attn" for i in range(cfg.n_layers))
     assert k7.LAUNCHES["flash_attention"] - before == n_attn * len(prompts)
+
+
+# ---------------------------------------------------------------------------
+# Training: K7's log-sum-exp, K7b and a train step
+# ---------------------------------------------------------------------------
+#: K7b against its plain backward on the card, a share of each gradient's
+#: max |value|: float32 sums in another order (exp2 against exp);
+#: bfloat16 gradients round to 8 bits
+K7B_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _heads_major(b, s, h, d, dtype, g, cuda):
+    return torch.randn((b, s, h, d), generator=g, device=cuda).to(dtype).transpose(1, 2)
+
+
+@pytest.mark.parametrize("d", [16, 64, 96, 128])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (6, 1)])
+@pytest.mark.parametrize("sq,sk,causal", [(1, 1, True), (65, 65, True), (129, 129, True),
+                                          (333, 333, True), (37, 200, True), (70, 70, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_kernel_matches_plain(cuda, d, hq, hkv, sq, sk, causal, dtype):
+    """K7b (one launch of the wrapper, two kernels) against the plain
+    backward on the same (o, lse) from K7's forward: GQA, ragged S, the
+    mask aligned at the end, q, k, v as the model's heads-major views and
+    dO transposed; two runs give equal bits (no atomics)."""
+    g = torch.Generator(device=cuda).manual_seed(d * sq + hq + sk)
+    q = _heads_major(2, sq, hq, d, dtype, g, cuda)
+    k, v = (_heads_major(2, sk, hkv, d, dtype, g, cuda) for _ in range(2))
+    do = _heads_major(2, sq, hq, d, dtype, g, cuda)
+    o, lse = k7._launch(q, k, v, causal, k7.body_for(q, k, v), with_lse=True)
+    before = k7.LAUNCHES["flash_attention_bwd"]
+    got = k7.flash_attention_backward(q, k, v, o, lse, do, causal)
+    assert k7.LAUNCHES["flash_attention_bwd"] == before + 1
+    again = k7.flash_attention_backward(q, k, v, o, lse, do, causal)
+    want = k7.flash_attention_backward_plain(q, k, v, o, lse, do, causal)
+    for name, a, b, w in zip("qkv", got, again, want):
+        assert a.dtype == dtype and a.shape == w.shape and torch.equal(a, b), name
+        err = float((a.float() - w.float()).abs().max())
+        ref = float(w.float().abs().max())
+        # a share of max|grad|; where the gradient vanishes in exact
+        # arithmetic (one key: dS = 0, so dQ = dK = 0) what is left is
+        # rounding of sums of N(0, 1) inputs, held to a share of 1
+        vanishes = sk == 1 or ref < 1e-6
+        assert err <= K7B_TOL[dtype] * (max(ref, 1.0) if vanishes else ref), (name, err, ref)
+
+
+@pytest.mark.parametrize("d,s", [(64, 129), (96, 1746), (128, 333)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_lse_leaves_o_bit_equal(cuda, d, s, dtype):
+    """K7 asked for the log-sum-exp writes the same o, bit for bit, as the
+    serving launch without it (both bodies), and the lse keeps the plain
+    version's contract (natural log) within 1e-4 of max(1, |lse|)."""
+    g = torch.Generator(device=cuda).manual_seed(d + s)
+    q = _heads_major(2, s, 8, d, dtype, g, cuda)
+    k, v = (_heads_major(2, s, 2, d, dtype, g, cuda) for _ in range(2))
+    for body in {k7.body_for(q, k, v), k7.CUDA_CORES}:
+        o = k7._launch(q, k, v, True, body)
+        o2, lse = k7._launch(q, k, v, True, body, with_lse=True)
+        assert torch.equal(o, o2), body
+        _, want = k7.flash_attention_plain(q, k, v, return_lse=True)
+        assert lse.dtype == torch.float32 and lse.shape == (2, 8, s)
+        tol = 1e-4 * max(1.0, float(want.abs().max()))
+        assert float((lse - want).abs().max()) <= tol, body
+
+
+def test_flash_attention_autograd_on_the_card(cuda):
+    """``ops.flash_attention`` with inputs that need gradients: one K7
+    launch with the log-sum-exp, one K7b launch in the backward, and the
+    gradients of the plain versions' autograd within K7b's bound."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    leaves = [_heads_major(1, 200, h, 64, torch.float32, g, cuda).requires_grad_()
+              for h in (8, 2, 2)]
+    do = torch.randn((1, 8, 200, 64), generator=g, device=cuda)
+    before = dict(k7.LAUNCHES)
+    out = ops.flash_attention(*leaves)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert k7.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert k7.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    o, lse = k7.flash_attention_plain(*(t.detach() for t in leaves), return_lse=True)
+    want = k7.flash_attention_backward_plain(*(t.detach() for t in leaves), o, lse, do)
+    for a, w in zip(grads, want):
+        assert float((a - w).abs().max()) <= K7B_TOL[torch.float32] * float(w.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "granite-moe-3b-a800m", "rwkv6-1.6b"])
+def test_reduced_train_steps_on_the_card_match_cpu(cuda, arch):
+    """Two ``build_step`` steps of a reduced config (float32) on the card
+    and on the CPU from the same weights and batches: losses within 1e-4
+    relative; with remat every attention layer launches K7 twice a step
+    (forward and recompute) and K7b once."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.launch import train
+    from repro_torch.models.model import CausalLM
+
+    cfg = get_config(arch).reduced()
+    cpu_model = CausalLM.from_seed(cfg, seed=0, device="cpu")
+    card_model = CausalLM(cfg, device=cuda)
+    card_model.load_state_dict(cpu_model.state_dict())
+    data = SyntheticLM(cfg.vocab_size, 64, 2, seed=1)
+    n_attn = sum(cfg.mixer_of(i) == "attn" for i in range(cfg.n_layers))
+    losses = []
+    for model in (cpu_model, card_model):
+        step, state = train.build_step(model, cfg, 1e-3, 10), train.init_state(model)
+        out = []
+        for i in range(2):
+            before = dict(k7.LAUNCHES)
+            state, m = step(state, to_device(data.batch(i), model.device))
+            out.append(float(m["loss"]))
+            if model is card_model:
+                assert k7.LAUNCHES["flash_attention"] - before["flash_attention"] == 2 * n_attn
+                assert (k7.LAUNCHES["flash_attention_bwd"]
+                        - before["flash_attention_bwd"]) == n_attn
+        losses.append(out)
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)

@@ -26,6 +26,9 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "import repro_torch.models.convert, repro_torch.launch.serve; "
             "import repro_torch.models.moe, repro_torch.models.ssm; "
             "import repro_torch.core.planner; "
+            "import repro_torch.launch.train, repro_torch.optim, repro_torch.data.pipeline; "
+            "import repro_torch.checkpoint, repro_torch.runtime.fault_tolerance; "
+            "import repro_torch.utils.tree; "
             "from repro_torch import dp; dp.backends.ensure_registered(); "
             "from repro_torch.dp import (DPEngine, DPRequest, DPResponse, "
             "DPService, ServiceResult, Session, AdmissionError, PrefixIndex, "
@@ -115,3 +118,17 @@ def test_analysis_is_scanned_on_its_own():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+
+
+def test_training_slice_is_scanned_on_its_own():
+    """The training slice's modules and its example exist and hold no JAX
+    or ``repro`` import."""
+    files = [PORT / p for p in (
+        "utils/tree.py", "optim/__init__.py", "optim/adamw.py", "optim/schedules.py",
+        "optim/grad_compress.py", "data/pipeline.py", "checkpoint/checkpointer.py",
+        "runtime/fault_tolerance.py", "launch/train.py", "models/model.py",
+        "kernels/flash_attention.py")] + [ROOT / "examples" / "torch_train_lm.py"]
+    for f in files:
+        hits = FORBIDDEN.findall(f.read_text())
+        assert not hits, f"{f.relative_to(ROOT)} imports {hits}"
+    assert (PORT / "csrc" / "flash_attention_bwd.cu").exists()

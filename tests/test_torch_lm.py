@@ -203,7 +203,8 @@ def test_prefill_cache_and_decode_match_reference(arch, cache):
 @pytest.mark.parametrize("arch", jconfigs.list_archs())
 def test_every_reduced_config_prefills_and_decodes(arch):
     """``CausalLM`` builds, prefills and decodes every config's reduced
-    variant from a seed on the CPU; training mode stays unported."""
+    variant from a seed on the CPU; mode "train" (no cache) gives finite
+    hidden states and a float32 aux loss, and an unknown mode raises."""
     cfg = tconfigs.get_config(arch).reduced()
     model = CausalLM.from_seed(cfg, seed=0, device="cpu")
     toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 9)))
@@ -211,8 +212,11 @@ def test_every_reduced_config_prefills_and_decodes(arch):
     assert logits.shape == (2, cfg.vocab_size) and torch.isfinite(logits).all()
     logits, cache = model.decode_step(logits.argmax(-1, keepdim=True), cache, 9)
     assert torch.isfinite(logits).all()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model.forward(toks, mode="train", cache=cache)
+    hidden, aux = model.forward(toks, mode="train")
+    assert hidden.shape == (2, 9, cfg.d_model) and torch.isfinite(hidden).all()
+    assert aux.dtype == torch.float32 and torch.isfinite(aux)
+    with pytest.raises(ValueError, match="unknown mode"):
+        model.forward(toks, mode="score", cache=cache)
 
 
 def test_engine_scatters_state_caches_into_the_slot():
