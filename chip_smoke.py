@@ -95,7 +95,8 @@ then the training path, freeing the card before it:
   * phi3-mini-3.8b at its published width and depth (32 layers, d 3072, 32
     heads of 96, d_ff 8192, vocabulary 32064, bf16), weights from seed 0:
     its bf16 gradients at one 512-token sequence against float32-compute
-    ones (K7's and K7b's CUDA-core bodies; cosine per parameter); then the
+    ones (K7's and K7b's CUDA-core bodies; cosine per parameter; K7b once a
+    layer in each pass, on its tensor-core body in bf16); then the
     first 6 steps of a 2000-step run of ``launch.train.build_step`` (AdamW
     with float32 moments, lr 3e-4 warmup-cosine, so 3e-6 to 1.8e-5 over
     these steps: on a 6-step schedule the random model's loss rises, see
@@ -104,10 +105,11 @@ then the training path, freeing the card before it:
     utilisation against 989 TFLOP/s and peak memory; losses and grad norms
     finite, the last loss below the first, a held-out batch's loss lower
     after; with remat K7's forward launches twice a layer a step (the
-    forward and the recompute, all on the tensor-core body) and its
-    backward K7b once; one more step under ``torch.profiler`` (gradients,
+    forward and the recompute) and its backward K7b once, all on the
+    tensor-core bodies; one more step under ``torch.profiler`` (gradients,
     then the AdamW update);
-  * K7b at one layer of that step's tensors and at qwen3-14b's served
+  * each of K7b's bodies (tensor cores, then CUDA cores on the same bf16
+    tensors) at one layer of that step's tensors and at qwen3-14b's served
     shape (Hq 40, Hkv 8, hd 128, S 1746), against the plain backward on
     the card, twice for equal bits, timed beside
     ``scaled_dot_product_attention``'s backward (the yardstick, never on
@@ -178,6 +180,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -508,6 +511,16 @@ def phase_build() -> None:
     smem = _build.load("flash_attention_tc").flash_attention_tc_smem_bytes
     print("flash_attention_tc dynamic shared memory by head dim: " + ", ".join(
         f"hd {d} {smem(d)} bytes" for d in (16, 64, 96, 128, 160, 256)))
+    smem = _build.load("flash_attention_bwd_tc").flash_attention_bwd_tc_smem_bytes
+    print("flash_attention_bwd_tc dynamic shared memory (dQ, dK/dV kernel) by head dim: "
+          + ", ".join(f"hd {d} {smem(d, 0)}, {smem(d, 1)} bytes" for d in (16, 64, 96, 128)))
+    for name in ("flash_attention_tc", "flash_attention_bwd_tc"):
+        info = _build.BUILD_INFO.get(name)
+        if info is not None:
+            spills = re.findall(r"(\d+) bytes spill stores", info["log"])
+            require(spills and not any(int(n) for n in spills),
+                    f"build {name}: every instance compiles without a spill ({len(spills)} "
+                    "kernels)")
 
 
 def phase_kernels(rng, cuda) -> tuple:
@@ -2321,29 +2334,27 @@ def train_batches(cfg, batch: int, seq: int, device):
     return lambda i: to_device(data.batch(i), device)
 
 
-def k7b_record(name: str, q, k, v, reps: int) -> dict:
+#: K7b's two bodies: the record's name suffix and source by body
+K7B_BODIES = {k7.TENSOR_CORES: ("_tc", "src/repro_torch/csrc/flash_attention_bwd_tc.cu"),
+              k7.CUDA_CORES: ("", "src/repro_torch/csrc/flash_attention_bwd.cu")}
+
+
+def k7b_records(name: str, q, k, v, reps: int) -> list:
     """K7b at bf16 (B, Hq, S, D) q and GQA k, v (their o and log-sum-exp
-    from K7's forward, dO seeded) against the plain backward on the card,
-    twice for equal bits, timed beside SDPA's backward (the yardstick: one
-    PyTorch call, used nowhere in the port). Bound: q, k, v, o, dO read and
-    dQ, dK, dV written once (the log-sum-exp too); 10·D FLOP a unmasked
-    pair (S, dP, dV, dQ, dK) over the bf16 tensor-core peak."""
+    from K7's forward, dO seeded), which its rule sends to the tensor-core
+    body: each body (tensor cores, then CUDA cores on the same tensors)
+    against the plain backward on the card, twice for equal bits, and
+    timed; the plain backward and SDPA's backward (the yardstick: one
+    PyTorch call, used nowhere in the port) timed once for both. One record
+    a body (``name`` + ``_tc`` for the tensor cores). Bound: q, k, v, o, dO
+    read and dQ, dK, dV written once (the log-sum-exp too); 10·D FLOP a
+    unmasked pair (S, dP, dV, dQ, dK) over the bf16 tensor-core peak."""
     g = torch.Generator(device=q.device).manual_seed(SEED + 7)
     do = torch.randn(q.shape, generator=g, device=q.device).to(q.dtype)
     o, lse = k7._launch(q, k, v, True, k7.body_for(q, k, v), with_lse=True)
-    got = k7.flash_attention_backward(q, k, v, o, lse, do)
-    again = k7.flash_attention_backward(q, k, v, o, lse, do)
+    require(k7.backward_body_for(q, k, v, o, do) == k7.TENSOR_CORES,
+            f"{name}: bf16 q, k, v, o and dO take K7b's tensor-core body")
     want, plain = timed_once(lambda: k7.flash_attention_backward_plain(q, k, v, o, lse, do))
-    err, share = 0.0, 0.0
-    for part, a, b, w in zip("qkv", got, again, want):
-        require(torch.equal(a, b), f"{name} d{part}: two runs give equal bits")
-        e = max_err(a, w)
-        err, share = max(err, e), max(share, e / max(float(w.float().abs().max()), 1e-12))
-    tol = K7B_TOL[q.dtype]
-    require(share <= tol, f"{name} {tuple(q.shape)} by {tuple(k.shape)} {q.dtype}: "
-            f"max_abs_err {err}, {share:.3e} of max|grad|, within {tol}")
-    del got, again, want
-    ms = cuda_ms(lambda: k7.flash_attention_backward(q, k, v, o, lse, do), reps)
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     out = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=True,
                                                            enable_gqa=True)
@@ -2353,26 +2364,55 @@ def k7b_record(name: str, q, k, v, reps: int) -> dict:
     hkv = k.shape[1]
     nbytes = q.element_size() * d * s * b * (4 * hq + 4 * hkv) + 4 * b * hq * s
     flops = 10 * d * b * hq * s * (s + 1) // 2
-    print(f"{name}: K7b {ms:.3f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain {plain:.3f} ms, "
-          f"SDPA backward {lib:.3f} ms ({flops / lib / 1e9:.2f} TFLOP/s)")
-    return kernel_record(name, "src/repro_torch/csrc/flash_attention_bwd.cu",
-                         "src/repro/kernels/ops.py:316", err, ms, plain, nbytes, flops,
-                         peak=BF16_OPS_PER_S, library_ms=lib)
+    tol = K7B_TOL[q.dtype]
+    records = []
+    for body, (suffix, source) in K7B_BODIES.items():
+        label = name + suffix
+        got = k7._launch_backward(q, k, v, o, lse, do, True, body)
+        again = k7._launch_backward(q, k, v, o, lse, do, True, body)
+        err, share = 0.0, 0.0
+        for part, a, bb, w in zip("qkv", got, again, want):
+            require(torch.equal(a, bb), f"{label} d{part}: two runs give equal bits")
+            e = max_err(a, w)
+            err, share = max(err, e), max(share, e / max(float(w.float().abs().max()), 1e-12))
+        require(share <= tol, f"{label} ({body}) {tuple(q.shape)} by {tuple(k.shape)} "
+                f"{q.dtype}: max_abs_err {err}, {share:.3e} of max|grad|, within {tol}")
+        del got, again
+        ms = cuda_ms(lambda: k7._launch_backward(q, k, v, o, lse, do, True, body),
+                     reps if body == k7.TENSOR_CORES else max(1, reps // 3))
+        print(f"{label}: K7b's {body} body {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), "
+              f"plain {plain:.3f} ms, SDPA backward {lib:.4f} ms "
+              f"({flops / lib / 1e9:.2f} TFLOP/s)")
+        records.append(kernel_record(label, source, "src/repro/kernels/ops.py:316", err, ms,
+                                     plain, nbytes, flops, peak=BF16_OPS_PER_S,
+                                     library_ms=lib))
+    return records
 
 
-def grads_against_float32(model) -> None:
+def grads_against_float32(model) -> int:
     """The model's bf16 gradients at one ``GRAD_SEQ``-token sequence
     against the same weights' gradients in float32 compute (K7's and K7b's
     CUDA-core bodies, float32 products): the cosine of every parameter's
-    pair at least ``GRAD_COS``."""
+    pair at least ``GRAD_COS``. The counters are zeroed before each pass
+    and read after: K7b once a layer, on the tensor-core body in bf16 and
+    on the CUDA-core body in float32. Returns the float32 pass's K7b
+    launches (all on the CUDA-core body)."""
     cfg = model.cfg
     params = dict(model.named_parameters())
     batch = train_batches(cfg, 1, GRAD_SEQ, model.device)(0)
-    grads = []
+    grads, bodies = [], []
     for dtype in (cfg.compute_dtype, torch.float32):
+        reset_launches()
         with compute_dtype(model, dtype):
             loss, _ = loss_fn(model, batch)
             grads.append((float(loss.detach()), torch.autograd.grad(loss, list(params.values()))))
+        counts = launches()
+        bodies.append({k: counts[k] for k in ("flash_attention_bwd", "flash_attention_bwd_tc")})
+    layers = cfg.n_layers
+    require(bodies == [{"flash_attention_bwd": layers, "flash_attention_bwd_tc": layers},
+                       {"flash_attention_bwd": layers, "flash_attention_bwd_tc": 0}],
+            f"train: K7b once a layer, on the tensor-core body in {cfg.compute_dtype} and on "
+            f"the CUDA-core body in float32 compute: {bodies}")
     (l16, g16), (l32, g32) = grads
     cos = sorted((float((a.float() * b).sum() / (a.float().norm() * b.norm() + 1e-30)), n)
                  for n, a, b in zip(params, g16, g32))
@@ -2381,13 +2421,15 @@ def grads_against_float32(model) -> None:
           f"{cos[len(cos) // 2][0]:.6f}")
     require(cos[0][0] >= GRAD_COS, f"train: every parameter's bf16 gradient within cosine "
             f"{GRAD_COS} of its float32-compute one (lowest {cos[0][0]:.6f}, {cos[0][1]})")
+    return bodies[1]["flash_attention_bwd"]
 
 
 def train_full(cuda) -> tuple:
     """phi3-mini-3.8b at full width and depth: ``TRAIN_STEPS`` steps of
     ``build_step`` with the counters zeroed before them and read after,
     then one step under the profiler and K7b at layer 0's tensors.
-    Returns (K7b's record, the steps' launches)."""
+    Returns (K7b's records, the steps' launches, the float32-compute
+    gradient pass's K7b launches)."""
     from repro_torch.launch import train
     from repro_torch.models.attention import _project_qkv
     from repro_torch.optim import adamw, schedules
@@ -2396,7 +2438,7 @@ def train_full(cuda) -> tuple:
     model = init_model(cfg, cuda, "train")
     batches = train_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, cuda)
     state = train.init_state(model)
-    grads_against_float32(model)
+    f32_launches = grads_against_float32(model)
     held = batches(TRAIN_SCHEDULE)
     with torch.no_grad():
         held_before = float(loss_fn(model, held)[0])
@@ -2420,7 +2462,8 @@ def train_full(cuda) -> tuple:
         dt = time.perf_counter() - t0
         after = launches()
         per_step.append({k: after[k] - before[k] for k in
-                         ("flash_attention", "flash_attention_tc", "flash_attention_bwd")})
+                         ("flash_attention", "flash_attention_tc", "flash_attention_bwd",
+                          "flash_attention_bwd_tc")})
         row = {k: float(v) for k, v in m.items()}
         rows.append(row)
         print(f"train step {i}: loss {row['loss']:.4f}, grad_norm {row['grad_norm']:.4f}, lr "
@@ -2442,9 +2485,10 @@ def train_full(cuda) -> tuple:
     require(held_after < held_before, f"train: a held-out batch's loss {held_before} -> "
             f"{held_after}, lower after the steps")
     want = {"flash_attention": 2 * cfg.n_layers, "flash_attention_tc": 2 * cfg.n_layers,
-            "flash_attention_bwd": cfg.n_layers}
-    require(all(c == want for c in per_step), f"train: each step launched {want} "
-            f"(K7 forward and recompute on the tensor-core body, K7b once a layer): {per_step}")
+            "flash_attention_bwd": cfg.n_layers, "flash_attention_bwd_tc": cfg.n_layers}
+    require(all(c == want for c in per_step), f"train: each step launched {want} (K7 "
+            f"forward and recompute, K7b once a layer, all on the tensor-core bodies): "
+            f"{per_step}")
     require(peak < 75.0, f"train: peak device memory {peak:.3f} GiB under 75")
 
     # where the time goes: one more step under the profiler, the gradients
@@ -2458,7 +2502,8 @@ def train_full(cuda) -> tuple:
         loss, _ = loss_fn(model, batch)
         return dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
 
-    groups = {**LM_GROUPS, "flash_attention_bwd (K7b)": ("dq_kernel", "dkv_kernel")}
+    groups = {**LM_GROUPS, "flash_attention_bwd (K7b)": (
+        "delta_tc_kernel", "dq_tc_kernel", "dkv_tc_kernel", "dq_kernel", "dkv_kernel")}
     g, host_ms, by = device_profile(grads, groups, cpu=False)
     describe_profile("train step: loss and gradients", host_ms, by)
     _, host_ms, by = device_profile(lambda: adamw.apply(opt_cfg, g, opt_state, params),
@@ -2476,8 +2521,8 @@ def train_full(cuda) -> tuple:
     del model, state, params, opt_state, h, step, grads
     gc.collect()
     torch.cuda.empty_cache()
-    record = k7b_record("flash_attention_bwd", q, k, v, reps=3)
-    return record, counts
+    records = k7b_records("flash_attention_bwd", q, k, v, reps=6)
+    return records, counts, f32_launches
 
 
 def train_reduced(cuda) -> None:
@@ -2626,14 +2671,18 @@ def train_witness(cuda) -> None:
 
 def phase_train(cuda) -> list:
     """The training path's parts, each freeing the card before the next.
-    Returns K7b's records (phi3's layer, qwen3-14b's served shape) with the
-    full run's launches."""
+    Returns K7b's records (each body at phi3's layer and at qwen3-14b's
+    served shape) with their launches: the tensor-core body's from the full
+    run's steps, the CUDA-core body's from its float32-compute gradient
+    pass."""
     t_all = time.perf_counter()
     seconds = {}
     t0 = time.perf_counter()
-    record, counts = train_full(cuda)
-    record["launches"] = counts["flash_attention_bwd"]
-    require(record["launches"] > 0, "flash_attention_bwd launched on the train path")
+    records, counts, f32_launches = train_full(cuda)
+    body_launches = {"_tc": counts["flash_attention_bwd_tc"], "": f32_launches}
+    for rec in records:
+        rec["launches"] = body_launches["_tc" if rec["name"].endswith("_tc") else ""]
+        require(rec["launches"] > 0, f"{rec['name']} launched on the train path")
     seconds["full"] = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
@@ -2644,8 +2693,9 @@ def phase_train(cuda) -> list:
     q, k, v = (heads_major(torch.randn((1, s, hh, qw.hd), generator=g, device=cuda)
                            .to(torch.bfloat16)) for hh in (qw.n_heads, qw.n_kv_heads,
                                                            qw.n_kv_heads))
-    served = k7b_record("flash_attention_bwd_served", q, k, v, reps=5)
-    served["launches"] = record["launches"]
+    served = k7b_records("flash_attention_bwd_served", q, k, v, reps=9)
+    for rec in served:
+        rec["launches"] = body_launches["_tc" if rec["name"].endswith("_tc") else ""]
     del q, k, v
     torch.cuda.empty_cache()
     seconds["k7b"] = time.perf_counter() - t0
@@ -2661,7 +2711,7 @@ def phase_train(cuda) -> list:
     torch.cuda.empty_cache()
     print("train phases' seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
           + f"; {time.perf_counter() - t_all:.2f} in all")
-    return [record, served]
+    return records + served
 
 
 def phase_scan(cuda) -> dict:

@@ -24,7 +24,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = ("sdp_pipeline", "mcm_pipeline", "grid_pipeline", "sdp_chunked",
            "mcm_tiled", "semiring_matmul", "flash_attention", "flash_attention_tc",
-           "flash_attention_bwd", "chunked_scan")
+           "flash_attention_bwd", "flash_attention_bwd_tc", "chunked_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "--fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

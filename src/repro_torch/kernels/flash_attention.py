@@ -32,8 +32,19 @@ rule on dtype, head dim and alignment, never by trying:
 Training (K7b). :func:`flash_attention` called with grad enabled on an
 input that needs one goes through :class:`FlashAttention`: its forward is
 the same launch asked also for the row log-sum-exp, and its backward is
-``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_backward`), with
-:func:`flash_attention_backward_plain` for CPU tensors. The log-sum-exp
+K7b (:func:`flash_attention_backward`), with
+:func:`flash_attention_backward_plain` for CPU tensors. K7b has two bodies
+too, picked by :func:`backward_body_for`, a rule of the same kind:
+
+  * ``csrc/flash_attention_bwd_tc.cu`` (:data:`TENSOR_CORES`): bfloat16
+    q, k, v, o and dO with ``D % 8 == 0``, ``D <= 128`` and every pointer
+    and (B, H, S) stride a multiple of 16 bytes — a Δ pass, then a dQ and
+    a dK/dV kernel whose five products are bf16 ``wgmma`` fed by TMA;
+  * ``csrc/flash_attention_bwd.cu`` (:data:`CUDA_CORES`): everything else
+    (float32, head dims past 128 or off the multiple of 8, unaligned
+    views), in float32 FMAs.
+
+The log-sum-exp
 contract, kept by both bodies and the plain version: a float32
 ``(B, Hq, Sq)`` tensor, ``lse[b, h, i] = log sum_j exp(q_i . k_j / sqrt(D))``
 in natural log over the keys row i sees (float64 from the plain version
@@ -50,18 +61,26 @@ import torch
 from repro_torch.kernels import _build
 
 #: kernel launches per wrapper (incremented only where a kernel launches):
-#: every K7 launch, and those of them that ran the tensor-core body
-LAUNCHES = {"flash_attention": 0, "flash_attention_tc": 0, "flash_attention_bwd": 0}
-#: (the backward K7b counts its calls under "flash_attention_bwd")
-#: the two CUDA bodies, as :func:`body_for` names them
+#: every K7 launch, and those of them that ran the tensor-core body; every
+#: K7b call, and those of them that ran its tensor-core body
+LAUNCHES = {"flash_attention": 0, "flash_attention_tc": 0, "flash_attention_bwd": 0,
+            "flash_attention_bwd_tc": 0}
+#: the two CUDA bodies, as :func:`body_for` and :func:`backward_body_for`
+#: name them
 TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
 #: KV chunk of the plain version (the reference's default)
 PLAIN_CHUNK = 512
 #: widest head the kernel takes (its tiles fill the shared memory there)
 MAX_HEAD_DIM = 256
 #: widest head the backward takes (its four float32 tiles and the score
-#: tile fill the 227 KB of shared memory there); every config's is <= 128
+#: tile fill the 227 KB of shared memory there); every config's is <= 160
 MAX_BWD_HEAD_DIM = 192
+#: widest head the backward's tensor-core body takes: a dK/dV consumer
+#: keeps two 64 x 128 float32 accumulators and the 64 x 64 scores in its
+#: registers (234 of 255 at 128; stablelm-12b's 160 stays on the CUDA cores)
+MAX_BWD_TC_HEAD_DIM = 128
+#: the backward's tensor-core scratch rows (lse and Δ) pad Sq to this
+BWD_ROW_PAD = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -165,20 +184,36 @@ def flash_attention_backward_plain(q, k, v, o, lse, do, causal: bool = True,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _tma_ready(tensors, max_d: int) -> bool:
+    """bfloat16 (B, H, S, D) tensors that the tensor-core bodies' TMA maps
+    address: ``D % 8 == 0``, ``D <= max_d``, a unit-stride head dim, every
+    data pointer and every stride of the B, H and S dims a multiple of 16
+    bytes."""
+    d = tensors[0].shape[-1]
+    return (d % 8 == 0 and d <= max_d
+            and all(t.dtype == torch.bfloat16 and t.stride(3) == 1
+                    and t.data_ptr() % 16 == 0
+                    and all(t.stride(i) * t.element_size() % 16 == 0 for i in range(3))
+                    for t in tensors))
+
+
 def body_for(q, k, v) -> str:
     """The CUDA body that K7 launches for (B, H, S, D) inputs q, k, v that
     its checks accept: :data:`TENSOR_CORES` for bfloat16 with ``D % 8 ==
     0`` and every data pointer and every stride of the B, H and S dims a
     multiple of 16 bytes (TMA's alignment); :data:`CUDA_CORES` otherwise.
     Pure: reads dtypes, shapes, strides and pointers only, on any device."""
-    tensors = (q, k, v)
-    aligned = all(t.data_ptr() % 16 == 0
-                  and all(t.stride(i) * t.element_size() % 16 == 0 for i in range(3))
-                  for t in tensors)
-    if (all(t.dtype == torch.bfloat16 for t in tensors) and q.shape[-1] % 8 == 0
-            and q.shape[-1] <= MAX_HEAD_DIM and aligned):
-        return TENSOR_CORES
-    return CUDA_CORES
+    return TENSOR_CORES if _tma_ready((q, k, v), MAX_HEAD_DIM) else CUDA_CORES
+
+
+def backward_body_for(q, k, v, o, do) -> str:
+    """The CUDA body that K7b launches for q, k, v, the forward's o and the
+    output's gradient do: :data:`TENSOR_CORES` where all five are bfloat16
+    that TMA can address (as :func:`body_for`) with ``D <=``
+    :data:`MAX_BWD_TC_HEAD_DIM`; :data:`CUDA_CORES` otherwise. Pure, like
+    :func:`body_for`."""
+    return (TENSOR_CORES if _tma_ready((q, k, v, o, do), MAX_BWD_TC_HEAD_DIM)
+            else CUDA_CORES)
 
 
 def _check_qkv(name: str, q, k, v, max_d: int) -> None:
@@ -246,11 +281,12 @@ def _launch(q, k, v, causal: bool, body: str, with_lse: bool = False):
     return (o, lse) if with_lse else o
 
 
-def _launch_backward(q, k, v, o, lse, do, causal: bool):
-    """Launch K7b (``csrc/flash_attention_bwd.cu``: a dQ pass, then a dK/dV
-    pass) on CUDA tensors after the checks. ``do`` is read through its
-    strides; only a head dim without unit stride is copied (contiguous)
-    first."""
+def _launch_backward(q, k, v, o, lse, do, causal: bool, body: str | None = None):
+    """Launch K7b's ``body`` (:data:`TENSOR_CORES`: a Δ pass, a dQ and a
+    dK/dV kernel; :data:`CUDA_CORES`: a dQ pass, then a dK/dV pass; None:
+    :func:`backward_body_for`'s choice) on CUDA tensors after the checks.
+    ``do`` is read through its strides; only a head dim without unit stride
+    is copied (contiguous) first."""
     name = "flash_attention_bwd"
     _check_qkv(name, q, k, v, MAX_BWD_HEAD_DIM)
     b, hq, sq, d = q.shape
@@ -264,6 +300,8 @@ def _launch_backward(q, k, v, o, lse, do, causal: bool):
         raise ValueError(f"{name}: lse must be a contiguous float32 (B, Hq, Sq) tensor")
     if any(t.device != q.device for t in (o, lse, do)):
         raise ValueError(f"{name}: every input must lie on q's device")
+    if body is None:
+        body = backward_body_for(q, k, v, o, do)
     if do.stride(3) != 1:
         do = do.contiguous()
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -271,8 +309,12 @@ def _launch_backward(q, k, v, o, lse, do, causal: bool):
     dv = torch.empty((b, hkv, sk, d), dtype=v.dtype, device=v.device)
     if b * hq * sq * d == 0:
         return dq, dk.zero_(), dv.zero_()
-    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    fn = _build.load(name).flash_attention_bwd_launch
+    lib = "flash_attention_bwd_tc" if body == TENSOR_CORES else name
+    # Δ (b, hq, sq), or the tensor-core body's rows of lse·log2(e) and Δ
+    rows = ((2, b, hq, -(-sq // BWD_ROW_PAD) * BWD_ROW_PAD) if body == TENSOR_CORES
+            else (b, hq, sq))
+    delta = torch.empty(rows, dtype=torch.float32, device=q.device)
+    fn = getattr(_build.load(lib), f"{lib}_launch")   # one C interface for both
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_int,
                       ctypes.c_void_p])
@@ -284,14 +326,16 @@ def _launch_backward(q, k, v, o, lse, do, causal: bool):
                 ctypes.cast(_strides(q, k, v, o, do), ctypes.c_void_p),
                 math.log2(math.e) / math.sqrt(d), 1.0 / math.sqrt(d), int(causal),
                 torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(rc, name)
+    _build.check(rc, lib)
     LAUNCHES[name] += 1
+    if lib != name:
+        LAUNCHES[lib] += 1
     return dq, dk, dv
 
 
 def flash_attention_backward(q, k, v, o, lse, do, causal: bool = True):
-    """(dq, dk, dv) of K7 at q, k, v: K7b for CUDA tensors, the plain
-    version for CPU ones."""
+    """(dq, dk, dv) of K7 at q, k, v: K7b for CUDA tensors (the body
+    :func:`backward_body_for` picks), the plain version for CPU ones."""
     if q.is_cuda:
         return _launch_backward(q, k, v, o, lse, do, causal)
     return flash_attention_backward_plain(q, k, v, o, lse, do, causal=causal)

@@ -1272,25 +1272,40 @@ def _heads_major(b, s, h, d, dtype, g, cuda):
     return torch.randn((b, s, h, d), generator=g, device=cuda).to(dtype).transpose(1, 2)
 
 
-@pytest.mark.parametrize("d", [16, 64, 96, 128])
-@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (6, 1)])
-@pytest.mark.parametrize("sq,sk,causal", [(1, 1, True), (65, 65, True), (129, 129, True),
-                                          (333, 333, True), (37, 200, True), (70, 70, False)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_backward_kernel_matches_plain(cuda, d, hq, hkv, sq, sk, causal, dtype):
-    """K7b (one launch of the wrapper, two kernels) against the plain
-    backward on the same (o, lse) from K7's forward: GQA, ragged S, the
-    mask aligned at the end, q, k, v as the model's heads-major views and
-    dO transposed; two runs give equal bits (no atomics)."""
+#: K7b's cases on the card: every head dim, GQA group and ragged S, and
+#: qwen3-14b's served prompt (40 query heads over 8 kv heads, hd 128)
+K7B_CASES = [(d, hq, hkv, sq, sk, causal) for d in (16, 64, 96, 128)
+             for hq, hkv in ((4, 4), (8, 2), (6, 1))
+             for sq, sk, causal in ((1, 1, True), (65, 65, True), (129, 129, True),
+                                    (333, 333, True), (37, 200, True), (70, 70, False))]
+K7B_CASES.append((128, 40, 8, 1746, 1746, True))
+
+
+@pytest.mark.parametrize("d,hq,hkv,sq,sk,causal", K7B_CASES)
+@pytest.mark.parametrize("dtype,body", [(torch.float32, k7.CUDA_CORES),
+                                        (torch.bfloat16, k7.CUDA_CORES),
+                                        (torch.bfloat16, k7.TENSOR_CORES)])
+def test_flash_attention_backward_kernel_matches_plain(cuda, d, hq, hkv, sq, sk, causal, dtype,
+                                                       body):
+    """K7b's ``body`` (one launch of the wrapper: two kernels on the CUDA
+    cores, three on the tensor cores) against the plain backward on the
+    same (o, lse) from K7's forward: GQA, ragged S, the mask aligned at the
+    end, q, k, v as the model's heads-major views and dO transposed; two
+    runs give equal bits (no atomics). The rule picks the tensor-core body
+    for every bf16 case here, and only that body moves its counter."""
     g = torch.Generator(device=cuda).manual_seed(d * sq + hq + sk)
     q = _heads_major(2, sq, hq, d, dtype, g, cuda)
     k, v = (_heads_major(2, sk, hkv, d, dtype, g, cuda) for _ in range(2))
     do = _heads_major(2, sq, hq, d, dtype, g, cuda)
     o, lse = k7._launch(q, k, v, causal, k7.body_for(q, k, v), with_lse=True)
-    before = k7.LAUNCHES["flash_attention_bwd"]
-    got = k7.flash_attention_backward(q, k, v, o, lse, do, causal)
-    assert k7.LAUNCHES["flash_attention_bwd"] == before + 1
-    again = k7.flash_attention_backward(q, k, v, o, lse, do, causal)
+    want_body = k7.TENSOR_CORES if dtype == torch.bfloat16 else k7.CUDA_CORES
+    assert k7.backward_body_for(q, k, v, o, do) == want_body
+    before = dict(k7.LAUNCHES)
+    got = k7._launch_backward(q, k, v, o, lse, do, causal, body)
+    assert k7.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    assert (k7.LAUNCHES["flash_attention_bwd_tc"] - before["flash_attention_bwd_tc"]
+            == (body == k7.TENSOR_CORES))
+    again = k7._launch_backward(q, k, v, o, lse, do, causal, body)
     want = k7.flash_attention_backward_plain(q, k, v, o, lse, do, causal)
     for name, a, b, w in zip("qkv", got, again, want):
         assert a.dtype == dtype and a.shape == w.shape and torch.equal(a, b), name
@@ -1374,3 +1389,28 @@ def test_reduced_train_steps_on_the_card_match_cpu(cuda, arch):
                         - before["flash_attention_bwd"]) == n_attn
         losses.append(out)
     np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
+
+
+def test_reduced_bf16_train_step_runs_k7b_on_the_tensor_cores(cuda):
+    """A reduced qwen3-14b step in bf16 compute on the card: every
+    attention layer's K7b call goes through the tensor-core body (its
+    counter moves by the attention layers, as the total does), and the
+    loss and every gradient are finite."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.models.model import CausalLM, loss_fn
+
+    cfg = dataclasses.replace(get_config("qwen3-14b").reduced(), compute_dtype=torch.bfloat16)
+    model = CausalLM.from_seed(cfg, seed=0, device=cuda)
+    params = [p.requires_grad_() for p in model.parameters()]
+    batch = to_device(SyntheticLM(cfg.vocab_size, 64, 2, seed=1).batch(0), cuda)
+    n_attn = sum(cfg.mixer_of(i) == "attn" for i in range(cfg.n_layers))
+    before = dict(k7.LAUNCHES)
+    loss, _ = loss_fn(model, batch)
+    grads = torch.autograd.grad(loss, params)
+    torch.cuda.synchronize()
+    assert k7.LAUNCHES["flash_attention_bwd"] - before["flash_attention_bwd"] == n_attn
+    assert k7.LAUNCHES["flash_attention_bwd_tc"] - before["flash_attention_bwd_tc"] == n_attn
+    assert torch.isfinite(loss.detach()) and all(torch.isfinite(g).all() for g in grads)

@@ -14,7 +14,9 @@ the reference's ``d*h + x`` into one fused multiply-add: it equals the
 jitted reference and the interpreted Pallas kernel bit for bit.
 
 K7's body rule (:func:`flash_attention.body_for`), which picks the CUDA
-body for a card's tensors, is pure and is checked here on CPU tensors.
+body for a card's tensors, is pure and is checked here on CPU tensors; so
+is K7b's (:func:`flash_attention.backward_body_for`), which reads q, k, v,
+the forward's o and the output's gradient dO.
 """
 import numpy as np
 import pytest
@@ -165,6 +167,67 @@ def test_k7_body_rule_unaligned_bf16_takes_cuda_cores(breaks):
         k = v = torch.zeros((1, 4, 9, 68), dtype=torch.bfloat16)[..., :d]
     assert k7.body_for(aligned, aligned, aligned) == k7.TENSOR_CORES
     assert k7.body_for(q, k, v) == k7.CUDA_CORES
+
+
+def _backward_inputs(d: int, dtype, view: str) -> list:
+    """q, k, v, o and dO for K7b's rule: q, k, v and o contiguous or the
+    model's heads-major views of (B, S, H, D); dO always the transposed
+    view autograd hands the backward."""
+    def make(h):
+        if view == "contiguous":
+            return torch.zeros((2, h, 5, d), dtype=dtype)
+        return torch.zeros((2, 5, h, d), dtype=dtype).transpose(1, 2)
+
+    return [make(6), make(2), make(2), make(6),
+            torch.zeros((2, 5, 6, d), dtype=dtype).transpose(1, 2)]
+
+
+@pytest.mark.parametrize("d", [8, 64, 96, 128])
+@pytest.mark.parametrize("view", ["contiguous", "heads_major"])
+def test_k7b_body_rule_takes_tensor_cores(d, view):
+    """bfloat16 q, k, v, o and dO with D % 8 == 0, D <= 128 and 16-byte
+    aligned pointers and strides take K7b's tensor-core body."""
+    assert k7.backward_body_for(*_backward_inputs(d, torch.bfloat16, view)) == k7.TENSOR_CORES
+
+
+@pytest.mark.parametrize("d,dtype", [(64, torch.float32), (96, torch.float32),
+                                     (128, torch.float32), (100, torch.bfloat16),
+                                     (36, torch.bfloat16), (136, torch.bfloat16),
+                                     (160, torch.bfloat16), (192, torch.bfloat16)])
+@pytest.mark.parametrize("view", ["contiguous", "heads_major"])
+def test_k7b_body_rule_takes_cuda_cores(d, dtype, view):
+    """float32, a head dim off the multiple of 8, and one past
+    ``MAX_BWD_TC_HEAD_DIM`` (stablelm-12b's 160 among them) take K7b's
+    CUDA-core body."""
+    assert k7.MAX_BWD_TC_HEAD_DIM == 128
+    assert k7.backward_body_for(*_backward_inputs(d, dtype, view)) == k7.CUDA_CORES
+
+
+def _unaligned_like(t, breaks: str):
+    """A bfloat16 tensor of ``t``'s (B, H, S, D) shape whose data pointer or
+    B, H or S stride is not a multiple of 16 bytes (TMA refuses it)."""
+    b, h, s, d = t.shape
+    if breaks == "pointer":       # offset by one element: 2 bytes
+        return torch.zeros(t.numel() + 1, dtype=torch.bfloat16)[1:].view(b, h, s, d)
+    if breaks == "s_stride":      # rows of d + 4 elements
+        return torch.zeros((b, h, s, d + 4), dtype=torch.bfloat16)[..., :d]
+    if breaks == "h_stride":      # heads d + 4 elements apart
+        return torch.zeros((b, s, h, d + 4), dtype=torch.bfloat16)[..., :d].transpose(1, 2)
+    # batch entries h * s * d + 4 elements apart
+    return torch.zeros((b, h * s * d + 4), dtype=torch.bfloat16)[:, :h * s * d].view(b, h, s, d)
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v", "o", "do"])
+@pytest.mark.parametrize("breaks", ["pointer", "s_stride", "h_stride", "b_stride"])
+def test_k7b_body_rule_unaligned_bf16_takes_cuda_cores(which, breaks):
+    """One bfloat16 input of the five that TMA cannot address (a pointer or
+    a B, H or S stride not a multiple of 16 bytes) sends K7b to the
+    CUDA-core body; the other four aligned."""
+    inputs = _backward_inputs(64, torch.bfloat16, "heads_major")
+    assert k7.backward_body_for(*inputs) == k7.TENSOR_CORES
+    i = ["q", "k", "v", "o", "do"].index(which)
+    inputs[i] = _unaligned_like(inputs[i], breaks)
+    assert k7.backward_body_for(*inputs) == k7.CUDA_CORES
 
 
 # ---------------------------------------------------------------------------
