@@ -4,6 +4,7 @@
     python3 chip_smoke.py --dp-shapes     # K1-K6 and K8 alone at their paths' shapes
     python3 chip_smoke.py --dp-shapes --sweep   # and K5 / K8 under forced plans
     python3 chip_smoke.py --service       # the service path alone
+    python3 chip_smoke.py --sharded       # the sharded path alone
     python3 chip_smoke.py --families      # the MoE and SSM families alone
     python3 chip_smoke.py --train         # the training path alone
     python3 chip_smoke.py --train-witness # phi3's 6 steps on a 6-step schedule,
@@ -140,6 +141,29 @@ recurrence, as their plain versions take a step a cell); and the batched
 walks on the card against the host walks (the grid path's gotoh 4096²
 walk too, after that path's launches are counted);
 
+then the sharded path, over a mesh of four slots of the one card (each
+slot its own CUDA stream):
+
+  * K4 fused, K6 antidiag and K6 spandiag — cooperative grids sized to the
+    whole card — launched on the four streams at once under a deadline,
+    their spans showing whether the grids overlapped;
+  * ``ShardedDPEngine`` on ragged buckets of 6 (2 pad lanes): MCM 512 (K4,
+    fused under reconstruct), MCM 256 (K2), sdp 2^20 (K1) and
+    needleman_wunsch 1024^2 (K6 antidiag), with and without reconstruct,
+    each drain bit-equal to the single engine's on the card with the route
+    forced the same, the first drain also to the route's plain twin (its
+    kernels' plain versions on the card), four launches a drain, the drain
+    times and one sharded drain's device idle share under the profiler;
+  * ``DPService(mesh=...)`` on 64 of the service path's requests, answers
+    equal to the single-engine service's;
+  * ``compressed_psum`` over the four slots, each shard made late on its
+    slot's stream, bit-equal to the CPU port's,
+    ``best_mesh`` and ``reshard`` after a simulated loss;
+  * ``pipeline_apply`` over four stage slots: qwen3-14b's blocks at full
+    width cut to 8 layers (weights from seed 0, stages from
+    ``stage_boundaries``), float32 compute, 6 microbatches of 1 x 1746
+    tokens, against the blocks in sequence; K7 launched 48 times;
+
 and last the gated linear scan K8 through ``ops.linear_scan`` at
 T = 32768, D = 2048, bit-equal to its plain version.
 
@@ -212,6 +236,9 @@ from repro_torch.models import moe, ssm  # noqa: E402
 from repro_torch.models.attention import _project_qkv, attn_forward  # noqa: E402
 from repro_torch.models.layers import rmsnorm, silu  # noqa: E402
 from repro_torch.models.model import CausalLM, loss_fn  # noqa: E402
+from repro_torch.optim import grad_compress  # noqa: E402
+from repro_torch.runtime import elastic, pipeline_parallel  # noqa: E402
+from repro_torch.runtime import sharding as rt_sharding  # noqa: E402
 from repro_torch.serving import Engine, Request, Scheduler  # noqa: E402
 
 SEED = 0
@@ -714,12 +741,13 @@ def phase_streaming_kernels(cuda, sdp: dict) -> list:
 
 
 @contextlib.contextmanager
-def launch_times():
+def launch_times(spans: list = None):
     """{launch counter: [device ms of each launch]} of the DP kernels (K1,
     K2, K3, K4, K5, K6) launched inside: CUDA events recorded around each
     wrapper's ``_launch``, in stream order, so a pair brackets one launch
     (with its wrapper's small copies and any host gap), read after a
-    synchronise; the counter that moved names the launch."""
+    synchronise; the counter that moved names the launch. ``spans``, where
+    given, receives each launch's ``(counter, start event, end event)``."""
     pairs, times = [], {}
 
     def timed(mod, launch):
@@ -743,6 +771,8 @@ def launch_times():
         torch.cuda.synchronize()
     for key, start, end in pairs:
         times.setdefault(key, []).append(start.elapsed_time(end))
+    if spans is not None:
+        spans += pairs
 
 
 def print_launch_times(path: str, times: dict) -> None:
@@ -3369,6 +3399,431 @@ def phase_service(cuda) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# The sharded path: a mesh of SHARD_SLOTS slots on the one card
+# ---------------------------------------------------------------------------
+#: slots of the mesh (all on cuda:0, each its own stream), the ragged
+#: bucket (2 pad lanes over 4 slots), the deadline that turns a hang of the
+#: slots' launches into a failure, the phase's time limit
+SHARD_SLOTS, SHARD_BUCKET, SHARD_DEADLINE_S, SHARD_LIMIT_S = 4, 6, 30.0, 180.0
+#: (label, problem, size, route, launch counters): the sharded buckets
+SHARD_BUCKETS = (
+    ("MCM 512 (K4)", "mcm", MCM_BATCH_N, "kernel_tiled_wavefront", k4.LAUNCHES),
+    ("MCM 256 (K2)", "mcm", MCM_SMALL_N, "kernel_wavefront", k2.LAUNCHES),
+    ("sdp 2^20 (K1)", "sdp", SDP_N, "kernel_blocked", k1.LAUNCHES),
+    ("needleman_wunsch 1024^2 (K6 antidiag)", "needleman_wunsch", ALIGN_BATCH_N,
+     "kernel_grid", k6.LAUNCHES),
+)
+#: the service's traffic through the sharded and the single engine
+SHARD_SERVICE_REQUESTS = 64
+#: pipeline_apply: qwen3-14b at full width cut to PIPE_DEPTH layers, in
+#: PIPE_STAGES stages, over PIPE_MICRO microbatches of 1 x PIPE_S tokens
+PIPE_DEPTH, PIPE_STAGES, PIPE_MICRO, PIPE_S = 8, 4, 6, 1746
+
+
+def shard_instances(rng, name: str, n: int) -> list:
+    if name == "mcm":
+        return [{"dims": mcm_dims(rng, n)} for _ in range(SHARD_BUCKET)]
+    if name == "sdp":
+        return [sdp_instance(rng) for _ in range(SHARD_BUCKET)]
+    return [{"x": rng.integers(0, 4, n), "y": rng.integers(0, 4, n)}
+            for _ in range(SHARD_BUCKET)]
+
+
+def wait_slots(label: str, ends: list) -> None:
+    """Poll the events until all have completed; raise past the deadline
+    (a hang of the slots' launches fails the run instead of eating its
+    time limit)."""
+    t0 = time.perf_counter()
+    while not all(e.query() for e in ends):
+        if time.perf_counter() - t0 > SHARD_DEADLINE_S:
+            raise RuntimeError(f"{label}: the slots' launches did not finish in "
+                               f"{SHARD_DEADLINE_S} s")
+        time.sleep(0.0005)
+
+
+def cooperative_probe(ctx, label: str, specs: list, launch) -> None:
+    """``launch(slot's stacked inputs)`` (a cooperative kernel's wrapper):
+    once alone on slot 0 (after a warm-up), then once a slot with every
+    slot's stream released by one event, waited for under the deadline.
+    The slots' end times against the lone launch's time say whether the
+    grids ran at the same time or one after the other."""
+    placed = [dp.backends._stack(list(slot), None, ctx)
+              for slot in zip(*(s.device_arrays() if isinstance(s, dp.GridSpec)
+                                else (s.weights,) for s in specs))]
+    torch.cuda.synchronize()
+    with ctx.slots[0].scope():
+        launch(*(p[0] for p in placed))
+        _, alone = timed_once(lambda: launch(*(p[0] for p in placed)))
+    go = torch.cuda.Event(enable_timing=True)
+    go.record()
+    ends = []
+    for k, slot in enumerate(ctx.slots):
+        with slot.scope():
+            torch.cuda.current_stream().wait_event(go)
+            launch(*(p[k] for p in placed))
+            ends.append(torch.cuda.Event(enable_timing=True))
+            ends[-1].record()
+    wait_slots(label, ends)
+    at = sorted(go.elapsed_time(e) for e in ends)
+    serial = at[-1] > (len(at) - 0.5) * alone
+    print(f"cooperative {label}, batch {len(specs) // len(ends)} a slot: alone "
+          f"{alone:.3f} ms; on {len(ends)} streams of one card released together, "
+          f"done at {', '.join(f'{t:.3f}' for t in at)} ms: "
+          + ("one after the other" if serial else "at the same time"))
+
+
+def sharded_probes(ctx) -> None:
+    """K4 fused, K6 antidiag and K6 spandiag (cooperative grids sized to the
+    whole card) launched on the mesh's concurrent streams, under a deadline,
+    before any drain waits on them."""
+    rng = np.random.default_rng(SEED + 7)
+    mcm = [dp.get_problem("mcm").encode(**kw)
+           for kw in shard_instances(rng, "mcm", MCM_BATCH_N)[:2]] * SHARD_SLOTS
+    cooperative_probe(ctx, "K4 fused (mcm 512)", mcm,
+                      lambda w: ops.mcm_tiled_fused(w, MCM_BATCH_N))
+    for label, name, kw in (
+            ("K6 antidiag (needleman_wunsch 1024^2)", "needleman_wunsch",
+             shard_instances(rng, "needleman_wunsch", ALIGN_BATCH_N)[0]),
+            ("K6 spandiag (cky 32)", "cky", cky_instance(rng, 32, 32, 512, 1024))):
+        specs = [dp.get_problem(name).encode(**kw)] * SHARD_SLOTS
+        meta = specs[0].static_meta()
+        cooperative_probe(ctx, label, specs, lambda *arrs: ops.grid_blocked(arrs, meta))
+
+
+def same_responses(got: list, want: list) -> bool:
+    """Answers, tables, args and decoded solutions equal, bit for bit."""
+    if [r.rid for r in got] != [r.rid for r in want]:
+        return False
+    for g, w in zip(got, want):
+        if not np.array_equal(np.float32(g.answer), np.float32(w.answer)):
+            return False
+        if (g.solution is None) != (w.solution is None):
+            return False
+        if g.solution is not None and not (
+                np.array_equal(g.solution.table, w.solution.table)
+                and np.array_equal(g.solution.args, w.solution.args)
+                and g.solution.solution == w.solution.solution):
+            return False
+    return True
+
+
+def timed_step(engine, route: str) -> tuple:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine.step(backend=route)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def union_ms(spans) -> float:
+    """Length of the union of ``(start, end)`` intervals (overlapping
+    slots' work counted once)."""
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    return busy
+
+
+def profiled_drain(engine, route: str) -> tuple:
+    """One drain under ``torch.profiler`` with CUDA events around each DP
+    kernel launch: ``(responses, wall ms, profiler line, kernel line)``.
+    The profiler's device events (kernels and copies, union of their
+    intervals) give the device busy share; the launches' events give the
+    kernels' alone, as a check on what the profiler recorded."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    spans = []
+    torch.cuda.synchronize()
+    ref = torch.cuda.Event(enable_timing=True)
+    with launch_times(spans), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ref.record()
+        t0 = time.perf_counter()
+        got = engine.step(backend=route)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA]
+    busy = union_ms([(e.start_ns() / 1e6, (e.start_ns() + e.duration_ns()) / 1e6)
+                     for e in dev])
+    kernels = union_ms([(ref.elapsed_time(a), ref.elapsed_time(b)) for _, a, b in spans])
+    return (got, wall,
+            f"the profiler recorded {len(dev)} device events, busy {busy:.3f} ms of "
+            f"{wall:.3f}, idle share {1 - busy / wall:.4f}",
+            f"its {len(spans)} kernel launches by CUDA events busy {kernels:.3f} ms, "
+            f"kernel idle share {1 - kernels / wall:.4f}")
+
+
+def plain_twin_bucket(prob, route: str, specs: list, cuda) -> tuple:
+    """The bucket through :func:`plain_twin` of ``route`` on the card,
+    unsharded, with args (each kernel's plain version at the whole bucket;
+    the plain versions' tables are the same with args or without):
+    ``(answers, decoded solutions, ms)``."""
+    twin = plain_twin(route)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tables, args, source, paths = dp.routing.run_batch_with_args(twin, specs, cuda)
+    sols = dp.reconstruct.reconstruct_batch(prob, specs, tables, args, source, paths=paths)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return [prob.extract(t, s) for t, s in zip(tables, specs)], sols, ms
+
+
+def same_as_plain_twin(got: list, twin: tuple, recon: bool) -> bool:
+    """The sharded drain's answers, and with reconstruct its tables, args
+    and decoded paths, equal to :func:`plain_twin_bucket`'s bit for bit."""
+    answers, sols, _ = twin
+    got = sorted(got, key=lambda r: r.rid)          # submitted in the specs' order
+    equal = len(got) == len(answers)
+    for g, a, p in zip(got, answers, sols):
+        equal &= np.array_equal(np.float32(g.answer), np.float32(p.value if recon else a))
+        if recon:
+            equal &= (g.solution is not None and np.array_equal(g.solution.table, p.table)
+                      and np.array_equal(g.solution.args, p.args)
+                      and g.solution.solution == p.solution)
+    return equal
+
+
+def sharded_buckets(mesh, cuda) -> dict:
+    """Each of ``SHARD_BUCKETS`` as a ragged bucket of ``SHARD_BUCKET``
+    instances, with and without reconstruct, through the sharded engine and
+    the single engine on the card with the route forced the same: equal
+    responses, the counters, 4 launches a drain, the drain times, and one
+    sharded drain's device idle share under the profiler. The first
+    round's sharded drain (the kernel at ``SHARD_BUCKET / SHARD_SLOTS``
+    lanes a slot, pad included) is also held against the route's plain
+    twin on the card (run once a bucket), bit for bit."""
+    rng = np.random.default_rng(SEED + 8)
+    times = {}
+    for label, name, n, route, counter in SHARD_BUCKETS:
+        prob = dp.get_problem(name)
+        t_enc = time.perf_counter()
+        specs = [prob.encode(**kw) for kw in shard_instances(rng, name, n)]
+        enc_s = time.perf_counter() - t_enc
+        twin = plain_twin_bucket(prob, route, specs, cuda)
+        for recon in (False, True):
+            tag = f"sharded {label}{' reconstruct' if recon else ''}"
+            t_tag = time.perf_counter()
+            shard = dp.ShardedDPEngine(mesh=mesh, max_batch=8, feedback=False)
+            plain = dp.DPEngine(max_batch=8, feedback=False, device=cuda)
+            ms = {"sharded": [], "single": []}
+            launched, equal = [], True
+            for rnd in range(3):
+                for eng in (shard, plain):
+                    for sp in specs:
+                        eng.submit_spec(prob, sp, reconstruct=recon)
+                before = sum(counter.values())
+                if rnd < 2:
+                    got, t_s = timed_step(shard, route)
+                else:
+                    got, t_s, prof_line, kernel_line = profiled_drain(shard, route)
+                launched.append(sum(counter.values()) - before)
+                if rnd == 0:
+                    twin_equal = same_as_plain_twin(got, twin, recon)
+                want, t_p = timed_step(plain, route)
+                equal &= same_responses(got, want) and all(r.backend == route for r in got)
+                ms["sharded"].append(t_s)
+                ms["single"].append(t_p)
+            st = shard.stats
+            print(f"{tag}: {time.perf_counter() - t_tag:.2f} s in all; encode {enc_s:.2f} s "
+                  f"for {SHARD_BUCKET}; drain ms sharded "
+                  f"{ms['sharded'][0]:.3f} (cold), {ms['sharded'][1]:.3f}, "
+                  f"{ms['sharded'][2]:.3f} (profiled); single engine "
+                  f"{ms['single'][0]:.3f} (cold), {ms['single'][1]:.3f}, "
+                  f"{ms['single'][2]:.3f}; the plain twin {twin[2]:.3f} (once a bucket); the profiled "
+                  f"drain: {prof_line}; {kernel_line}")
+            require(twin_equal, f"{tag}: answers{', tables, args and decoded paths' if recon else ''} "
+                    f"bit-equal to {route}'s plain twin on the card (its kernels' plain "
+                    f"versions at batch {SHARD_BUCKET})")
+            require(equal, f"{tag}: answers, tables, args and decoded paths bit-equal to "
+                    f"the single engine's on the card ({route})")
+            require(st["sharded_drains"] == 3 and st["padded_lanes"] == 3 * 2,
+                    f"{tag}: sharded_drains {st['sharded_drains']} == 3, padded_lanes "
+                    f"{st['padded_lanes']} == 6")
+            require(launched == [SHARD_SLOTS] * 3,
+                    f"{tag}: {route} launched {launched} times a drain (want "
+                    f"{SHARD_SLOTS} each)")
+            times[tag] = (ms["sharded"][1], ms["single"][1])
+    return times
+
+
+def sharded_service(mesh, cuda) -> None:
+    """``DPService(mesh=mesh)`` and the single-engine service on the same
+    requests (the service path's traffic, no deadlines): equal answers."""
+    rng = np.random.default_rng(SEED + 5)
+    traffic = service_traffic(rng)[:SHARD_SERVICE_REQUESTS]
+    sharded = dp.DPService(mesh=mesh, max_batch=SERVICE_BATCH, feedback=False)
+    single = dp.DPService(mesh=None, max_batch=SERVICE_BATCH, feedback=False, device=cuda)
+    require(isinstance(sharded.engine, dp.ShardedDPEngine)
+            and type(single.engine) is dp.DPEngine,
+            "service: an explicit mesh builds a ShardedDPEngine, mesh=None the single one")
+    out = {}
+    for label, svc in (("sharded", sharded), ("single", single)):
+        tids = [svc.submit(name, reconstruct=recon, **kw) for name, kw, recon, _ in traffic]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = svc.run()
+        torch.cuda.synchronize()
+        out[label] = [res[t] for t in tids]
+        print(f"service ({label}): {len(tids)} requests in "
+              f"{time.perf_counter() - t0:.2f} s, engine {svc.engine.stats}")
+    bad = [a.problem for a, b in zip(out["sharded"], out["single"])
+           if a.status != "done" or b.status != "done"
+           or not np.array_equal(np.float32(a.answer), np.float32(b.answer))
+           or (a.solution is None) != (b.solution is None)
+           or (a.solution is not None and a.solution.solution != b.solution.solution)]
+    require(not bad and sharded.engine.stats["sharded_drains"] > 0,
+            f"service: {len(traffic)} answers of the sharded service equal the single "
+            f"engine's ({len(bad)} differ: {sorted(set(bad))}), "
+            f"{sharded.engine.stats['sharded_drains']} sharded drains")
+
+
+def sharded_runtime(mesh, cuda) -> None:
+    """compressed_psum over the slots against the CPU port's, best_mesh and
+    reshard after a simulated loss, over slots of the card."""
+    rng = np.random.default_rng(SEED + 9)
+    xs = [torch.from_numpy(rng.standard_normal(1 << 20).astype(np.float32) * (i + 1))
+          for i in range(SHARD_SLOTS)]
+    want = grad_compress.compressed_psum([x * 2.0 for x in xs],
+                                         rt_sharding.Mesh(["cpu"] * SHARD_SLOTS, ("i",)))
+    src = [x.to(cuda) for x in xs]
+
+    def on_slots(factor: float) -> list:
+        """Each shard (``factor`` times its source) made on its slot's
+        stream, held back by a spin first: the collective must wait for the
+        slots."""
+        shards = []
+        for x, slot in zip(src, mesh.slots.flat):
+            slot.follow(x)
+            with slot.scope():
+                torch.cuda._sleep(50_000_000)
+                shards.append(x * factor)
+        return shards
+
+    # a first round loads every kernel involved (a lazy module load
+    # synchronizes the card and would hide a missing wait); the checked
+    # round's shards are twice its shards, so a read of a block the
+    # allocator handed back before its write would see other values
+    grad_compress.compressed_psum(on_slots(1.0), mesh)
+    torch.cuda.synchronize()
+    got = grad_compress.compressed_psum(on_slots(2.0), mesh)
+    torch.cuda.synchronize()
+    shards = on_slots(1.0)
+    torch.cuda.synchronize()
+    _, ms = timed_once(lambda: grad_compress.compressed_psum(shards, mesh))
+    require(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+            f"compressed_psum over {SHARD_SLOTS} slots of 2^20 floats, each made late on "
+            f"its slot's stream, bit-equal to the CPU port's ({ms:.3f} ms)")
+    slots16 = [cuda] * 16
+    shapes = [tuple(elastic.best_mesh(elastic.simulate_device_loss(slots16, lost), 4).shape.values())
+              for lost in (0, 4, 6)]
+    m = elastic.best_mesh(elastic.simulate_device_loss(slots16, 6), 4)
+    tree = {"w": torch.arange(80.0).reshape(10, 8), "b": {"v": torch.arange(8.0)}}
+    placed = elastic.reshard(tree, m, lambda path, x: ("data", "model")[: x.ndim])
+    back = rt_sharding.gather(placed["w"], m, ("data", "model"))
+    back_v = rt_sharding.gather(placed["b"]["v"], m, ("data",))
+    require(shapes == [(4, 4), (3, 4), (5, 2)] and torch.equal(back.cpu(), tree["w"])
+            and torch.equal(back_v.cpu(), tree["b"]["v"])
+            and placed["w"][4, 1].device == cuda,
+            f"best_mesh over 16/12/10 slots {shapes}; reshard then gather after the loss "
+            "equal on the card")
+
+
+def sharded_pipeline(cuda) -> int:
+    """pipeline_apply over PIPE_STAGES slots of the card: qwen3-14b's blocks
+    at full width (depth PIPE_DEPTH, weights from the seed), float32
+    compute, PIPE_MICRO microbatches of 1 x PIPE_S tokens through the
+    blocks' full-sequence causal forward, against the same blocks applied
+    in sequence. Returns K7's launches in the pipeline's run."""
+    full = get_config(LM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=PIPE_DEPTH)
+    model = init_model(cfg, cuda, "pipeline")
+    layer_params = [sum(p.numel() for p in b.parameters()) for b in model.layers]
+    bounds, bottleneck = pipeline_parallel.stage_boundaries(layer_params, PIPE_STAGES)
+    edges = (0, *bounds, PIPE_DEPTH)
+    stages = [list(model.layers[a:b]) for a, b in zip(edges, edges[1:])]
+    mesh = rt_sharding.Mesh([cuda] * PIPE_STAGES, ("stage",))
+    rng = np.random.default_rng(SEED + 10)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (PIPE_MICRO, PIPE_S)), device=cuda)
+    positions = torch.arange(PIPE_S, device=cuda).expand(1, PIPE_S)
+
+    def stage_fn(blocks, x):
+        for blk in blocks:
+            x, _ = blk(x, positions, "train")
+        return x
+
+    with torch.no_grad(), compute_dtype(model, torch.float32):
+        x = model.embed_tokens(tokens)[:, None]               # (M, 1, S, d)
+        reset_launches()
+        got, pipe_ms = timed_once(lambda: pipeline_parallel.pipeline_apply(
+            stage_fn, stages, x, mesh))
+        counts = launches()
+        want, seq_ms = timed_once(lambda: torch.stack([stage_fn(model.layers, x[i])
+                                                       for i in range(PIPE_MICRO)]))
+    err = max_err(got, want)
+    scale = float(want.abs().max())
+    print(f"pipeline_apply: {cfg.name} blocks at d {cfg.d_model}, {cfg.n_heads} heads, "
+          f"{cfg.n_kv_heads} kv heads, hd {cfg.hd}, {cfg.param_dtype} weights, float32 "
+          f"compute; stages {[len(s) for s in stages]} (boundaries {bounds}, bottleneck "
+          f"{bottleneck:.0f} parameters); {PIPE_MICRO} microbatches of 1 x {PIPE_S}: "
+          f"pipeline {pipe_ms:.1f} ms on {PIPE_STAGES} streams, the blocks in sequence "
+          f"{seq_ms:.1f} ms; max_abs_err {err} of max|h| {scale:.3f}; bits equal: "
+          f"{torch.equal(got, want)}; K7 launches {counts['flash_attention']} "
+          f"({counts['flash_attention_tc']} on the tensor-core body)")
+    require(got.shape == want.shape and bool(torch.isfinite(got).all())
+            and err <= LOGITS_RTOL * scale,
+            f"pipeline_apply within {LOGITS_RTOL} of max|h| of the blocks in sequence")
+    require(counts["flash_attention"] == PIPE_DEPTH * PIPE_MICRO,
+            f"pipeline: K7 launched {counts['flash_attention']} times "
+            f"({PIPE_DEPTH} layers x {PIPE_MICRO} microbatches)")
+    del model, stages, got, want, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts["flash_attention"]
+
+
+def phase_sharded(cuda) -> dict:
+    """A mesh of SHARD_SLOTS slots on the card: the cooperative kernels on
+    concurrent streams under a deadline, ShardedDPEngine's ragged buckets
+    against the single engine, DPService over the mesh, compressed_psum,
+    best_mesh and reshard, and pipeline_apply over qwen3-14b's blocks.
+    Returns the DP kernels' launches of the drains."""
+    print(card_line())
+    t_phase = time.perf_counter()
+    mesh = rt_sharding.Mesh([cuda] * SHARD_SLOTS, (dp.sharding.BATCH_AXIS,))
+    ctx = dp.ShardContext(mesh)
+    sharded_probes(ctx)
+    reset_launches()
+    t_drains = time.perf_counter()
+    times = sharded_buckets(mesh, cuda)
+    counts = launches()
+    print(f"launches on the sharded drains: {counts}")
+    for name in ("sdp_pipeline", "mcm_pipeline", "mcm_tiled", "grid_pipeline_antidiag"):
+        n = sum(v for k, v in counts.items() if k.startswith(name))
+        require(n > 0, f"sharded drains: {name} launched {n} times")
+    gate_launches("sharded", cuda)
+    t_service = time.perf_counter()
+    sharded_service(mesh, cuda)
+    t_runtime = time.perf_counter()
+    sharded_runtime(mesh, cuda)
+    t_pipe = time.perf_counter()
+    sharded_pipeline(cuda)
+    t_end = time.perf_counter()
+    print(f"sharded phase parts (s): probes {t_drains - t_phase:.2f}, drains "
+          f"{t_service - t_drains:.2f}, service {t_runtime - t_service:.2f}, psum and "
+          f"elastic {t_pipe - t_runtime:.2f}, pipeline {t_end - t_pipe:.2f}")
+    print("sharded drain ms (warm; sharded over 4 streams, single engine): " + "; ".join(
+        f"{k} {a:.3f} / {b:.3f}" for k, (a, b) in times.items()))
+    took = t_end - t_phase
+    require(took <= SHARD_LIMIT_S, f"sharded phase took {took:.1f} s (limit {SHARD_LIMIT_S:.0f} s)")
+    return counts
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3395,6 +3850,12 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         print(card_line())
         train_witness(cuda)
+        return 1 if _failures else 0
+    if sys.argv[1:] == ["--sharded"]:
+        phase_build()
+        device_profile(torch.cuda.synchronize, {}, cpu=False)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        phase_sharded(cuda)
         return 1 if _failures else 0
     if sys.argv[1:] == ["--service"]:
         phase_build()
@@ -3489,6 +3950,9 @@ def main() -> int:
     counts = phase_service(cuda)
     print(f"launches on the service path: {counts}")
     gate_launches("service", cuda)
+
+    torch.cuda.empty_cache()
+    phase_sharded(cuda)
 
     del k4_table
     torch.cuda.empty_cache()

@@ -1,6 +1,6 @@
 """granite-moe-3b-a800m [moe] — 40 experts top-8, small per-expert FFN.
 
-[hf:ibm-granite/granite-3.0-1b-a400m-base; hf]. 32L, d_model=1536, 24H
+[hf:ibm-granite/granite-3.0-3b-a800m-base; hf]. 32L, d_model=1536, 24H
 (GQA kv=8), expert d_ff=512, vocab=49155. (The pool annotation lists both
 "40e" and "32 experts"; we follow the primary spec: 40 experts, top-8.)
 40 experts do not divide the 16-wide model axis — this arch exercises the
@@ -19,5 +19,5 @@ CONFIG = ModelConfig(
     vocab_size=49155,
     head_dim=64,
     moe=MoEConfig(n_experts=40, top_k=8, d_ff=512),
-    source="hf:ibm-granite/granite-3.0-1b-a400m-base; hf",
+    source="hf:ibm-granite/granite-3.0-3b-a800m-base; hf",
 )

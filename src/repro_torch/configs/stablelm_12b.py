@@ -1,6 +1,6 @@
 """stablelm-12b [dense] — GQA kv=8, wide heads (head_dim=160).
 
-[hf:stabilityai/stablelm-2-1_6b; hf]. 40L, d_model=5120, 32H (GQA kv=8),
+[hf:stabilityai/stablelm-2-12b; hf]. 40L, d_model=5120, 32H (GQA kv=8),
 d_ff=13824, vocab=100352. head_dim=160 (not a multiple of 128) is the
 widest head the port's attention kernel takes.
 """
@@ -16,5 +16,5 @@ CONFIG = ModelConfig(
     d_ff=13824,
     vocab_size=100352,
     head_dim=160,
-    source="hf:stabilityai/stablelm-2-1_6b; hf",
+    source="hf:stabilityai/stablelm-2-12b; hf",
 )

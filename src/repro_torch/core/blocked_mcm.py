@@ -186,12 +186,13 @@ def _pick_tile(n: int):
     return None
 
 
-def _batch_run(specs, device) -> list:
+def _batch_run(specs, device, sharding=None) -> list:
     """Stack B same-shape instances' dims: one blocked solve, one K5
-    launch per block diagonal."""
+    launch per block diagonal (a solve a slot under ``sharding``)."""
     n = specs[0].n
-    p = _dp_backends._stack([np.asarray(s.dims) for s in specs], device)
-    return _dp_backends._rows(blocked_to_linear(solve_blocked(p, n, _pick_tile(n))))
+    p = _dp_backends._stack([np.asarray(s.dims) for s in specs], device, sharding)
+    return _dp_backends._rows(_dp_backends._call(
+        lambda p: blocked_to_linear(solve_blocked(p, n, _pick_tile(n))), (p,), sharding))
 
 
 _GUARD_CACHE: "OrderedDict[tuple, bool]" = OrderedDict()

@@ -4,8 +4,8 @@ host batch on a device.
 
 Batch ``i`` depends only on ``(seed, i)`` (numpy's generator, the
 reference's own draws), so a restart replays the stream exactly, which the
-fault-tolerance supervisor relies on. ``shard_batch`` (a global batch over
-a device mesh) waits for the sharding slice.
+fault-tolerance supervisor relies on. ``shard_batch`` places a global batch
+over a mesh of slots.
 """
 from __future__ import annotations
 
@@ -15,6 +15,8 @@ from typing import Iterator
 
 import numpy as np
 import torch
+
+from repro_torch.runtime.sharding import Mesh, place
 
 
 class SyntheticLM:
@@ -84,4 +86,15 @@ def to_device(batch: dict, device) -> dict:
         if not t.is_floating_point():
             t = t.long()
         out[k] = t.to(device)
+    return out
+
+
+def shard_batch(batch: dict, mesh: Mesh, batch_axes) -> dict:
+    """A host batch over ``mesh``: each array's batch dim split over
+    ``batch_axes`` (an axis name or a tuple of them), scalars replicated.
+    Returns, per key, the mesh-shaped array of each slot's shard."""
+    out = {}
+    for k, v in batch.items():
+        spec = (batch_axes,) if np.ndim(v) >= 1 else ()
+        out[k] = place(np.asarray(v), mesh, spec)
     return out

@@ -21,6 +21,8 @@ Layers:
   reconstruct — arg tables → batched tracebacks → decoded Answers
   engine      — DPEngine: bucketed request/response front end, one solve
                 (one kernel launch on a kernel route) per drain
+  sharding    — ShardContext / ShardedDPEngine: bucket drains split over a
+                mesh of slots (cards, or one card's concurrent streams)
   streaming   — ResumeToken / resume_solve warm starts + the chain-digest
                 longest-prefix answer cache (PrefixIndex)
   service     — DPService: tickets, admission control with deadlines and
@@ -50,11 +52,13 @@ from repro_torch.dp.registry import names as problem_names  # noqa: F401
 from repro_torch.dp.registry import problems  # noqa: F401
 from repro_torch.dp.routing import (  # noqa: F401
     batch_solve, batch_solve_specs, dispatch, solve, solve_spec)
+from repro_torch.dp.sharding import (  # noqa: F401
+    ShardContext, ShardedDPEngine, default_mesh)
 from repro_torch.dp.service import (  # noqa: F401
     AdmissionError, DPService, ServiceResult, Session)
 from repro_torch.dp.streaming import PrefixIndex, ResumeToken, resume_solve  # noqa: F401
 from repro_torch.dp.telemetry import Span  # noqa: F401
-from repro_torch.dp import service, streaming, telemetry  # noqa: F401
+from repro_torch.dp import service, sharding, streaming, telemetry  # noqa: F401
 
 route = dispatch
 
@@ -66,6 +70,7 @@ __all__ = [
     "backends", "batch_solve", "batch_solve_specs", "calibrate", "dispatch",
     "get_problem", "problem_names", "problems", "reconstruct", "registry",
     "resume_solve", "route", "routing", "routing_report", "service",
+    "ShardContext", "ShardedDPEngine", "default_mesh", "sharding",
     "solve", "solve_spec", "spec_digest", "spec_from_reference",
     "streaming", "telemetry", "zoo",
 ]

@@ -392,14 +392,18 @@ def rank(spec: Spec, cands: Sequence, suffix: tuple = (),
 
 
 def rank_batch(spec: Spec, batchable: Sequence, loop_only: Sequence,
-               batch_suffix: tuple = ("batch",), device=None) -> list:
+               batch_suffix: tuple = ("batch",),
+               loop_suffix: Optional[tuple] = None, device=None) -> list:
     """:func:`rank` for a batch pool. A batchable route solves a whole
     bucket in one call, a loop-only route (no ``batch_run``) one instance
     at a time, so single-instance entries do not compare them: routes
     resolve against batch-regime measurements first; a batchable route may
     fall back to its single-instance entry as a prior, a loop-only route
     may not (tier 1 keeps batchable-first order); a loop-only route ranks
-    on the ``batch_suffix`` regime alone."""
+    on the ``loop_suffix`` regime alone (default: ``batch_suffix``; the
+    sharded engine ranks batchable routes on its ``("shard", ndev)``
+    regime and loop-only ones, which it runs unsharded, on the
+    single-device batch regime)."""
     dev = _backends.resolve_device(device, check=False)
     t = get_table()
     pool = list(batchable) + list(loop_only)
@@ -408,6 +412,7 @@ def rank_batch(spec: Spec, batchable: Sequence, loop_only: Sequence,
         _audit_decision("rank_batch", spec, batch_suffix, pool, scores, pool,
                         dev)
         return pool
+    loop_suffix = batch_suffix if loop_suffix is None else loop_suffix
 
     def resolve(i, b):
         if i < len(batchable):
@@ -415,7 +420,7 @@ def rank_batch(spec: Spec, batchable: Sequence, loop_only: Sequence,
             if ms is None:
                 ms = measured_ms(b, spec, table=t, device=dev)
         else:
-            ms = measured_ms(b, spec, table=t, suffix=batch_suffix, device=dev)
+            ms = measured_ms(b, spec, table=t, suffix=loop_suffix, device=dev)
         scores[b.name] = ms
         return ms
 

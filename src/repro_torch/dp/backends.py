@@ -72,8 +72,10 @@ def resolve_device(device=None, check: bool = True) -> torch.device:
 @dataclasses.dataclass(frozen=True)
 class Backend:
     """A solver route. ``run(spec, device)`` returns the full linearized
-    table as numpy; ``batch_run(specs, device)`` solves a homogeneous list
-    of specs in one call. Arg-capable routes also expose ``run_with_args``
+    table as numpy; ``batch_run(specs, device, sharding=None)`` solves a
+    homogeneous list of specs in one call (once a slot of the mesh of a
+    ``repro_torch.dp.sharding.ShardContext`` given as ``sharding``, as
+    every batch path below takes). Arg-capable routes also expose ``run_with_args``
     returning ``(table, args)`` — the winning lane (linear), best split
     (triangular), or winning move / packed split (grid) per cell — and
     ``batch_run_with_args`` returning ``(tables, args)`` with ``args`` the
@@ -163,13 +165,25 @@ def ensure_registered() -> None:
 # ---------------------------------------------------------------------------
 # Builders used by the registering modules
 # ---------------------------------------------------------------------------
-def _stack(arrays, device: torch.device) -> torch.Tensor:
+def _stack(arrays, device: torch.device, sharding=None):
     """float32 ``(batch, ...)`` tensor on ``device`` from numpy arrays (one
-    conversion pass on the host, one copy to the device)."""
+    conversion pass on the host, one copy to the device); under
+    ``sharding`` (a ``repro_torch.dp.sharding.ShardContext``) one tensor a
+    slot instead, each slot's contiguous slice copied to its device."""
     out = np.empty((len(arrays),) + np.shape(arrays[0]), dtype=np.float32)
     for i, a in enumerate(arrays):
         out[i] = a
+    if sharding is not None:
+        return sharding.place(out)
     return torch.from_numpy(out).to(device)
+
+
+def _call(apply: Callable, stacked: tuple, sharding=None):
+    """``apply(*stacked)`` on the stacked inputs of :func:`_stack`; under
+    ``sharding`` once a slot on its shards, gathered in slot order."""
+    if sharding is None:
+        return apply(*stacked)
+    return sharding.wrap(apply)(*stacked)
 
 
 def _rows(t: torch.Tensor) -> list:
@@ -182,18 +196,20 @@ def _backend(name: str, geometry: str, call: Callable, fn: Callable,
              fused: Optional[Callable] = None,
              run_extend: Optional[Callable] = None,
              schedule: Optional[Callable] = None) -> Backend:
-    """A Backend whose batch paths run ``call(f, specs, device)`` with
-    ``f = fn`` (the table) or ``f = arg_fn`` (``(table, args)``);
-    ``fused(specs, device)`` (``(tables, argss, paths)``) is the fused
-    batch path."""
+    """A Backend whose batch paths run ``call(f, specs, device,
+    sharding)`` with ``f = fn`` (the table) or ``f = arg_fn`` (``(table,
+    args)``); ``fused(specs, device, sharding)`` (``(tables, argss,
+    paths)``) is the fused batch path. Every batch path takes
+    ``sharding=None``: a ``ShardContext`` runs it once a slot of its mesh
+    on the slot's shard of the bucket."""
 
-    def batch_run(specs, device) -> list:
-        return _rows(call(fn, specs, device))
+    def batch_run(specs, device, sharding=None) -> list:
+        return _rows(call(fn, specs, device, sharding))
 
     run_with_args = batch_run_with_args = None
     if arg_fn is not None:
-        def batch_run_with_args(specs, device):
-            st, args = call(arg_fn, specs, device)
+        def batch_run_with_args(specs, device, sharding=None):
+            st, args = call(arg_fn, specs, device, sharding)
             return _rows(st), args
 
         def run_with_args(spec: Spec, device):
@@ -219,11 +235,13 @@ def linear_backend(name: str, fn: Callable, cost: Callable,
     into a Backend. ``arg_fn`` (same signature, returns ``(st, args)``)
     adds the arg-capable pair."""
 
-    def call(f, specs, device):
+    def call(f, specs, device, sharding=None):
         s0 = specs[0]
-        init = _stack([s.init for s in specs], device)
-        w = None if s0.weights is None else _stack([s.weights for s in specs], device)
-        return f(init, s0.offsets, s0.op, s0.n, weights=w)
+        init = _stack([s.init for s in specs], device, sharding)
+        w = (None if s0.weights is None
+             else _stack([s.weights for s in specs], device, sharding))
+        return _call(lambda i, w: f(i, s0.offsets, s0.op, s0.n, weights=w),
+                     (init, w), sharding)
 
     return _backend(name, "linear", call, fn, cost, supports, arg_fn, kernel,
                     doc, run_extend=run_extend, schedule=schedule)
@@ -242,13 +260,16 @@ def triangular_tab_backend(name: str, fn: Callable, cost: Callable,
     ``fused_fn`` (returns ``(st, args, (ii, dd, ee))``, the node arrays in
     ``triangular_traceback_np``'s preorder) the fused batch path."""
 
-    def call(f, specs, device):
-        return f(_stack([s.weights for s in specs], device), specs[0].n)
+    def call(f, specs, device, sharding=None):
+        n = specs[0].n
+        return _call(lambda w: f(w, n),
+                     (_stack([s.weights for s in specs], device, sharding),),
+                     sharding)
 
     fused = None
     if fused_fn is not None:
-        def fused(specs, device):
-            st, args, nodes = call(fused_fn, specs, device)
+        def fused(specs, device, sharding=None):
+            st, args, nodes = call(fused_fn, specs, device, sharding)
             nodes = torch.stack(nodes, dim=-1).cpu().numpy().astype(np.int64)
             return _rows(st), _rows(args), [TriangularPath(nodes=x) for x in nodes]
 
@@ -267,10 +288,12 @@ def grid_backend(name: str, fn: Callable, cost: Callable,
     ``static_meta()`` — into a Backend; ``arg_fn`` (returns ``(st,
     args)``) adds the arg-capable pair."""
 
-    def call(f, specs, device):
+    def call(f, specs, device, sharding=None):
+        meta = specs[0].static_meta()
         slots = zip(*(s.device_arrays() for s in specs))
-        return f(tuple(_stack(slot, device) for slot in slots),
-                 specs[0].static_meta())
+        return _call(lambda *arrs: f(arrs, meta),
+                     tuple(_stack(slot, device, sharding) for slot in slots),
+                     sharding)
 
     return _backend(name, "grid", call, fn, cost, supports, arg_fn, kernel,
                     doc, run_extend=run_extend, schedule=schedule)
@@ -293,15 +316,20 @@ def grid_costs(spec: GridSpec) -> dict:
 # shape-key plumbing for the calibration layer (repro_torch.dp.autotune) ----
 #: measurement-regime markers a calibration key may end with: ``batch`` =
 #: amortized per-instance ms of an engine bucket drain, ``reconstruct`` =
-#: the arg-emitting solve, ``extend`` = warm-start extension solves. Plain
-#: keys hold single-instance offline timings. The regimes never
-#: cross-match.
+#: the arg-emitting solve, ``extend`` = warm-start extension solves. Sharded
+#: drains (``repro_torch.dp.sharding``) end theirs with the tuple marker
+#: ``("shard", ndev)``, or ``("shard", ndev, "reconstruct")`` for sharded
+#: arg-emitting drains. Plain keys hold single-instance offline timings.
+#: The regimes never cross-match.
 SHAPE_KEY_REGIMES = ("batch", "reconstruct", "extend")
 
 
 def is_regime_marker(x) -> bool:
-    """Whether ``x`` is a measurement-regime marker."""
-    return x in SHAPE_KEY_REGIMES
+    """Whether ``x`` is a measurement-regime marker (a string or the
+    sharded tuple form)."""
+    if x in SHAPE_KEY_REGIMES:
+        return True
+    return isinstance(x, tuple) and len(x) >= 2 and x[0] == "shard"
 
 
 def split_shape_key(key: tuple) -> tuple:

@@ -227,7 +227,8 @@ class DPEngine:
                                             device=self.device), False
         pool = _routing.batch_candidates(
             spec0, reconstruct=reconstruct, device=self.device,
-            batch_suffix=self._batch_regime(reconstruct))
+            batch_suffix=self._batch_regime(reconstruct),
+            loop_suffix=self._loop_regime(reconstruct))
         count = self._drains.get(key, 0)
         if (self.explore_every
                 and count % self.explore_every == self.explore_every - 1):
@@ -242,13 +243,16 @@ class DPEngine:
                 b for b in explorable
                 if not _autotune.has_measurement(
                     b.name,
-                    spec0.shape_key() + self._batch_regime(reconstruct),
+                    spec0.shape_key() + self._obs_suffix(b, spec0, reconstruct),
                     device=self.device)]
             if wanting:
                 return wanting[0], True
         return pool[0], False
 
     # -- drain internals (regime + execution hooks) ------------------------
+    # ``ShardedDPEngine`` (repro_torch.dp.sharding) overrides these to run
+    # batchable drains over a mesh of slots and key their observations
+    # under the ("shard", ndev) regime; everything else in step() is shared.
     def _batch_regime(self, reconstruct: bool) -> tuple:
         """Measurement-regime suffix batchable routes rank/observe under:
         amortized bucket drains and arg-emitting (reconstruct) solves cost
@@ -257,6 +261,17 @@ class DPEngine:
         conflated with either."""
         return (_routing.RECONSTRUCT_SUFFIX if reconstruct
                 else _routing.BATCH_SUFFIX)
+
+    def _loop_regime(self, reconstruct: bool) -> tuple:
+        """Regime suffix loop-only routes rank/observe under (the same as
+        batchable ones on a single device)."""
+        return self._batch_regime(reconstruct)
+
+    def _obs_suffix(self, backend, spec0: Spec, reconstruct: bool) -> tuple:
+        """Regime suffix a drain on ``backend`` is observed under."""
+        if backend.batch_run is None:
+            return self._loop_regime(reconstruct)
+        return self._batch_regime(reconstruct)
 
     def _run_bucket(self, backend, specs, reconstruct: bool):
         """Execute one routed bucket; returns
@@ -438,11 +453,11 @@ class DPEngine:
         lane_of = {d: j for j, d in enumerate(uniq_idx)}
         uniq_specs = [specs[i] for i in uniq_idx.values()]
 
-        obs_key = specs[0].shape_key() + self._batch_regime(reconstruct)
+        suffix = self._obs_suffix(chosen, specs[0], reconstruct)
+        obs_key = specs[0].shape_key() + suffix
         if _telemetry.audit_enabled():
             _telemetry.record_route_decision(
-                "drain", specs[0].shape_key(),
-                self._batch_regime(reconstruct), [],
+                "drain", specs[0].shape_key(), suffix, [],
                 chosen.name, bucket=repr(key), batch_size=len(batch),
                 unique=len(uniq_specs), explored=explored,
                 override=backend is not None)

@@ -58,14 +58,21 @@ def _best(spec: Spec, device, reconstruct: bool) -> _backends.Backend:
 
 
 def batch_candidates(spec: Spec, reconstruct: bool = False, device=None,
-                     batch_suffix: Optional[tuple] = None) -> list:
+                     batch_suffix: Optional[tuple] = None,
+                     loop_suffix: Optional[tuple] = None) -> list:
     """Ordered route pool for a homogeneous bucket on ``device``. Structure
     first — arg-capable routes under ``reconstruct``, batchable routes
     ahead of loop-only ones otherwise — then the measured ranking on top
     (``autotune.rank_batch``: a loop-only route overrules the batching
     prior only on an amortized drain measurement). With no measurements
     the order is the analytical one. The engine explores alternates from
-    exactly this pool."""
+    exactly this pool.
+
+    ``batch_suffix`` / ``loop_suffix`` select the measurement regimes the
+    batchable and loop-only routes rank on (defaults: the single-device
+    regimes). The sharded engine passes its ``("shard", ndev)`` regime as
+    ``batch_suffix``; loop-only routes run unsharded there, so they keep
+    ranking on their own regime."""
     device = _backends.resolve_device(device, check=False)
     cands = _backends.candidates(spec, device)
     if not cands:
@@ -80,6 +87,7 @@ def batch_candidates(spec: Spec, reconstruct: bool = False, device=None,
     loop_only = [c for c in cands if c.batch_run is None]
     return _autotune.rank_batch(spec, batchable, loop_only,
                                 batch_suffix=batch_suffix or BATCH_SUFFIX,
+                                loop_suffix=loop_suffix or BATCH_SUFFIX,
                                 device=device)
 
 
@@ -194,38 +202,45 @@ def run_extend(spec: Spec, old_len: int, state, backend=None, device=None):
     return b.run_extend(spec, old_len, state, device)
 
 
-def run_batch(b: _backends.Backend, specs: Sequence[Spec], device=None) -> list:
+def run_batch(b: _backends.Backend, specs: Sequence[Spec], device=None,
+              sharding=None) -> list:
     """Run a resolved route over a homogeneous batch: one call on a
-    batchable route, a loop of single solves on a loop-only one."""
+    batchable route, a loop of single solves on a loop-only one.
+    ``sharding`` (a ``repro_torch.dp.sharding.ShardContext``) splits the
+    batch over its mesh's slots — only on batchable routes, whose batch the
+    caller already padded to the mesh size."""
     device = _backends.resolve_device(device)
     if b.batch_run is not None:
         _telemetry.count("dp_routing_batch_runs_total")
-        return b.batch_run(list(specs), device)
+        return b.batch_run(list(specs), device, sharding=sharding)
     _telemetry.count("dp_routing_loop_fallback_total")
     return [b.run(s, device) for s in specs]
 
 
 def run_batch_with_args(b: _backends.Backend, specs: Sequence[Spec],
-                        device=None):
+                        device=None, sharding=None):
     """Batched :func:`run_with_args`; returns ``(tables, args, source,
     paths)``: ``args`` the route's ``(batch, cells)`` tensor on ``device``
     (source ``"device"``) or host-recovered arrays (``"host"``), ``paths``
     the in-launch tracebacks of a fused route (beside host args) and None
-    elsewhere."""
+    elsewhere. ``sharding`` as in :func:`run_batch` (the args gathered on
+    its first slot's device)."""
     device = _backends.resolve_device(device)
     specs = list(specs)
     if _reconstruct.supports_args(specs[0]):
         if b.batch_run_fused is not None:
             _telemetry.count("dp_routing_args_device_total")
             _telemetry.count("dp_routing_fused_total")
-            tables, argss, paths = b.batch_run_fused(specs, device)
+            tables, argss, paths = b.batch_run_fused(specs, device,
+                                                     sharding=sharding)
             return tables, argss, "device", paths
         if b.batch_run_with_args is not None:
             _telemetry.count("dp_routing_args_device_total")
-            tables, args = b.batch_run_with_args(specs, device)
+            tables, args = b.batch_run_with_args(specs, device,
+                                                 sharding=sharding)
             return tables, args, "device", None
     _telemetry.count("dp_routing_args_host_total")
-    tables = run_batch(b, specs, device)
+    tables = run_batch(b, specs, device, sharding=sharding)
     argss = [_reconstruct.args_from_table(t, s) for t, s in zip(tables, specs)]
     return tables, argss, "host", None
 

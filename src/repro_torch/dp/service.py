@@ -23,10 +23,13 @@
     results equal cold solves bit for bit. The session TTL, the session
     count and the index capacity are arguments.
 
-The service runs one engine on ``device`` (default: the card). Sharding
-drains over several cards waits for ``repro_torch.dp.sharding``:
-``mesh="auto"`` (and None) run the one engine, and any explicit mesh
-raises :class:`NotImplementedError`.
+The engine runs on ``device`` (default: the card). ``mesh="auto"`` shards
+each drain over every visible card where there is more than one (a
+:class:`repro_torch.dp.sharding.ShardedDPEngine` over
+:func:`repro_torch.dp.sharding.default_mesh`) and runs one engine
+otherwise; ``mesh=None`` forces the one engine; an explicit
+:class:`repro_torch.runtime.sharding.Mesh` of slots (one card may be listed
+several times) builds the sharded engine over it.
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ from typing import Any, Optional
 from repro_torch.dp import backends as _backends
 from repro_torch.dp import reconstruct as _reconstruct
 from repro_torch.dp import registry as _registry
+from repro_torch.dp import sharding as _sharding
 from repro_torch.dp import streaming as _streaming
 from repro_torch.dp import telemetry as _telemetry
 from repro_torch.dp.engine import DPEngine
@@ -138,14 +142,18 @@ class Session:
 
 
 class DPService:
-    """Front end over one :class:`DPEngine` on ``device``.
+    """Front end over a (possibly sharded) :class:`DPEngine`.
 
+    ``mesh="auto"`` shards over every visible card when ``device`` is a
+    card and there is more than one; ``mesh=None`` forces the single engine
+    on ``device``; an explicit ``repro_torch.runtime.sharding.Mesh`` builds
+    a :class:`repro_torch.dp.sharding.ShardedDPEngine` over exactly that
+    mesh (on its first slot's device; ``device`` then configures nothing).
     ``max_inflight`` is the engine-slot budget: admission tops the engine
     up to it each step, so buckets refill while earlier ones drain.
     ``engine=`` injects a ready-made (empty) engine and takes precedence:
-    ``max_batch``, ``feedback``, ``explore_every`` and ``device`` then
-    configure nothing. ``mesh`` must be ``"auto"`` or None until the
-    sharding slice lands. ``session_ttl_ms``, ``session_max`` and
+    ``max_batch``, ``mesh``, ``feedback``, ``explore_every`` and ``device``
+    then configure nothing. ``session_ttl_ms``, ``session_max`` and
     ``prefix_index_capacity`` bound the streaming sessions."""
 
     def __init__(self, max_batch: int = 64, max_pending: int = 4096,
@@ -156,10 +164,6 @@ class DPService:
                  session_ttl_ms: int = SESSION_TTL_MS,
                  session_max: int = SESSION_MAX,
                  prefix_index_capacity: int = _streaming.PREFIX_INDEX_CAPACITY):
-        if mesh not in ("auto", None):
-            raise NotImplementedError(
-                "sharded drains need repro_torch.dp.sharding (dp/sharding.py), "
-                "which is not ported yet; pass mesh='auto' or None")
         if engine is not None:
             if engine.pending():
                 # the service owns its engine's request lifecycle: rids
@@ -169,8 +173,19 @@ class DPService:
                                  f"({engine.pending()} requests pending)")
             self.engine = engine
         else:
-            self.engine = DPEngine(max_batch=max_batch, feedback=feedback,
-                                   explore_every=explore_every, device=device)
+            knobs = dict(max_batch=max_batch, feedback=feedback,
+                         explore_every=explore_every)
+            if mesh == "auto":
+                shard = (_backends.resolve_device(device).type == "cuda"
+                         and _sharding.device_count() > 1)
+                mesh = _sharding.default_mesh() if shard else None
+            if mesh is None:
+                self.engine = DPEngine(device=device, **knobs)
+            elif isinstance(mesh, _sharding.Mesh):
+                self.engine = _sharding.ShardedDPEngine(mesh=mesh, **knobs)
+            else:
+                raise TypeError(f"mesh must be 'auto', None or a "
+                                f"repro_torch.runtime.sharding.Mesh, not {mesh!r}")
         if session_ttl_ms < 1 or session_max < 1:
             raise ValueError("session_ttl_ms and session_max must be >= 1")
         if max_pending < 1:

@@ -12,6 +12,13 @@ weighted term into one fused multiply-add: ``fma(av·gv, bv, A + B)``, with
 candidate is ``A + B``. Min is exact, so the order of ``k`` does not
 matter; NaN propagates, as in ``torch.amin``.
 
+The contract is on values only: where the minimum is a zero reached as
+both +0 and −0, the sign of the zero returned is not pinned (the kernel
+splits K over a cluster and folds the CTAs' minima; the plain version keeps
+the first it meets), as the reference's ``jnp.min`` pins none.
+``torch.equal`` compares values, so "bit-equal" for K5 means equal up to
+the sign of a zero minimum.
+
 ``a``: ``(M, K)`` or ``(.., M, K)`` with one or two batch axes, ``b``:
 ``(.., K, N)``, float32; the weights ``av (.., M)``, ``gv (.., K)``, ``bv
 (.., N)`` are all given or all None. Any shape works (no block

@@ -1,3 +1,3 @@
-"""Runtime substrate (port of ``repro/runtime``): fault tolerance. The
-sharding, elastic and pipeline-parallel modules wait for the sharding
-slice (ROADMAP queue 1)."""
+"""Runtime substrate (port of ``repro/runtime``): fault tolerance,
+rule-based sharding over a mesh of slots, elastic re-meshing and pipeline
+parallelism."""

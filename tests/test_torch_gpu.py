@@ -1414,3 +1414,150 @@ def test_reduced_bf16_train_step_runs_k7b_on_the_tensor_cores(cuda):
     assert k7.LAUNCHES["flash_attention_bwd"] - before["flash_attention_bwd"] == n_attn
     assert k7.LAUNCHES["flash_attention_bwd_tc"] - before["flash_attention_bwd_tc"] == n_attn
     assert torch.isfinite(loss.detach()) and all(torch.isfinite(g).all() for g in grads)
+
+
+@pytest.mark.parametrize("m,k,n,batch", [(16, 992, 16, 4), (16, 600, 16, 62),
+                                         (70, 300, 130, 2)])
+def test_tropical_matmul_zero_sign_is_values_only(cuda, m, k, n, batch):
+    """K5's contract is values-only (``kernels/semiring_matmul.py``): on
+    inputs whose minimum is a zero reached as both +0 and −0, the values
+    equal the plain version's, and the signs of those zeros may differ
+    (counted and reported, not pinned)."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    sign = lambda *s: torch.where(torch.rand(s, generator=g, device=cuda) < 0.5,  # noqa: E731
+                                  -1.0, 1.0)
+    a = torch.zeros(batch, m, k, device=cuda) * sign(batch, m, k)
+    b = torch.zeros(batch, k, n, device=cuda) * sign(batch, k, n)
+    a[torch.rand(a.shape, generator=g, device=cuda) < 0.3] = 1.0
+    got = k5.tropical_matmul(a, b)
+    want = k5.tropical_matmul_plain(a, b)
+    zeros = want == 0
+    differ = int((torch.signbit(got) != torch.signbit(want))[zeros].sum())
+    print(f"K5 ±0 ties {batch}x({m}x{k} by {k}x{n}): {int(zeros.sum())} zero minima, "
+          f"{differ} with another sign than the plain version's")
+    assert bool(zeros.any())
+    assert torch.equal(got, want)
+
+
+SHARD_CASES = [("kernel_blocked", "sdp", False), ("kernel_blocked", "sdp", True),
+               ("kernel_wavefront", "mcm", False), ("kernel_wavefront", "mcm", True),
+               ("kernel_tiled_wavefront", "mcm", False),
+               ("kernel_tiled_wavefront", "mcm", True),
+               ("kernel_grid", "needleman_wunsch", False),
+               ("kernel_grid", "needleman_wunsch", True), ("kernel_grid", "cky", True)]
+
+
+def _plain_twin(route: str):
+    """The kernel route ``route`` with each kernel wrapper swapped for its
+    plain PyTorch version, to run on the card (never ranked)."""
+    zero = lambda s, d: 0.0  # noqa: E731
+    if route == "kernel_blocked":
+        return dp.backends.linear_backend(
+            route, lambda i, o, op, n, weights=None: k1.sdp_pipeline_plain(
+                i, o, op, n, weights=weights), zero,
+            arg_fn=lambda i, o, op, n, weights=None: k1.sdp_pipeline_plain(
+                i, o, op, n, weights=weights, with_args=True))
+    if route == "kernel_wavefront":
+        return dp.backends.triangular_tab_backend(
+            route, lambda w, n: k2.mcm_pipeline_plain(w, n), zero,
+            arg_fn=lambda w, n: k2.mcm_pipeline_plain(w, n, with_args=True))
+    if route == "kernel_tiled_wavefront":
+        return dp.backends.triangular_tab_backend(
+            route, lambda w, n: k4.mcm_tiled_plain(w, n), zero,
+            arg_fn=lambda w, n: k4.mcm_tiled_plain(w, n, with_args=True),
+            fused_fn=lambda w, n: k4.mcm_tiled_plain(w, n, fused=True))
+    assert route == "kernel_grid"
+    return dp.backends.grid_backend(
+        route, lambda a, m: k6.grid_pipeline_plain(a, m), zero,
+        arg_fn=lambda a, m: k6.grid_pipeline_plain(a, m, with_args=True))
+
+
+@pytest.mark.parametrize("route,name,reconstruct", SHARD_CASES)
+def test_sharded_drain_on_four_slots_equals_the_single_engine(cuda, route, name,
+                                                              reconstruct):
+    """A ragged bucket of 6 through ``ShardedDPEngine`` over 4 slots of the
+    card (each its own stream, each launching the kernel at batch 2),
+    through the single engine and through the route's plain twin (the
+    kernels' plain versions on the card), the route forced: answers,
+    tables, args and decoded solutions bit-equal, the route's kernel
+    launched once a slot."""
+    from repro_torch.dp.sharding import ShardedDPEngine, default_mesh
+
+    counters = {"kernel_blocked": k1.LAUNCHES, "kernel_wavefront": k2.LAUNCHES,
+                "kernel_tiled_wavefront": k4.LAUNCHES, "kernel_grid": k6.LAUNCHES}
+    rng = np.random.default_rng(zlib.crc32(f"{route}{name}{reconstruct}".encode()))
+    prob = dp.get_problem(name)
+    base = prob.sample(rng, 40)
+    fresh = {"sdp": lambda: {"init": rng.normal(size=np.shape(base["init"]))},
+             "mcm": lambda: {"dims": rng.integers(1, 20, len(base["dims"])).astype(float)},
+             "cky": lambda: {"tokens": rng.integers(0, np.shape(base["lex"])[1],
+                                                    len(base["tokens"]))},
+             "needleman_wunsch": lambda: {"x": rng.integers(0, 4, len(base["x"])),
+                                          "y": rng.integers(0, 4, len(base["y"]))}}[name]
+    specs = [prob.encode(**base)] + [prob.encode(**dict(base, **fresh())) for _ in range(5)]
+    assert len({s.shape_key() for s in specs}) == 1
+    shard = ShardedDPEngine(mesh=default_mesh(devices=[cuda] * 4), max_batch=8,
+                            feedback=False)
+    single = dp.DPEngine(max_batch=8, feedback=False, device=cuda)
+    for eng in (shard, single):
+        for s in specs:
+            eng.submit_spec(prob, s, reconstruct=reconstruct)
+    before = sum(counters[route].values())
+    got = shard.step(backend=route)
+    assert sum(counters[route].values()) - before == 4
+    want = single.step(backend=route)
+    assert shard.stats["sharded_drains"] == 1
+    assert shard.stats["padded_lanes"] == -(-len(specs) // 4) * 4 - len(specs)
+    twin = _plain_twin(route)
+    if reconstruct:
+        tables, args, source, paths = dp.routing.run_batch_with_args(twin, specs, cuda)
+        plain = dp.reconstruct.reconstruct_batch(prob, specs, tables, args, source,
+                                                 paths=paths)
+    else:
+        plain = [prob.extract(t, s)
+                 for t, s in zip(dp.routing.run_batch(twin, specs, cuda), specs)]
+    assert [g.rid for g in got] == sorted(g.rid for g in got)
+    for g, w, p in zip(got, want, plain):
+        assert g.rid == w.rid and g.backend == w.backend == route
+        assert np.array_equal(np.float32(g.answer), np.float32(w.answer))
+        assert np.array_equal(np.float32(g.answer), np.float32(p.value if reconstruct else p))
+        if reconstruct:
+            for sol in (w.solution, p):
+                np.testing.assert_array_equal(g.solution.table, sol.table)
+                np.testing.assert_array_equal(g.solution.args, sol.args)
+                assert g.solution.solution == sol.solution
+
+
+def test_compressed_psum_joins_the_slots_streams(cuda):
+    """Shards made late on their slots' streams (each stream held back by a
+    spin before the kernel that writes its shard): the sum equals the CPU
+    port's bit for bit, so the collective waited for every slot; each slot's
+    copy is made on its stream. A first round loads every kernel involved
+    (a lazy module load synchronizes the card, which would hide a missing
+    wait); the second, whose shards are twice the first's (the caching
+    allocator hands each slot its first round's block back, so a read
+    before the write would see the first round's values), is the one that
+    counts."""
+    from repro_torch.optim.grad_compress import compressed_psum
+    from repro_torch.runtime.sharding import Mesh
+
+    mesh = Mesh([cuda] * 4, ("i",))
+    rng = np.random.default_rng(5)
+    xs = [torch.from_numpy(rng.standard_normal(1 << 16).astype(np.float32) * (i + 1))
+          for i in range(4)]
+    src = [x.to(cuda) for x in xs]
+
+    def late_shards(factor: float) -> list:
+        shards = []
+        for x, slot in zip(src, mesh.slots.flat):
+            slot.follow(x)
+            with slot.scope():
+                torch.cuda._sleep(50_000_000)
+                shards.append(x * factor)
+        return shards
+
+    for factor in (1.0, 2.0):
+        want = compressed_psum([x * factor for x in xs], Mesh(["cpu"] * 4, ("i",)))
+        got = compressed_psum(late_shards(factor), mesh)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))

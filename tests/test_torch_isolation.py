@@ -29,6 +29,9 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "import repro_torch.launch.train, repro_torch.optim, repro_torch.data.pipeline; "
             "import repro_torch.checkpoint, repro_torch.runtime.fault_tolerance; "
             "import repro_torch.utils.tree; "
+            "import repro_torch.dp.sharding, repro_torch.runtime.sharding; "
+            "import repro_torch.runtime.elastic, repro_torch.runtime.pipeline_parallel; "
+            "import repro_torch.launch.mesh; "
             "from repro_torch import dp; dp.backends.ensure_registered(); "
             "from repro_torch.dp import (DPEngine, DPRequest, DPResponse, "
             "DPService, ServiceResult, Session, AdmissionError, PrefixIndex, "
@@ -132,3 +135,17 @@ def test_training_slice_is_scanned_on_its_own():
         hits = FORBIDDEN.findall(f.read_text())
         assert not hits, f"{f.relative_to(ROOT)} imports {hits}"
     assert (PORT / "csrc" / "flash_attention_bwd.cu").exists()
+
+
+def test_sharding_slice_is_scanned_on_its_own():
+    """The sharding slice's modules exist, import no JAX and no ``repro``,
+    and read no environment variable."""
+    files = [PORT / p for p in (
+        "dp/sharding.py", "runtime/sharding.py", "runtime/elastic.py",
+        "runtime/pipeline_parallel.py", "launch/mesh.py", "data/pipeline.py",
+        "optim/grad_compress.py", "dp/service.py", "dp/backends.py")]
+    env = re.compile(r"os\.environ|getenv")
+    for f in files:
+        text = f.read_text()
+        assert not FORBIDDEN.findall(text), f"{f.relative_to(ROOT)} imports JAX or repro"
+        assert not env.search(text), f.relative_to(ROOT)

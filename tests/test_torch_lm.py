@@ -53,18 +53,28 @@ def _fields(cfg) -> dict:
     return out
 
 
+#: arch -> (the reference's ``source`` label, the port's)
+RELABELLED = {
+    "qwen3-14b": ("hf:Qwen/Qwen3-8B; hf", "hf:Qwen/Qwen3-14B; hf"),
+    "stablelm-12b": ("hf:stabilityai/stablelm-2-1_6b; hf", "hf:stabilityai/stablelm-2-12b; hf"),
+    "granite-moe-3b-a800m": ("hf:ibm-granite/granite-3.0-1b-a400m-base; hf",
+                             "hf:ibm-granite/granite-3.0-3b-a800m-base; hf"),
+}
+
+
 @pytest.mark.parametrize("arch", jconfigs.list_archs())
 def test_configs_match_reference(arch):
     """Every field of every config and of its reduced variant equals the
-    reference's (dtypes by name); only qwen3-14b's ``source`` label differs."""
+    reference's (dtypes by name); only the ``source`` labels of qwen3-14b,
+    stablelm-12b and granite-moe-3b-a800m differ: the port's name the
+    model whose numbers the config holds."""
     assert tconfigs.list_archs() == jconfigs.list_archs()
     assert tconfigs.cells(arch) == jconfigs.cells(arch)
     for j, t in ((jconfigs.get_config(arch), tconfigs.get_config(arch)),
                  (jconfigs.get_config(arch).reduced(), tconfigs.get_config(arch).reduced())):
         jf, tf = _fields(j), _fields(t)
-        if arch == "qwen3-14b":
-            assert (jf.pop("source"), tf.pop("source")) == (
-                "hf:Qwen/Qwen3-8B; hf", "hf:Qwen/Qwen3-14B; hf")
+        if arch in RELABELLED:
+            assert (jf.pop("source"), tf.pop("source")) == RELABELLED[arch]
         assert jf == tf
         assert (t.hd, t.scan_period, t.n_groups) == (j.hd, j.scan_period, j.n_groups)
         assert [t.mixer_of(i) for i in range(t.n_layers)] == [j.mixer_of(i) for i in range(j.n_layers)]

@@ -163,8 +163,19 @@ def test_admission_overload_and_cache_hits_are_never_shed():
 
 
 def test_explicit_mesh_raises_until_sharding_is_ported():
-    with pytest.raises(NotImplementedError, match="sharding"):
+    """A mesh argument other than "auto", None or a port ``Mesh`` of slots
+    (here a reference-style tuple of axis names) raises."""
+    with pytest.raises(TypeError, match="Mesh"):
         tdp.DPService(mesh=("data",), device="cpu")
+
+
+def test_explicit_mesh_builds_the_sharded_engine():
+    """An explicit mesh of slots builds the sharded engine on its first
+    slot's device; mesh=None keeps the single engine."""
+    from repro_torch.dp.sharding import ShardedDPEngine, default_mesh
+
+    svc = tdp.DPService(mesh=default_mesh(devices=["cpu"] * 2))
+    assert isinstance(svc.engine, ShardedDPEngine) and svc.engine.device.type == "cpu"
     assert tdp.DPService(mesh=None, device="cpu").engine.device.type == "cpu"
 
 
