@@ -164,8 +164,19 @@ slot its own CUDA stream):
     ``stage_boundaries``), float32 compute, 6 microbatches of 1 x 1746
     tokens, against the blocks in sequence; K7 launched 48 times;
 
-and last the gated linear scan K8 through ``ops.linear_scan`` at
-T = 32768, D = 2048, bit-equal to its plain version.
+then the gated linear scan K8 through ``ops.linear_scan`` at
+T = 32768, D = 2048, bit-equal to its plain version; and last the LM over a
+mesh (``--sharded-lm`` alone): qwen3-14b (depth 8), granite-moe-3b-a800m,
+rwkv6-1.6b and granite-20b (depth 4) at full width placed on 4 slots of the
+card as (data, model) = (1, 4) and (2, 2) (``CausalLM.place``, float32
+compute), 4 requests of the LM traffic through the engine, fed the single
+slot's tokens (teacher-forced): every prefill's and step's logits
+within 1e-3 of max|logit| of the single slot's and every greedy token
+equal to the single slot's, each slot's parameter bytes
+equal to ``spec_for``'s, K7 launched once a slot and attention layer a
+prefill, the times and a decode step's idle share, and K7 at slot 0's share
+of a served prompt against its plain version; a watchdog ends the run at
+the phase's deadline if a slot hangs.
 
 K1, K2, K3, K4 and K6 (both schedules) are also timed at every shape they
 launch on the main and grid paths (each new shape held against the plain
@@ -204,9 +215,11 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from unittest import mock
@@ -235,7 +248,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import moe, ssm  # noqa: E402
 from repro_torch.models.attention import _project_qkv, attn_forward  # noqa: E402
 from repro_torch.models.layers import rmsnorm, silu  # noqa: E402
-from repro_torch.models.model import CausalLM, loss_fn  # noqa: E402
+from repro_torch.models.model import CausalLM, loss_fn, param_defs  # noqa: E402
 from repro_torch.optim import grad_compress  # noqa: E402
 from repro_torch.runtime import elastic, pipeline_parallel  # noqa: E402
 from repro_torch.runtime import sharding as rt_sharding  # noqa: E402
@@ -306,6 +319,11 @@ K7_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 #: the prefill logits through K7 against the plain version, as a share of
 #: the plain logits' max abs (held in float32 compute, see phase_lm)
 LOGITS_RTOL = 3e-2
+#: the sharded LM's logits against the single slot's, same kernels and
+#: float32 compute, sums over ``model`` in another order: a share of the
+#: single's max|logit|. Sound runs on the H100 read at most 5.8e-5; planted
+#: faults read more (PERF.md, "PR 27").
+SHARDED_LOGITS_RTOL = 1e-3
 #: float32 tables (sums along chains of up to ~2k cells) against float64
 #: oracles and recomputations of a decoded solution
 RTOL = 1e-4
@@ -3824,6 +3842,263 @@ def phase_sharded(cuda) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# The sharded LM: the per-rank program over SHARD_SLOTS slots of the card
+# ---------------------------------------------------------------------------
+#: (arch, depth: None = the published depth) served over each mesh, the
+#: meshes as (data, model), the requests of the LM traffic taken; the
+#: phase's deadline (a hang of a slot fails the run there) and its limit
+SLM_MODELS = (("qwen3-14b", 8), ("granite-moe-3b-a800m", None), ("rwkv6-1.6b", None),
+              ("granite-20b", 4))
+SLM_MESHES, SLM_REQUESTS = ((1, 4), (2, 2)), 4
+SLM_DEADLINE_S, SLM_LIMIT_S = 420.0, 240.0
+
+
+class Recorder:
+    """A model (or sharded model) whose ``prefill`` and ``decode_step`` keep
+    their logits, host ms (each call ends in a sync) and K7's launches in
+    the calls; every other attribute is the model's."""
+
+    def __init__(self, model):
+        self.model, self.logits, self.k7 = model, [], 0
+        self.ms = {"prefill": [], "decode": []}
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def _timed(self, kind: str, fn, *args, **kw):
+        torch.cuda.synchronize()
+        before = k7.LAUNCHES["flash_attention"]
+        t0 = time.perf_counter()
+        logits, cache = fn(*args, **kw)
+        torch.cuda.synchronize()
+        self.ms[kind].append((time.perf_counter() - t0) * 1e3)
+        self.k7 += k7.LAUNCHES["flash_attention"] - before
+        self.logits.append(logits)
+        return logits, cache
+
+    def prefill(self, *args, **kw):
+        return self._timed("prefill", self.model.prefill, *args, **kw)
+
+    def decode_step(self, *args, **kw):
+        return self._timed("decode", self.model.decode_step, *args, **kw)
+
+
+def serve_forced(engine, prompts: list, forced: list = None) -> tuple:
+    """The prompts through ``engine``, one request a slot, its next tokens
+    recorded after each admit and step; where ``forced`` (another run's
+    record) is given, they are replaced by it (teacher-forced). Returns
+    (the requests, the record)."""
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=LM_NEW) for i, p in enumerate(prompts)]
+    record = []
+
+    def after():
+        record.append(engine.next_tok.copy())
+        if forced is not None:
+            engine.next_tok[:] = forced[len(record) - 1]
+
+    for r in reqs:
+        engine.admit(r)
+        after()
+    while engine.active().any():
+        engine.step()
+        after()
+    return reqs, record
+
+
+def slot_bytes(sharded) -> tuple:
+    """(the parameter bytes each slot holds, the bytes of ``spec_for``'s
+    shard of every parameter: each sharded dim over its axes' size)."""
+    mesh, defs = sharded.mesh, param_defs(sharded.cfg)
+    first = sharded.params.flat[0]
+
+    def count(entry) -> int:
+        axes = () if entry is None else entry if isinstance(entry, tuple) else (entry,)
+        return int(np.prod([mesh.shape[a] for a in axes]))
+
+    want = sum(int(np.prod([d // count(e) for d, e in zip(defs[n].shape, spec)]))
+               * first[n].element_size() for n, spec in sharded.specs.items())
+    held = [sum(t.numel() * t.element_size() for t in sharded.params[idx].values())
+            for idx in np.ndindex(mesh.slots.shape)]
+    return held, want
+
+
+def step_idle(fn) -> str:
+    """One call of ``fn`` under ``torch.profiler`` (device activity only):
+    host ms, device busy ms (the union of the kernels' and copies'
+    intervals: the slots' streams overlap) and the idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA]
+    if not dev:
+        return f"host {wall:.3f} ms; device time not measured (no CUDA activity recorded)"
+    busy = union_ms([(e.start_ns() / 1e6, (e.start_ns() + e.duration_ns()) / 1e6)
+                     for e in dev])
+    return (f"host {wall:.3f} ms, {len(dev)} device events, busy {busy:.3f} ms, "
+            f"idle share {1 - busy / wall:.4f}")
+
+
+def k7_slot_record(model, prompts, cuda) -> dict:
+    """K7 at slot 0's share of a served prompt's layer-0 heads on a (1, 4)
+    mesh, float32 as the phase computes (the CUDA-core body), against its
+    plain version and timed beside SDPA."""
+    s = len(prompts[0])
+    tokens = torch.as_tensor(prompts[0], dtype=torch.int64, device=cuda)[None]
+    q, k, v = layer0_qkv(model, tokens)
+    hq, hkv = q.shape[1] // SHARD_SLOTS, k.shape[1] // SHARD_SLOTS
+    q, k, v = q[:, :hq], k[:, :hkv], v[:, :hkv]
+    got = k7.flash_attention(q, k, v)
+    want, plain = timed_once(lambda: k7.flash_attention_plain(q, k, v))
+    err = max_err(got, want)
+    require(err <= K7_TOL[q.dtype], f"flash_attention at slot 0's share {tuple(q.shape)} "
+            f"by {tuple(k.shape)} {q.dtype}: max_abs_err {err} within {K7_TOL[q.dtype]}")
+    ms = cuda_ms(lambda: k7.flash_attention(q, k, v), 5)
+    lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 5)
+    d = q.shape[3]
+    nbytes = q.element_size() * d * s * (2 * hq + 2 * hkv)
+    flops = 4 * d * hq * s * (s + 1) // 2
+    return kernel_record("flash_attention_sharded_slot", "src/repro_torch/csrc/flash_attention.cu",
+                         "src/repro/kernels/flash_attention.py:68", err, ms, plain,
+                         nbytes, flops, peak=F32_OPS_PER_S, library_ms=lib)
+
+
+def sharded_lm_model(arch: str, depth, meshes: dict, cuda) -> tuple:
+    """One model over each of ``SLM_MESHES``: the first ``SLM_REQUESTS``
+    requests of the LM traffic through the single-slot engine, then through
+    the sharded engine fed the single's tokens (teacher-forced), float32
+    compute on bf16 weights from the seed. Checks the logits of every prefill and step,
+    each slot's parameter bytes and K7's launches; prints the times and a
+    sharded decode step's idle share. Returns (K7's launches on the
+    sharded traffic, the K7 record where taken)."""
+    full = get_config(arch)
+    cfg = full if depth is None else dataclasses.replace(full, n_layers=depth)
+    model = init_model(cfg, cuda, f"sharded lm {arch}")
+    prompts = lm_traffic(cfg)[1][:SLM_REQUESTS]
+    attn = sum(cfg.mixer_of(i) == "attn" for i in range(cfg.n_layers))
+    k7_sharded, record = 0, None
+    with compute_dtype(model, torch.float32):
+        single = Recorder(model)
+        single_eng = Engine(single, max_batch=LM_BATCH, max_len=LM_MAX_LEN)
+        single_reqs, forced = serve_forced(single_eng, prompts)
+        tok = torch.zeros((LM_BATCH, 1), dtype=torch.int64, device=cuda)
+        pos = torch.as_tensor(single_eng.pos, dtype=torch.int64, device=cuda)
+        print(f"sharded lm {arch}: one decode step, single slot: "
+              + step_idle(lambda: model.decode_step(tok, single_eng.cache, pos)))
+        require(single.k7 == attn * len(prompts), f"sharded lm {arch}: K7 launched "
+                f"{single.k7} times on the single slot's traffic ({attn} x {len(prompts)})")
+        del single_eng
+        for shape, mesh in meshes.items():
+            label = f"sharded lm {arch} {shape[0]}x{shape[1]}"
+            t0 = time.perf_counter()
+            sharded = model.place(mesh)
+            torch.cuda.synchronize()
+            place_s = time.perf_counter() - t0
+            held, want = slot_bytes(sharded)
+            require(held == [want] * SHARD_SLOTS,
+                    f"{label}: each slot holds {held} parameter bytes, spec_for's {want}")
+            shard = Recorder(sharded)
+            eng = Engine(shard, max_batch=LM_BATCH, max_len=LM_MAX_LEN)
+            reset_launches()
+            reqs, _ = serve_forced(eng, prompts, forced)
+            counts = launches()
+            k7_sharded += counts["flash_attention"]
+            errs = [max_err(a, b) / float(b.abs().max())
+                    for a, b in zip(shard.logits, single.logits)]
+            agree = sum(int(a == b) for r1, r2 in zip(single_reqs, reqs)
+                        for a, b in zip(r1.out, r2.out))
+            total = sum(len(r.out) for r in single_reqs)
+            print(f"{label}: placed in {place_s:.2f} s; {len(errs)} logits (prefill and steps), "
+                  f"largest error {np.max(errs):.3e} of max|logit|; greedy tokens agree "
+                  f"{agree} of {total}; prefill ms sharded "
+                  f"{', '.join(f'{x:.1f}' for x in shard.ms['prefill'])}, single "
+                  f"{', '.join(f'{x:.1f}' for x in single.ms['prefill'])}; decode step ms "
+                  f"median sharded {np.median(shard.ms['decode']):.3f}, single "
+                  f"{np.median(single.ms['decode']):.3f} ({len(shard.ms['decode'])} steps)")
+            require(len(errs) == len(single.logits) == len(forced)
+                    and all(np.isfinite(e) and e <= SHARDED_LOGITS_RTOL for e in errs),
+                    f"{label}: the logits of every prefill and decode step within "
+                    f"{SHARDED_LOGITS_RTOL} of max|logit| of the single slot's")
+            require(agree == total, f"{label}: every greedy token equals the single "
+                    f"slot's ({agree} of {total})")
+            require(counts["flash_attention"] == shard.k7 == SHARD_SLOTS * attn * len(prompts),
+                    f"{label}: K7 launched {counts['flash_attention']} times on the sharded "
+                    f"traffic ({SHARD_SLOTS} slots x {attn} attention layers x "
+                    f"{len(prompts)} prefills)")
+            pos = torch.as_tensor(eng.pos, dtype=torch.int64, device=cuda)
+            print(f"{label}: one decode step, sharded: "
+                  + step_idle(lambda: sharded.decode_step(tok, eng.cache, pos)))
+            del sharded, shard, eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        if arch == LM_ARCH:
+            record = k7_slot_record(model, prompts, cuda)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return k7_sharded, record
+
+
+def phase_sharded_lm(cuda) -> dict:
+    """Every model of ``SLM_MODELS`` over ``SLM_MESHES`` (4 slots of the
+    card, a stream and a thread each), under a deadline: a hang of a slot
+    ends the run with a failure. Returns K7's record at a slot's share,
+    its launches the sharded traffic's."""
+    print(card_line())
+    t0 = time.perf_counter()
+    # cuBLAS keeps a workspace for each stream it ran on (64 MiB on this
+    # card) for the life of the process: not the phase's tensors
+    torch._C._cuda_clearCublasWorkspaces()
+    held = torch.cuda.memory_allocated(cuda)
+    # one stream a slot, shared by every mesh of the phase
+    slots = rt_sharding.Mesh([cuda] * SHARD_SLOTS, ("slot",)).slots
+    meshes = {shape: rt_sharding.Mesh.of_slots(slots.reshape(shape), ("data", "model"))
+              for shape in SLM_MESHES}
+
+    def hung():
+        print(f"FAILED  sharded lm: the phase passed its {SLM_DEADLINE_S:.0f} s deadline "
+              "(a slot hangs)", flush=True)
+        os._exit(1)
+
+    watchdog = threading.Timer(SLM_DEADLINE_S, hung)
+    watchdog.daemon = True
+    watchdog.start()
+    try:
+        launched, record = 0, None
+        for arch, depth in SLM_MODELS:
+            t_model = time.perf_counter()
+            n, rec = sharded_lm_model(arch, depth, meshes, cuda)
+            launched += n
+            record = rec or record
+            print(f"sharded lm {arch}: {time.perf_counter() - t_model:.2f} s")
+    finally:
+        watchdog.cancel()
+    took = time.perf_counter() - t0
+    del meshes, slots
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated(cuda) - held
+    print(f"sharded lm phase: {took:.2f} s; device memory allocated {held / 2 ** 30:.3f} GiB "
+          f"before it, {left / 2 ** 20:.1f} MiB more after it, "
+          f"{torch.cuda.memory_reserved(cuda) / 2 ** 30:.3f} GiB reserved; {card_line()}")
+    require(left <= 64 * 2 ** 20, f"sharded lm: the phase left {left / 2 ** 20:.1f} MiB "
+            "allocated behind it (at most 64)")
+    require(took <= SLM_LIMIT_S, f"sharded lm phase took {took:.1f} s (limit {SLM_LIMIT_S:.0f} s)")
+    record["launches"] = launched
+    require(launched > 0, f"flash_attention_sharded_slot: K7 launched {launched} times on "
+            "the sharded traffic")
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3856,6 +4131,12 @@ def main() -> int:
         device_profile(torch.cuda.synchronize, {}, cpu=False)
         torch.backends.cuda.matmul.allow_tf32 = False
         phase_sharded(cuda)
+        return 1 if _failures else 0
+    if sys.argv[1:] == ["--sharded-lm"]:
+        phase_build()
+        device_profile(torch.cuda.synchronize, {}, cpu=False)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(json.dumps(phase_sharded_lm(cuda)))
         return 1 if _failures else 0
     if sys.argv[1:] == ["--service"]:
         phase_build()
@@ -3969,6 +4250,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     records += phase_train(cuda)
     records.append(phase_scan(cuda))
+    gc.collect()
+    torch.cuda.empty_cache()
+    records.append(phase_sharded_lm(cuda))
 
     if _failures:
         print(f"chip_smoke: {len(_failures)} check(s) failed", file=sys.stderr)

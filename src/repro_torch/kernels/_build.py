@@ -95,12 +95,25 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+#: guards the launch counters and geometry tables: the slots of a mesh
+#: launch from threads of their own (``runtime.sharding.run``)
+_COUNT_LOCK = threading.Lock()
+
+
+def count(table: dict, *names: str) -> None:
+    """Add one launch to each of ``names`` in a module's ``LAUNCHES``."""
+    with _COUNT_LOCK:
+        for name in names:
+            table[name] += 1
+
+
 def record(table: dict, name: str, shape: tuple, **geometry) -> None:
     """Keep the geometry a launch of kernel wrapper ``name`` ran with at
     ``shape`` in its module's ``GEOMETRY`` table (per shape, the last
     launch's). The static schedule gate holds it against the geometry its
     descriptors assume (``repro_torch.analysis.verifier.verify_launches``)."""
-    table.setdefault(name, {})[shape] = geometry
+    with _COUNT_LOCK:
+        table.setdefault(name, {})[shape] = geometry
 
 
 #: cudaErrorCooperativeLaunchTooLarge: a cooperative grid larger than the

@@ -126,7 +126,7 @@ def _launch(x, decay, h0, plan: Plan = None):
                     h_last.data_ptr(), T, D, plan.features, plan.stages,
                     int(plan.mode == TMA), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, name)
-    LAUNCHES[name] += 1
+    _build.count(LAUNCHES, name)
     return h_all, h_last
 
 

@@ -275,9 +275,9 @@ def _launch(q, k, v, causal: bool, body: str, with_lse: bool = False):
                 math.log2(math.e) / math.sqrt(d), int(causal),
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, lib)
-    LAUNCHES[name] += 1
+    _build.count(LAUNCHES, name)
     if lib != name:
-        LAUNCHES[lib] += 1
+        _build.count(LAUNCHES, lib)
     return (o, lse) if with_lse else o
 
 
@@ -327,9 +327,9 @@ def _launch_backward(q, k, v, o, lse, do, causal: bool, body: str | None = None)
                 math.log2(math.e) / math.sqrt(d), 1.0 / math.sqrt(d), int(causal),
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, lib)
-    LAUNCHES[name] += 1
+    _build.count(LAUNCHES, name)
     if lib != name:
-        LAUNCHES[lib] += 1
+        _build.count(LAUNCHES, lib)
     return dq, dk, dv
 
 

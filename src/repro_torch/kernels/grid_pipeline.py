@@ -385,7 +385,7 @@ def _launch(fn_name: str, name: str, pointers: list, ints: list) -> None:
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(torch.cuda.current_device()).cuda_stream
     _build.check(fn(*pointers, *ints, stream), name)
-    LAUNCHES[name] += 1
+    _build.count(LAUNCHES, name)
 
 
 def _launch_antidiag(arrs, meta, with_args: bool, grid=None):

@@ -164,7 +164,7 @@ def _launch(wtab, n, with_args, cluster=None):
                 None if ar is None else ar.data_ptr(), bt, n, L, C,
                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, name)
-    LAUNCHES[name] += 1
+    _build.count(LAUNCHES, name)
     _build.record(GEOMETRY, name, (n, bt), C=C, home=table_home(n),
                   smem=smem_bytes(n))
     if squeeze:

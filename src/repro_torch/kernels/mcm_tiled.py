@@ -227,7 +227,7 @@ def _launch(wtab, n, with_args, fused, grid=None):
                 colm.data_ptr(), bar.data_ptr(), bt, n, L, G, smem,
                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, name)
-    LAUNCHES[name] += 1
+    _build.count(LAUNCHES, name)
     _build.record(GEOMETRY, name, (n,), G=G, smem=smem)
     return _result(st, ar, nodes, squeeze, with_args, fused)
 

@@ -4,8 +4,9 @@ kernel module keeps (port of ``repro/kernels/ref.py``).
 :func:`tropical_matmul_ref` evaluates the weighted (min,+) product in one
 broadcast, with the candidate rounding of ``kernels/semiring_matmul.py``;
 the tests hold that module's K-chunked plain version against it.
-:func:`chunked_scan_ref` and :func:`attention_ref` are the oracles of K8
-and K7 (``kernels/chunked_scan.py``, ``kernels/flash_attention.py``).
+:func:`sdp_pipeline_ref` is K1's (the blocked S-DP table of
+``core/sdp.py``); :func:`chunked_scan_ref` and :func:`attention_ref` are
+the oracles of K8 and K7 (``kernels/chunked_scan.py``, ``kernels/flash_attention.py``).
 """
 from __future__ import annotations
 
@@ -24,6 +25,14 @@ def tropical_matmul_ref(a, b, av=None, gv=None, bv=None):
         t = fma_f32((av[..., :, None] * gv[..., None, :])[..., None],
                     bv[..., None, None, :], t)
     return t.amin(dim=-2)
+
+
+def sdp_pipeline_ref(st0, offsets, op, n, block):
+    """The blocked S-DP table (K1's oracle): ``core.sdp.solve_blocked`` on
+    the first ``offsets[0]`` cells of ``st0``."""
+    from repro_torch.core.sdp import solve_blocked
+
+    return solve_blocked(st0[: offsets[0]], tuple(offsets), op, n, block=block)
 
 
 def chunked_scan_ref(x, decay, h0):

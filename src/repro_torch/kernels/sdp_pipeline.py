@@ -156,7 +156,7 @@ def _launch(init, offsets, op, n, block, weights, with_args):
                     sdp_walk.smem_bytes(offsets, p, C, S),
                     torch.cuda.current_stream(dev).cuda_stream)
         _build.check(rc, name)
-        LAUNCHES[name] += 1
+        _build.count(LAUNCHES, name)
         _build.record(GEOMETRY, name, (offsets, op, weighted), Q=p.Q, R=p.R,
                       near=p.near, stage=p.stage, C=C, S=S,
                       threads=sdp_walk.threads(p, C, S),

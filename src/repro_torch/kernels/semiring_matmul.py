@@ -243,7 +243,7 @@ def _launch(a, b, av=None, gv=None, bv=None, plan: Plan = None):
                 plan.per_thread, plan.cluster, plan.groups, plan.slice, plan.stages,
                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, name)
-    LAUNCHES[name] += 1
+    _build.count(LAUNCHES, name)
     return c
 
 

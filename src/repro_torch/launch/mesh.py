@@ -2,9 +2,9 @@
 
 ``make_host_mesh`` builds a (data, model) mesh of slots over the visible
 cards, or over given slots (``["cpu"] * 4``, or one card listed several
-times). The reference's ``make_production_mesh`` (16 × 16 and 2 × 16 × 16
-chips) serves only its dry run, which the port does not have yet
-(ROADMAP queue 1); it comes with that port.
+times). ``make_production_mesh`` builds the reference's 16 × 16 and
+2 × 16 × 16 meshes over ``meta`` slots (placements computed, nothing
+allocated).
 """
 from __future__ import annotations
 
@@ -14,6 +14,19 @@ import numpy as np
 import torch
 
 from repro_torch.runtime.sharding import Mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """Single pod: (16, 16) data × model = 256 slots (a v5e pod).
+    Multi-pod: (2, 16, 16) pod × data × model = 512 slots; the ``pod`` axis
+    joins ``data`` for batch and FSDP sharding (compound axes in
+    ``runtime/sharding.py``). Every slot on ``meta``: placements are
+    computed, nothing is allocated."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    grid = np.empty(shape, dtype=object)
+    grid[...] = torch.device("meta")
+    return Mesh(grid, axes)
 
 
 def batch_axes(multi_pod: bool = False) -> tuple:

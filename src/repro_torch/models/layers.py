@@ -1,5 +1,6 @@
 """Shared neural layers (port of ``repro/models/layers.py``): RMSNorm, RoPE,
-SwiGLU, and the parameter definitions with their initialiser."""
+SwiGLU, and the parameter definitions with their sharding axes and
+initialiser."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,9 +10,12 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
-    """Shape and initialiser of one parameter: ``normal`` (N(0, scale²)),
-    ``small_normal`` (N(0, (scale/10)²)), ``ones`` or ``zeros``."""
+    """Shape, logical sharding axes (one name per dim, see
+    ``runtime/sharding.py``) and initialiser of one parameter: ``normal``
+    (N(0, scale²)), ``small_normal`` (N(0, (scale/10)²)), ``ones`` or
+    ``zeros``."""
     shape: tuple
+    axes: tuple
     init: str = "normal"
     scale: float = 0.02
 

@@ -28,13 +28,23 @@ The reference's simplifications hold here too: Jamba's Mamba-1 mixer in the
 Mamba-2/SSD scalar-decay-per-head form without the depthwise conv, and
 RWKV6's token-shift mixers as learned static coefficients with the decay
 ``w = exp(-exp(ŵ))``, ŵ clipped for float32.
+
+The mixers take a communicator (``runtime.sharding``; by default ``LOCAL``,
+one slot) and their weights' specs (None: not sharded). Under a mesh
+``ssm_inner`` is on ``model``: each head's scan is local to the slot that
+holds the head (its state ``h`` too, ``act_heads``), then a row-parallel
+``w_out`` is summed over ``model``; the channel mix shards ``ffn``.
+Mamba's ``w_in`` (x | z) and ``w_bc`` (B | C) are placed with whole heads
+of each part on every slot.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import ParamDef, rmsnorm, silu
+from repro_torch.models.layers import ParamDef, silu
+from repro_torch.runtime import sharding
+from repro_torch.runtime.sharding import LOCAL
 
 
 # ---------------------------------------------------------------------------
@@ -138,44 +148,62 @@ def mamba_defs(cfg) -> dict:
     s, d = cfg.ssm, cfg.d_model
     hv, hk = s.n_heads * s.d_head, s.n_heads * s.d_state
     return {
-        "w_in": ParamDef((d, 2 * hv)),
-        "w_bc": ParamDef((d, 2 * hk)),
-        "w_dt": ParamDef((d, s.n_heads)),
-        "dt_bias": ParamDef((s.n_heads,), "zeros"),
-        "a_log": ParamDef((s.n_heads,), "zeros"),
-        "dskip": ParamDef((s.n_heads,), "ones"),
-        "norm": ParamDef((hv,), "ones"),
-        "w_out": ParamDef((hv, d)),
+        "w_in": ParamDef((d, 2 * hv), ("embed", "ssm_inner")),
+        "w_bc": ParamDef((d, 2 * hk), ("embed", "ssm_inner")),
+        "w_dt": ParamDef((d, s.n_heads), ("embed", None)),
+        "dt_bias": ParamDef((s.n_heads,), (None,), "zeros"),
+        "a_log": ParamDef((s.n_heads,), (None,), "zeros"),
+        "dskip": ParamDef((s.n_heads,), (None,), "ones"),
+        "norm": ParamDef((hv,), (None,), "ones"),
+        "w_out": ParamDef((hv, d), ("ssm_inner", "embed")),
     }
 
 
-def mamba_empty_state(cfg, batch: int, dtype=torch.float32, device=None) -> dict:
+def mamba_empty_state(cfg, batch: int, dtype=torch.float32, device=None,
+                      heads=None) -> dict:
+    """The zero state of ``heads`` heads (default: all of them)."""
     s = cfg.ssm
-    return {"h": torch.zeros((batch, s.n_heads, s.d_state, s.d_head), dtype=dtype,
+    return {"h": torch.zeros((batch, heads or s.n_heads, s.d_state, s.d_head), dtype=dtype,
                              device=device)}
 
 
-def mamba_forward(p, cfg, x, state=None):
-    """x: (B, T, d). Returns (out, new_state). T = 1 with a state is decode."""
+def mamba_forward(p, cfg, x, state=None, comm=LOCAL, specs=None):
+    """x: (B, T, d). Returns (out, new_state). T = 1 with a state is decode.
+
+    Over a mesh each slot runs the scans of its heads (x | z and B | C
+    columns of whole heads, ``state["h"]`` its heads' states), the norm
+    over every head's output by a mean of squares averaged over ``model``,
+    and ``w_out``'s rows summed over ``model``; where the heads do not
+    divide, every slot gathers the weights and runs the whole mixer. The
+    output is replicated over ``model``."""
     s = cfg.ssm
+    share = _heads_share(specs, "w_in", s.n_heads, comm)
+    if share is None:
+        return mamba_forward(_whole(p, specs, comm, MAMBA_PARTS), cfg, x, state)
+    h0, h1 = share
     b, t, _ = x.shape
-    H, K, V = s.n_heads, s.d_state, s.d_head
+    K, V = s.d_state, s.d_head
     cd = cfg.compute_dtype
     if state is None:
-        state = mamba_empty_state(cfg, b, device=x.device)
+        state = mamba_empty_state(cfg, b, device=x.device, heads=h1 - h0)
     xg, z = torch.chunk(x @ p["w_in"].to(cd), 2, dim=-1)
-    xg = xg.reshape(b, t, H, V)
+    xg = xg.reshape(b, t, -1, V)
     bb, cc = torch.chunk(x @ p["w_bc"].to(cd), 2, dim=-1)
-    bb, cc = bb.reshape(b, t, H, K), cc.reshape(b, t, H, K)
-    dt = F.softplus((x @ p["w_dt"].to(cd)).float() + p["dt_bias"].float())   # (B,T,H)
-    a = -torch.exp(p["a_log"].float())
+    bb, cc = bb.reshape(b, t, -1, K), cc.reshape(b, t, -1, K)
+    dt = F.softplus((x @ p["w_dt"][:, h0:h1].to(cd)).float()
+                    + p["dt_bias"][h0:h1].float())                    # (B,T,H)
+    a = -torch.exp(p["a_log"][h0:h1].float())
     ld = dt * a[None, None]
     v = (xg.float() * dt[..., None]).to(cd)
     y, h_last = chunked_gla(cc, bb, v, ld, state["h"], chunk=s.chunk, mode="inclusive")
-    y = y + p["dskip"].to(cd)[None, None, :, None] * xg
-    y = rmsnorm(y.reshape(b, t, H * V), p["norm"], cfg.norm_eps)
+    y = y + p["dskip"][h0:h1].to(cd)[None, None, :, None] * xg
+    # RMS norm over every head: the slots' means of squares, averaged
+    y = y.reshape(b, t, -1)
+    yf = y.float()
+    ms = comm.all_reduce((yf * yf).mean(dim=-1, keepdim=True), "model") / comm.share("model")[1]
+    y = (yf * torch.rsqrt(ms + cfg.norm_eps) * p["norm"][h0 * V:h1 * V].float()).to(y.dtype)
     y = y * silu(z)
-    return y @ p["w_out"].to(cd), {"h": h_last}
+    return comm.all_reduce(y @ p["w_out"].to(cd), "model"), {"h": h_last}
 
 
 # ---------------------------------------------------------------------------
@@ -185,23 +213,25 @@ def rwkv_defs(cfg) -> dict:
     s, d = cfg.ssm, cfg.d_model
     hk, hv = s.n_heads * s.d_state, s.n_heads * s.d_head
     return {
-        "mix": ParamDef((5, d), "zeros"),   # r, k, v, g, w shifts
-        "w_r": ParamDef((d, hk)),
-        "w_k": ParamDef((d, hk)),
-        "w_v": ParamDef((d, hv)),
-        "w_g": ParamDef((d, hv)),
-        "w_w": ParamDef((d, hk), "normal", 0.002),
-        "w_bias": ParamDef((hk,), "zeros"),
-        "u": ParamDef((s.n_heads, s.d_state), "normal", 0.5),
-        "gn": ParamDef((hv,), "ones"),
-        "w_out": ParamDef((hv, d)),
+        "mix": ParamDef((5, d), (None, None), "zeros"),   # r, k, v, g, w shifts
+        "w_r": ParamDef((d, hk), ("embed", "ssm_inner")),
+        "w_k": ParamDef((d, hk), ("embed", "ssm_inner")),
+        "w_v": ParamDef((d, hv), ("embed", "ssm_inner")),
+        "w_g": ParamDef((d, hv), ("embed", "ssm_inner")),
+        "w_w": ParamDef((d, hk), ("embed", "ssm_inner"), "normal", 0.002),
+        "w_bias": ParamDef((hk,), (None,), "zeros"),
+        "u": ParamDef((s.n_heads, s.d_state), (None, None), "normal", 0.5),
+        "gn": ParamDef((hv,), (None,), "ones"),
+        "w_out": ParamDef((hv, d), ("ssm_inner", "embed")),
     }
 
 
-def rwkv_empty_state(cfg, batch: int, dtype=torch.float32, device=None) -> dict:
+def rwkv_empty_state(cfg, batch: int, dtype=torch.float32, device=None,
+                     heads=None) -> dict:
+    """The zero state of ``heads`` heads (default: all of them)."""
     s = cfg.ssm
     return {
-        "h": torch.zeros((batch, s.n_heads, s.d_state, s.d_head), dtype=dtype,
+        "h": torch.zeros((batch, heads or s.n_heads, s.d_state, s.d_head), dtype=dtype,
                          device=device),
         "x_prev": torch.zeros((batch, 1, cfg.d_model), dtype=cfg.compute_dtype,
                               device=device),
@@ -215,41 +245,53 @@ def _token_shift(x, x_prev):
 def rwkv_projections(p, cfg, x, x_prev) -> tuple:
     """The token-shifted projections of :func:`rwkv_forward`: r, k (B, T, H,
     K), v (B, T, H, V), the gate g (B, T, H·V) and the log decay ld (B, T,
-    H, K), float32 and ≤ 0: the inputs of its ``chunked_gla``."""
+    H, K), float32 and ≤ 0: the inputs of its ``chunked_gla``. H is the
+    heads ``p``'s columns hold (a slot's share under a mesh)."""
     s = cfg.ssm
     b, t, _ = x.shape
-    H, K, V = s.n_heads, s.d_state, s.d_head
+    K, V = s.d_state, s.d_head
     cd = cfg.compute_dtype
     xs = _token_shift(x, x_prev)
     mix = torch.sigmoid(p["mix"].float()).to(cd)                     # (5, d)
     xm = [x + mix[i][None, None] * (xs - x) for i in range(5)]
-    r = (xm[0] @ p["w_r"].to(cd)).reshape(b, t, H, K)
-    k = (xm[1] @ p["w_k"].to(cd)).reshape(b, t, H, K)
-    v = (xm[2] @ p["w_v"].to(cd)).reshape(b, t, H, V)
+    r = (xm[0] @ p["w_r"].to(cd)).reshape(b, t, -1, K)
+    k = (xm[1] @ p["w_k"].to(cd)).reshape(b, t, -1, K)
+    v = (xm[2] @ p["w_v"].to(cd)).reshape(b, t, -1, V)
     g = xm[3] @ p["w_g"].to(cd)
-    ww = (xm[4] @ p["w_w"].to(cd)).float().reshape(b, t, H, K)
-    ww = ww + p["w_bias"].float().reshape(H, K)[None, None]
+    ww = (xm[4] @ p["w_w"].to(cd)).float().reshape(b, t, -1, K)
+    ww = ww + p["w_bias"].float().reshape(-1, K)[None, None]
     ld = -torch.exp(torch.clamp(ww, -8.0, 1.0))                      # ≤ 0
     return r, k, v, g, ld
 
 
-def rwkv_forward(p, cfg, x, state=None):
-    """x: (B, T, d). Returns (out, new_state). T = 1 with a state is decode."""
+def rwkv_forward(p, cfg, x, state=None, comm=LOCAL, specs=None):
+    """x: (B, T, d). Returns (out, new_state). T = 1 with a state is decode.
+
+    Over a mesh each slot runs its heads' projections, scans and group
+    norms, then ``w_out``'s rows summed over ``model`` (the whole mixer on
+    gathered weights where the heads do not divide); ``x_prev`` is
+    replicated. The output is replicated over ``model``."""
     s = cfg.ssm
+    share = _heads_share(specs, "w_r", s.n_heads, comm)
+    if share is None:
+        return rwkv_forward(_whole(p, specs, comm), cfg, x, state)
+    h0, h1 = share
     b, t, _ = x.shape
-    H, V = s.n_heads, s.d_head
+    K, V = s.d_state, s.d_head
     cd = cfg.compute_dtype
     if state is None:
-        state = rwkv_empty_state(cfg, b, device=x.device)
+        state = rwkv_empty_state(cfg, b, device=x.device, heads=h1 - h0)
+    p = {**p, "w_bias": p["w_bias"][h0 * K:h1 * K], "u": p["u"][h0:h1],
+         "gn": p["gn"][h0 * V:h1 * V]}
     r, k, v, g, ld = rwkv_projections(p, cfg, x, state["x_prev"])
     y, h_last = chunked_gla(r, k, v, ld, state["h"], chunk=s.chunk, mode="bonus",
                             u=p["u"])
     # per-head group norm
     y32 = y.float()
     y32 = y32 * torch.rsqrt(torch.mean(y32 * y32, dim=-1, keepdim=True) + cfg.norm_eps)
-    y = (y32.reshape(b, t, H * V) * p["gn"].float()[None, None]).to(cd)
+    y = (y32.reshape(b, t, -1) * p["gn"].float()[None, None]).to(cd)
     y = y * silu(g)
-    return y @ p["w_out"].to(cd), {"h": h_last, "x_prev": x[:, -1:]}
+    return comm.all_reduce(y @ p["w_out"].to(cd), "model"), {"h": h_last, "x_prev": x[:, -1:]}
 
 
 # ---------------------------------------------------------------------------
@@ -258,15 +300,18 @@ def rwkv_forward(p, cfg, x, state=None):
 def rwkv_cm_defs(cfg) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "mix": ParamDef((2, d), "zeros"),
-        "w_k": ParamDef((d, f)),
-        "w_v": ParamDef((f, d)),
-        "w_r": ParamDef((d, d)),
+        "mix": ParamDef((2, d), (None, None), "zeros"),
+        "w_k": ParamDef((d, f), ("embed", "ffn")),
+        "w_v": ParamDef((f, d), ("ffn", "embed")),
+        "w_r": ParamDef((d, d), ("embed", None)),
     }
 
 
-def rwkv_cm_forward(p, cfg, x, x_prev=None):
-    """x: (B, T, d). Returns (out, the last token's x: the next x_prev)."""
+def rwkv_cm_forward(p, cfg, x, x_prev=None, comm=LOCAL, specs=None):
+    """x: (B, T, d). Returns (out, the last token's x: the next x_prev).
+    Over a mesh a slot holds ``w_k``'s columns and ``w_v``'s rows of its
+    ``ffn`` share, and the value is summed over ``model`` before the
+    receptance gate (``w_r`` replicated)."""
     b, _, d = x.shape
     cd = cfg.compute_dtype
     if x_prev is None:
@@ -277,4 +322,37 @@ def rwkv_cm_forward(p, cfg, x, x_prev=None):
     xr = x + mix[1][None, None] * (xs - x)
     kk = torch.square(torch.relu((xk @ p["w_k"].to(cd)).float())).to(cd)
     rr = torch.sigmoid((xr @ p["w_r"].to(cd)).float()).to(cd)
-    return rr * (kk @ p["w_v"].to(cd)), x[:, -1:]
+    kv = kk @ p["w_v"].to(cd)
+    if sharding.sharded(specs, "w_v", 0):
+        kv = comm.all_reduce(kv, "model")
+    return rr * kv, x[:, -1:]
+
+
+# ---------------------------------------------------------------------------
+# Heads over a mesh
+# ---------------------------------------------------------------------------
+#: the parts each mamba projection's ``ssm_inner`` columns concatenate
+MAMBA_PARTS = {"w_in": 2, "w_bc": 2}
+
+
+def _heads_share(specs: dict, name: str, n_heads: int, comm):
+    """(h0, h1) of the heads this slot's ``ssm_inner`` columns hold whole
+    (all of them on one slot), or None where the weights are replicated
+    over ``model`` or the heads do not divide it."""
+    j, m = comm.share("model")
+    if m == 1:
+        return 0, n_heads
+    if not sharding.sharded(specs, name, 1) or n_heads % m:
+        return None
+    return j * n_heads // m, (j + 1) * n_heads // m
+
+
+def _whole(p, specs: dict, comm, parts: dict = None) -> dict:
+    """``p`` with every ``model``-sharded weight gathered (the replicated
+    fallback where the heads do not divide ``model``)."""
+    out = {}
+    for name, w in p.items():
+        dims = [d for d, e in enumerate(specs[name]) if e is not None]
+        out[name] = (comm.all_gather(w, "model", dims[0], (parts or {}).get(name, 1))
+                     if dims else w)
+    return out

@@ -9,6 +9,13 @@ dense SwiGLU, MoE or the RWKV channel mix, by the config's layer pattern.
 Mode ``"train"`` runs a block with no cache (``CausalLM.forward`` groups
 the blocks by ``cfg.scan_period`` and checkpoints each group, as the
 reference remats its scan body).
+
+:func:`block_forward` is one layer's code for both: a ``Block`` runs it
+on its own parameters with the one-slot communicator, and under a mesh
+each slot runs it on its shard (``models/model.py::ShardedLM``) with the
+slot's communicator: the mixers and MLPs of ``attention``, ``moe`` and
+``ssm`` over the mesh, the SwiGLU with ``ffn`` on ``model``, and the
+caches placed by :func:`cache_axes`.
 """
 from __future__ import annotations
 
@@ -16,9 +23,10 @@ import torch
 from torch import nn
 
 from repro_torch.models import moe, ssm
-from repro_torch.models.attention import (attn_decode, attn_defs, attn_forward,
-                                          write_kv)
+from repro_torch.models.attention import attn_decode, attn_defs, attn_forward, write_prefill
 from repro_torch.models.layers import ParamDef, rmsnorm, swiglu
+from repro_torch.runtime import sharding
+from repro_torch.runtime.sharding import LOCAL, hint
 
 #: state entries an SSM mixer reads in decode and writes in prefill and decode
 _STATE = {"mamba": ("h",), "rwkv6": ("h", "x_prev")}
@@ -32,17 +40,18 @@ def _mlp_defs(cfg, kind: str) -> dict:
     if kind == "rwkv_cm":
         return ssm.rwkv_cm_defs(cfg)
     d, f = cfg.d_model, cfg.d_ff
-    return {"w_gate": ParamDef((d, f)), "w_up": ParamDef((d, f)),
-            "w_down": ParamDef((f, d))}
+    return {"w_gate": ParamDef((d, f), ("embed", "ffn")),
+            "w_up": ParamDef((d, f), ("embed", "ffn")),
+            "w_down": ParamDef((f, d), ("ffn", "embed"))}
 
 
 def block_defs(cfg, i: int) -> dict:
     """ParamDefs of layer ``i``, named as the reference's block tree."""
     d = cfg.d_model
     return {
-        "ln1": ParamDef((d,), "ones"),
+        "ln1": ParamDef((d,), (None,), "ones"),
         "mixer": _MIXER_DEFS[cfg.mixer_of(i)](cfg),
-        "ln2": ParamDef((d,), "ones"),
+        "ln2": ParamDef((d,), (None,), "ones"),
         "mlp": _mlp_defs(cfg, cfg.mlp_of(i)),
     }
 
@@ -62,8 +71,7 @@ class Block(nn.Module):
 
     def __init__(self, cfg, i: int, device=None):
         super().__init__()
-        self.cfg = cfg
-        self.mixer_kind, self.mlp_kind = cfg.mixer_of(i), cfg.mlp_of(i)
+        self.cfg, self.i = cfg, i
         self.moe_stats = None
         defs = block_defs(cfg, i)
         self.ln1 = _empty(defs["ln1"], cfg, device)
@@ -74,45 +82,66 @@ class Block(nn.Module):
                                      for k, d in defs["mlp"].items()})
 
     def forward(self, x, positions, mode: str, cache: dict = None, pos=None):
-        """mode "train" runs the block with no cache; "prefill" fills
-        ``cache`` (in place) over the whole prompt; "decode" runs T = 1
-        against it at ``pos``, advancing the SSM states of every row of the
-        batch. Returns (x, aux): aux the MoE block's load-balance loss, 0.0
-        for the other MLPs."""
-        if mode not in ("train", "prefill", "decode"):
-            raise ValueError(f"unknown mode {mode!r}")
-        cfg = self.cfg
-        decode, train = mode == "decode", mode == "train"
-        h = rmsnorm(x, self.ln1, cfg.norm_eps)
-        if self.mixer_kind == "attn":
-            if decode:
-                mix, _ = attn_decode(self.mixer, cfg, h, cache, pos)
-            else:
-                mix, (k, v) = attn_forward(self.mixer, cfg, h, positions)
-                if not train:
-                    write_kv(cache, k, v, slice(None), slice(0, k.shape[1]))
+        """:func:`block_forward` on this block's parameters."""
+        stats = None
+        if self.moe_stats is not None and self.cfg.mlp_of(self.i) == "moe":
+            stats = self.moe_stats.setdefault(mode, {})
+        p = {"ln1": self.ln1, "mixer": self.mixer, "ln2": self.ln2, "mlp": self.mlp}
+        return block_forward(p, self.cfg, self.i, x, positions, mode, cache, pos, stats=stats)
+
+
+def block_forward(p: dict, cfg, i: int, x, positions, mode: str, cache: dict = None,
+                  pos=None, *, stats=None, comm=LOCAL, specs=None, cache_specs=None,
+                  batch_spec=None):
+    """Layer ``i`` on its weights ``p`` (nested as :func:`block_defs`).
+    mode "train" runs the block with no cache; "prefill" fills ``cache``
+    (in place) over the whole prompt; "decode" runs T = 1 against it at
+    ``pos``, advancing the SSM states of every row of the batch. ``stats``
+    goes to an MoE block (see ``moe.moe_forward``). Returns (x, aux): aux
+    the MoE block's load-balance loss, 0.0 for the other MLPs.
+
+    Over a mesh ``comm`` is the slot's communicator, ``p`` its weights with
+    their FSDP dims gathered and ``specs`` their specs; ``x`` is the slot's
+    share of the batch along ``batch_spec``, and ``cache`` its shard of
+    the layer's cache (placed by ``cache_specs``). The output is
+    replicated over ``model``."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
+    decode, train = mode == "decode", mode == "train"
+    kind, mlp_kind = cfg.mixer_of(i), cfg.mlp_of(i)
+    sm, sl = (specs["mixer"], specs["mlp"]) if specs else (None, None)
+    kv_spec = cache_specs["k"] if cache_specs and kind == "attn" else None
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    if kind == "attn":
+        if decode:
+            mix, _ = attn_decode(p["mixer"], cfg, h, cache, pos, comm, sm, kv_spec)
         else:
-            names = _STATE[self.mixer_kind]
-            state = {n: cache[n] for n in names} if decode else None
-            mix, new = _SSM_FORWARD[self.mixer_kind](self.mixer, cfg, h, state)
+            mix, (k, v) = attn_forward(p["mixer"], cfg, h, positions, comm, sm)
             if not train:
-                for n in names:
-                    cache[n].copy_(new[n])
-        x = x + mix
-        h2 = rmsnorm(x, self.ln2, cfg.norm_eps)
-        aux = 0.0
-        if self.mlp_kind == "moe":
-            stats = None if self.moe_stats is None else self.moe_stats.setdefault(mode, {})
-            out, aux = moe.moe_forward(self.mlp, cfg, h2, stats=stats)
-        elif self.mlp_kind == "rwkv_cm":
-            out, x_cm = ssm.rwkv_cm_forward(self.mlp, cfg, h2,
-                                            cache["x_cm"] if decode else None)
-            if not train:
-                cache["x_cm"].copy_(x_cm)
-        else:
-            out = swiglu(h2, self.mlp["w_gate"], self.mlp["w_up"],
-                         self.mlp["w_down"], cfg.compute_dtype)
-        return x + out, aux
+                write_prefill(cache, k, v, comm, kv_spec)
+    else:
+        names = _STATE[kind]
+        state = {n: cache[n] for n in names} if decode else None
+        mix, new = _SSM_FORWARD[kind](p["mixer"], cfg, h, state, comm, sm)
+        if not train:
+            for n in names:
+                cache[n].copy_(new[n])
+    x = x + mix
+    h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    aux = 0.0
+    if mlp_kind == "moe":
+        out, aux = moe.moe_forward(p["mlp"], cfg, h2, stats, comm, sl, batch_spec)
+    elif mlp_kind == "rwkv_cm":
+        out, x_cm = ssm.rwkv_cm_forward(p["mlp"], cfg, h2, cache["x_cm"] if decode else None,
+                                        comm, sl)
+        if not train:
+            cache["x_cm"].copy_(x_cm)
+    else:
+        out = swiglu(h2, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"],
+                     cfg.compute_dtype)
+        if sharding.sharded(sl, "w_down", 0):
+            out = comm.all_reduce(out, "model")
+    return hint(x + out, ("act_batch", "act_seq", "act_embed"), src=(batch_spec, None, None)), aux
 
 
 def train_group(blocks, x, aux, positions) -> tuple:
@@ -150,5 +179,26 @@ def empty_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
         if cfg.mlp_of(i) == "rwkv_cm":
             c["x_cm"] = torch.zeros((batch, 1, cfg.d_model), dtype=cfg.compute_dtype,
                                     device=device)
+        out.append(c)
+    return out
+
+
+def cache_axes(cfg) -> list:
+    """Logical sharding axes mirroring :func:`empty_cache`, one dict per
+    layer: the reference's per-period-position dicts without their leading
+    ``layers`` axis (k_scale and v_scale listed whatever the dtype)."""
+    out = []
+    for i in range(cfg.n_layers):
+        kind = cfg.mixer_of(i)
+        if kind == "attn":
+            kv = ("act_batch", "kv_seq", None, None)
+            c = {"k": kv, "v": kv, "k_scale": kv, "v_scale": kv}
+        elif kind == "mamba":
+            c = {"h": ("act_batch", "act_heads", None, None)}
+        else:
+            c = {"h": ("act_batch", "act_heads", None, None),
+                 "x_prev": ("act_batch", None, None)}
+        if cfg.mlp_of(i) == "rwkv_cm":
+            c["x_cm"] = ("act_batch", None, None)
         out.append(c)
     return out

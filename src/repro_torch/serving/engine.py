@@ -54,9 +54,7 @@ class Engine:
                                  device=self.model.device)[None]
         logits, cache1 = self.model.prefill(tokens, max_len=self.s,
                                             cache_dtype=self.cache_dtype)
-        for big, small in zip(self.cache, cache1):   # scatter into the slot
-            for name, buf in big.items():
-                buf[slot] = small[name][0]
+        self.model.insert_cache(self.cache, cache1, slot)   # scatter into the slot
         first = int(torch.argmax(logits[0]))
         req.out.append(first)
         if req.max_new_tokens <= 1 or first == req.eos_id:

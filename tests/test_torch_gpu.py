@@ -1561,3 +1561,67 @@ def test_compressed_psum_joins_the_slots_streams(cuda):
         got = compressed_psum(late_shards(factor), mesh)
         torch.cuda.synchronize()
         assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("mesh", [(1, 4), (2, 2)], ids=["1x4", "2x2"])
+@pytest.mark.parametrize("arch", ["qwen3-14b", "granite-moe-3b-a800m", "rwkv6-1.6b",
+                                  "granite-20b"])
+def test_sharded_lm_on_four_slots_of_the_card(cuda, arch, mesh):
+    """The reduced model over four slots of the card (one stream and one
+    thread a slot): prefill and two decode steps within 1e-5 of max|logit|
+    of the single slot's, the cache gathered likewise; K7 launched once a
+    slot and attention layer on the sharded prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import CausalLM
+
+    cfg = get_config(arch).reduced()
+    model = CausalLM.from_seed(cfg, seed=0, device=cuda)
+    sharded = model.place(make_host_mesh(*mesh, devices=[cuda] * 4))
+    toks = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 96)),
+                           device=cuda)
+
+    def close(a, b):
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= 1e-5 * max(float(b.abs().max()), 1.0)
+
+    ls, cs = model.prefill(toks, max_len=128, cache_dtype=torch.float32)
+    before = k7.LAUNCHES["flash_attention"]
+    lg, cg = sharded.prefill(toks, max_len=128, cache_dtype=torch.float32)
+    attn = sum(cfg.mixer_of(i) == "attn" for i in range(cfg.n_layers))
+    assert k7.LAUNCHES["flash_attention"] - before == 4 * attn
+    close(lg, ls)
+    tok = ls.argmax(-1, keepdim=True)
+    for pos in (96, 97):
+        ls, cs = model.decode_step(tok, cs, pos)
+        lg, cg = sharded.decode_step(tok, cg, pos)
+        close(lg, ls)
+        tok = ls.argmax(-1, keepdim=True)
+    for g, s in zip(sharded.gather_cache(cg), cs):
+        for name in s:
+            close(g[name], s[name])
+
+
+def test_a_slot_kernel_failure_raises_out_of_the_sharded_prefill(cuda, monkeypatch):
+    """K7's launch failing on one slot's thread raises out of ``prefill``;
+    every slot's thread has ended."""
+    import threading
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import CausalLM
+
+    cfg = get_config("qwen3-14b").reduced()
+    sharded = CausalLM.from_seed(cfg, seed=0, device=cuda).place(
+        make_host_mesh(1, 4, devices=[cuda] * 4))
+    real = k7._launch
+
+    def failing(*args, **kw):
+        if threading.current_thread().name == "slot2":
+            raise RuntimeError("flash_attention: CUDA launch failed on slot 2")
+        return real(*args, **kw)
+
+    monkeypatch.setattr(k7, "_launch", failing)
+    with pytest.raises(RuntimeError, match="slot 2"):
+        sharded.prefill(torch.zeros((1, 16), dtype=torch.int64, device=cuda), max_len=16)
+    assert not [t for t in threading.enumerate() if t.name.startswith("slot")]

@@ -149,3 +149,31 @@ def test_sharding_slice_is_scanned_on_its_own():
         text = f.read_text()
         assert not FORBIDDEN.findall(text), f"{f.relative_to(ROOT)} imports JAX or repro"
         assert not env.search(text), f.relative_to(ROOT)
+
+
+def test_lm_sharding_slice_is_scanned_on_its_own():
+    """The sharded LM's modules and the LM serving example exist, import no
+    JAX and no ``repro`` (nor load them when imported), and read no
+    environment variable."""
+    files = [PORT / p for p in (
+        "models/layers.py", "models/attention.py", "models/transformer.py",
+        "models/moe.py", "models/ssm.py", "models/model.py", "serving/engine.py",
+        "runtime/sharding.py", "launch/mesh.py", "kernels/ref.py", "kernels/_build.py",
+        "kernels/flash_attention.py")] + [ROOT / "examples" / "torch_serve_lm.py"]
+    env = re.compile(r"os\.environ|getenv")
+    for f in files:
+        text = f.read_text()
+        assert not FORBIDDEN.findall(text), f"{f.relative_to(ROOT)} imports JAX or repro"
+        assert not env.search(text), f.relative_to(ROOT)
+    code = ("import sys; from repro_torch.models.model import ShardedLM, place_params; "
+            "from repro_torch.runtime.sharding import activate, hint, run, Comm; "
+            "from repro_torch.launch.mesh import make_production_mesh; "
+            "from repro_torch.kernels.ref import sdp_pipeline_ref; "
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "assert not bad, bad; print('clean')")
+    env_vars = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env_vars, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"

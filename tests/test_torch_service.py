@@ -162,7 +162,7 @@ def test_admission_overload_and_cache_hits_are_never_shed():
     assert s["submitted"] == s["completed"] + s["expired"] + s["shed"]
 
 
-def test_explicit_mesh_raises_until_sharding_is_ported():
+def test_mesh_argument_of_another_kind_raises_type_error():
     """A mesh argument other than "auto", None or a port ``Mesh`` of slots
     (here a reference-style tuple of axis names) raises."""
     with pytest.raises(TypeError, match="Mesh"):
