@@ -7,6 +7,7 @@
     python3 chip_smoke.py --sharded       # the sharded path alone
     python3 chip_smoke.py --families      # the MoE and SSM families alone
     python3 chip_smoke.py --train         # the training path alone
+    python3 chip_smoke.py --sharded-train # the sharded train step alone
     python3 chip_smoke.py --train-witness # phi3's 6 steps on a 6-step schedule,
                                           # bf16 and float32 compute (not in the
                                           # default run)
@@ -176,7 +177,15 @@ equal to the single slot's, each slot's parameter bytes
 equal to ``spec_for``'s, K7 launched once a slot and attention layer a
 prefill, the times and a decode step's idle share, and K7 at slot 0's share
 of a served prompt against its plain version; a watchdog ends the run at
-the phase's deadline if a slot hangs.
+the phase's deadline if a slot hangs; and after it the sharded train step
+(``--sharded-train`` alone): phi3-mini-3.8b (depth 8) and
+granite-moe-3b-a800m (depth 4) at full width trained over the same (1, 4)
+and (2, 2) slots (``ShardedLM.grads``, ``train_step``), in float32 and in
+bf16, against the single slot on the same weights and batch, K7 launched
+twice and K7b once an attention layer and slot, phi3's float32 AdamW step
+against ``build_step``, and ``launch/dryrun.py``'s trace of its (2, 2) step
+on ``meta`` slots against the collectives slot 0 carried and its real
+argument bytes; K7 and K7b at slot 0's share of a layer beside SDPA.
 
 K1, K2, K3, K4 and K6 (both schedules) are also timed at every shape they
 launch on the main and grid paths (each new shape held against the plain
@@ -4099,6 +4108,347 @@ def phase_sharded_lm(cuda) -> dict:
     return record
 
 
+# ---------------------------------------------------------------------------
+# Sharded training: the per-rank train step over SHARD_SLOTS slots of the card
+# ---------------------------------------------------------------------------
+#: (arch, depth) trained at full width over each of SLM_MESHES, each in
+#: float32 (parameters and compute: K7's and K7b's CUDA-core bodies) and in
+#: bf16 (their tensor-core bodies); the batch (sequences x tokens) and lr;
+#: float32 held to the CPU tests' bounds (tests/test_torch_sharded_train.py:
+#: the loss relative, each gradient a share of its max |value|, the step's
+#: loss and grad norm relative and the parameters after it a share of max
+#: |value|, an element whose gradient is noise within two steps of lr), bf16
+#: the loss and every gradient to 2e-2 of max|·| over every gradient of the
+#: single slot's; the phase's collective timeout (a hang fails the run
+#: there), deadline and limit
+SHT_MODELS = (("phi3-mini-3.8b", 8), ("granite-moe-3b-a800m", 4))
+SHT_BATCH, SHT_SEQ, SHT_LR = 4, 1024, 3e-4
+SHT_LOSS_RTOL, SHT_GRAD_TOL, SHT_STEP_RTOL, SHT_BF16_RTOL = 1e-5, 1e-4, 1e-4, 2e-2
+SHT_TIMEOUT_S, SHT_DEADLINE_S, SHT_LIMIT_S = 120.0, 420.0, 120.0
+
+
+def single_grads(model, batch, upstream: dict = None) -> tuple:
+    """(loss, {name: gradient}) of ``loss_fn`` on the single slot;
+    ``upstream``, where given, receives the gradient at the token
+    embeddings (``upstream["u"]``, (B, T, d))."""
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.requires_grad_(True)
+    if upstream is not None:
+        def embed(tokens, frontend=None):
+            x = type(model).embed_tokens(model, tokens, frontend)
+            x.register_hook(lambda g: upstream.__setitem__("u", g))
+            return x
+
+        model.embed_tokens = embed
+    try:
+        loss, _ = loss_fn(model, batch)
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    finally:
+        if upstream is not None:
+            del model.embed_tokens
+    return float(loss.detach()), {n: torch.zeros_like(p) if g is None else g
+                                  for (n, p), g in zip(params.items(), grads)}
+
+
+def embedding_witness(model, batch, u, port: torch.Tensor, truth: torch.Tensor,
+                      label: str) -> None:
+    """The bf16 embedding gradient's rounding, apart from the bf16 noise
+    upstream of it: the single slot's gradient at the token embeddings
+    (``u``) summed per token by PyTorch's gradient of a bf16 table's lookup
+    (``index_put_`` with accumulate into the bf16 table) and in float32;
+    the float32 sum against float32 compute on the same weights
+    (``truth``: the upstream noise), and the port's gradient (``port``,
+    the lookup in float32) against the float32 sum."""
+    tok = batch["tokens"].reshape(-1).long()
+    u = u.reshape(tok.numel(), -1)
+    w = model.embed.detach()
+    bf16_sum = torch.zeros_like(w).index_put_((tok,), u.to(w.dtype), accumulate=True).float()
+    f32_sum = torch.zeros(w.shape, dtype=torch.float32, device=w.device).index_put_(
+        (tok,), u.float(), accumulate=True)
+    scale = float(f32_sum.abs().max())
+    share = lambda a, b: float((a.float() - b.float()).abs().max()) / scale
+    print(f"{label}: embedding witness on the same upstream gradient: PyTorch's bf16 lookup "
+          f"gradient {share(bf16_sum, f32_sum):.3e} of max|g| from the float32 sum; the "
+          f"float32 sum {share(f32_sum, truth):.3e} from float32 compute; the port's "
+          f"gradient {share(port, f32_sum):.3e} from the float32 sum")
+
+
+def whole_share(got: dict, want: dict) -> float:
+    """The largest error over every tensor as a share of the largest
+    |want| over every tensor (NaN where ``got`` is not finite)."""
+    err = np.max([float((got[n].float() - w.float()).abs().max()) for n, w in want.items()])
+    scale = max(float(w.float().abs().max()) for w in want.values())
+    return float(err) / max(scale, 1e-30)
+
+
+def worst_share(got: dict, want: dict, skip: dict = None) -> tuple:
+    """(the largest error as a share of its tensor's max |want|, its name);
+    where ``skip[name]`` (a mask) is given those elements are left out."""
+    worst = (0.0, "")
+    for n, w in want.items():
+        err = (got[n].float() - w.float()).abs()
+        if skip is not None:
+            err = torch.where(skip[n], 0.0, err)
+        share = float(err.max()) / max(float(w.float().abs().max()), 1e-30)
+        if not np.isfinite(float(got[n].float().abs().max())):
+            share = float("inf")
+        worst = max(worst, (share, n))
+    return worst
+
+
+def sharded_step_check(model, cfg, sharded, batch, label: str) -> None:
+    """One AdamW step on the single slot (``build_step``) and over the mesh
+    from the same weights: the loss and grad norm within ``SHT_STEP_RTOL``,
+    the parameters within ``SHT_STEP_RTOL`` of max |value| (an element
+    whose gradient is noise, within two steps of lr)."""
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw, schedules
+
+    _, grads = single_grads(model, batch)
+    noise = {n: g.abs() <= SHT_GRAD_TOL * g.abs().max() for n, g in grads.items()}
+    del grads
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    state = train.init_state(model)
+    single = train.build_step(model, cfg, SHT_LR, 20)(state, batch)[1]
+    del state
+    opt_cfg = adamw.AdamWConfig(lr=schedules.warmup_cosine(SHT_LR, 10, 20))
+    opt = sharded.init_opt(opt_cfg)
+    got = sharded.train_step(opt_cfg, opt, batch)
+    del opt
+    lr = float(single["lr"])
+    gathered = sharded.gather_params()
+    rel = {k: abs(float(got[k]) - float(single[k])) / abs(float(single[k]))
+           for k in ("loss", "grad_norm")}
+    share, name = worst_share(gathered, {n: p.detach() for n, p in model.named_parameters()},
+                              noise)
+    moved = max(float(torch.where(noise[n], (gathered[n] - p.detach()).abs(), 0.0).max())
+                for n, p in model.named_parameters())
+    print(f"{label}: one AdamW step, loss {float(got['loss'])} against {float(single['loss'])}, "
+          f"grad norm {float(got['grad_norm'])} against {float(single['grad_norm'])}; "
+          f"parameters within {share:.3e} of max|p| ({name}), noise elements within "
+          f"{moved:.3e} (lr {lr:.3e})")
+    require(all(r <= SHT_STEP_RTOL for r in rel.values()) and share <= SHT_STEP_RTOL
+            and moved <= 2 * lr, f"{label}: the step's loss and grad norm within "
+            f"{SHT_STEP_RTOL} ({rel}), the parameters within {SHT_STEP_RTOL} of max|p|, "
+            "noise elements within two steps of lr")
+    with torch.no_grad():   # the next mesh starts from the same weights
+        for n, p in model.named_parameters():
+            p.copy_(start[n])
+
+
+def sharded_train_dryrun(cfg, arch: str, sharded, batch, label: str) -> None:
+    """One train step over the (2, 2) mesh with slot 0's collectives logged,
+    against ``dryrun.run_cell`` of the same step on a (2, 2) mesh of
+    ``meta`` slots: the collectives' kinds, counts and bytes, and the
+    argument bytes against slot 0's real shards."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import dryrun, op_analysis
+    from repro_torch.optim import adamw, schedules
+
+    opt_cfg = adamw.AdamWConfig(lr=schedules.warmup_cosine(3e-4, 100, 10_000))
+    opt = sharded.init_opt(opt_cfg)
+    shards, b = sharded.split_batch(batch)
+
+    def fn(comm):
+        if comm.rank == 0:
+            comm.log = []
+        sharded.rank_train_step(comm, opt_cfg, opt[comm.index], shards[comm.index], b)
+        return comm.log
+
+    with rt_sharding.activate(sharded.mesh, sharded.rules):
+        log = rt_sharding.run(sharded.mesh, fn)[0, 0]
+    real = sum(t.numel() * t.element_size()
+               for t in (*sharded.params[0, 0].values(), *opt[0, 0]["m"].values(),
+                         *opt[0, 0]["v"].values(), opt[0, 0]["step"],
+                         *shards[0, 0][0].values()))
+    del opt
+    grid = np.empty(tuple(sharded.mesh.shape.values()), dtype=object)
+    grid[...] = torch.device("meta")
+    mesh = rt_sharding.Mesh(grid, sharded.mesh.axis_names)
+    base = dryrun.get_config(arch)
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(arch, "smoke_train", False, microbatches=1,
+                          cfg_overrides={f.name: getattr(cfg, f.name)
+                                         for f in dataclasses.fields(cfg)
+                                         if getattr(cfg, f.name) != getattr(base, f.name)},
+                          mesh=mesh, shape=ShapeCell("smoke_train", SHT_SEQ, SHT_BATCH, "train"))
+    nbytes, counts = op_analysis.collectives(log)
+    print(f"{label}: the dry run of the step on meta slots in {time.perf_counter() - t0:.2f} s: "
+          f"collectives {rec['collective_counts']} / {rec['collectives']}, the real step's "
+          f"{counts} / {nbytes}; argument bytes {rec['argument_size_in_bytes']} against slot "
+          f"0's {real}; {rec['flops']:.4e} FLOP, {rec['hbm_per_device'] / 2 ** 30:.3f} GiB "
+          f"a slot predicted")
+    require(rec["collective_counts"] == counts and rec["collectives"] == nbytes,
+            f"{label}: the dry run's collective kinds, counts and bytes equal the real step's")
+    require(rec["argument_size_in_bytes"] == real,
+            f"{label}: the dry run's argument bytes equal slot 0's real shards")
+
+
+def sharded_train_model(arch: str, depth: int, meshes: dict, cuda) -> dict:
+    """``arch`` at full width and ``depth`` layers, in float32 and bf16: the
+    loss and gradients over each mesh against the single slot's, K7's and
+    K7b's launches counted on each; phi3's float32 step checked and its
+    bf16 step's collectives against the dry run. Returns the launches by
+    counter over the sharded runs and, for phi3, q, k and v at slot 0's
+    share of layer 0 on (1, 4) in bf16."""
+    totals = {k: 0 for k in k7.LAUNCHES}
+    slot_qkv = None
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = dataclasses.replace(get_config(arch), n_layers=depth, param_dtype=dtype,
+                                  compute_dtype=dtype)
+        model = init_model(cfg, cuda, f"sharded train {arch} {str(dtype)[6:]}")
+        batch = {k: v if v.is_floating_point() else v.int()   # int32 tokens, as the dry run's
+                 for k, v in train_batches(cfg, SHT_BATCH, SHT_SEQ, cuda)(0).items()}
+        attn = sum(cfg.mixer_of(i) == "attn" for i in range(cfg.n_layers))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        upstream = {} if dtype == torch.bfloat16 else None
+        loss, want = single_grads(model, batch, upstream)
+        torch.cuda.synchronize()
+        single_s = time.perf_counter() - t0
+        truth = None
+        if dtype == torch.bfloat16:   # float32 compute on the same (bf16) weights
+            wide = dataclasses.replace(cfg, param_dtype=torch.float32,
+                                       compute_dtype=torch.float32)
+            model32 = CausalLM(wide, device=cuda)
+            model32.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
+            truth = single_grads(model32, batch)[1]
+            del model32
+            counts = np.bincount(batch["tokens"].flatten().cpu().numpy())
+            print(f"sharded train {arch} bf16: the single slot's gradients against float32 "
+                  f"compute on the same weights: {worst_share(want, truth)}, all within "
+                  f"{whole_share(want, truth):.3e}; the batch's most frequent token "
+                  f"{counts.max()} times of {counts.sum()}")
+            embedding_witness(model, batch, upstream.pop("u"), want["embed"], truth["embed"],
+                              f"sharded train {arch} bf16")
+        for shape, mesh in meshes.items():
+            label = f"sharded train {arch} {str(dtype)[6:]} {shape[0]}x{shape[1]}"
+            sharded = model.place(mesh)
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            grads, metrics = sharded.grads(batch)
+            torch.cuda.synchronize()
+            took = time.perf_counter() - t0
+            counts = launches()
+            for key in totals:
+                totals[key] += counts[key]
+            rel = abs(float(metrics["loss"]) - loss) / abs(loss)
+            share, name = worst_share(grads, want)
+            whole = whole_share(grads, want)
+            if truth is not None:
+                print(f"{label}: against float32 compute on the same weights: "
+                      f"{worst_share(grads, truth)}, all within {whole_share(grads, truth):.3e}; "
+                      "per tensor against the single slot: "
+                      + ", ".join(f"{n} {worst_share({n: grads[n]}, {n: want[n]})[0]:.2e}"
+                                  for n in sorted(want, key=lambda n: -worst_share(
+                                      {n: grads[n]}, {n: want[n]})[0])[:6]))
+            print(f"{label}: loss {float(metrics['loss'])} against the single slot's {loss} "
+                  f"(relative {rel:.3e}); each gradient within {share:.3e} of its max|g| "
+                  f"({name}), all within {whole:.3e} of the largest; "
+                  f"{took:.3f} s (single slot {single_s:.3f} s); K7 {counts['flash_attention']} "
+                  f"(tensor cores {counts['flash_attention_tc']}), K7b "
+                  f"{counts['flash_attention_bwd']} (tensor cores "
+                  f"{counts['flash_attention_bwd_tc']})")
+            if dtype == torch.float32:
+                require(rel <= SHT_LOSS_RTOL and share <= SHT_GRAD_TOL,
+                        f"{label}: the loss within {SHT_LOSS_RTOL} and each gradient within "
+                        f"{SHT_GRAD_TOL} of its max|g| of the single slot's")
+            else:
+                require(np.isfinite(float(metrics["loss"])) and rel <= SHT_BF16_RTOL
+                        and whole <= SHT_BF16_RTOL, f"{label}: the loss and every gradient "
+                        f"finite and within {SHT_BF16_RTOL} of max|·| of the single slot's")
+            slots = SHARD_SLOTS
+            tc = dtype == torch.bfloat16
+            want_counts = {"flash_attention": 2 * attn * slots,
+                           "flash_attention_tc": 2 * attn * slots if tc else 0,
+                           "flash_attention_bwd": attn * slots,
+                           "flash_attention_bwd_tc": attn * slots if tc else 0}
+            require({k: counts[k] for k in want_counts} == want_counts,
+                    f"{label}: K7 twice and K7b once an attention layer, slot and "
+                    f"microbatch ({attn} x {slots} x 1): {want_counts}")
+            del grads
+            if dtype == torch.float32 and arch == SHT_MODELS[0][0]:
+                sharded_step_check(model, cfg, sharded, batch, label)
+            if tc and arch == SHT_MODELS[0][0] and shape == (2, 2):
+                sharded_train_dryrun(cfg, arch, sharded, batch, label)
+            if tc and arch == SHT_MODELS[0][0] and shape == (1, 4):
+                with torch.no_grad():
+                    h = rmsnorm(model.embed_tokens(batch["tokens"]), model.layers[0].ln1,
+                                cfg.norm_eps)
+                    positions = torch.arange(SHT_SEQ, device=cuda).expand(SHT_BATCH, SHT_SEQ)
+                    q, k, v = (heads_major(t) for t in _project_qkv(model.layers[0].mixer,
+                                                                     cfg, h, positions))
+                    hq, hkv = cfg.n_heads // slots, cfg.n_kv_heads // slots
+                    slot_qkv = tuple(t.contiguous() for t in (q[:, :hq], k[:, :hkv], v[:, :hkv]))
+            del sharded
+            gc.collect()
+            torch.cuda.empty_cache()
+        del model, want, batch, truth
+        gc.collect()
+        torch.cuda.empty_cache()
+    return totals, slot_qkv
+
+
+def phase_sharded_train(cuda) -> list:
+    """Every model of ``SHT_MODELS`` trained over ``SLM_MESHES`` (4 slots of
+    the card), under a collective timeout of ``SHT_TIMEOUT_S`` and a
+    deadline; then K7 and K7b at slot 0's share of phi3's layer 0 in bf16,
+    against their plain versions and beside SDPA. Returns their records,
+    launches the phase's."""
+    props = torch.cuda.get_device_properties(0)
+    print(f"{card_line()}; total_memory {props.total_memory} bytes")
+    t0 = time.perf_counter()
+    torch._C._cuda_clearCublasWorkspaces()
+    held = torch.cuda.memory_allocated(cuda)
+    slots = rt_sharding.Mesh([cuda] * SHARD_SLOTS, ("slot",)).slots
+    meshes = {shape: rt_sharding.Mesh.of_slots(slots.reshape(shape), ("data", "model"))
+              for shape in SLM_MESHES}
+    timeout = rt_sharding.COLLECTIVE_TIMEOUT_S
+    rt_sharding.COLLECTIVE_TIMEOUT_S = SHT_TIMEOUT_S
+
+    def hung():
+        print(f"FAILED  sharded train: the phase passed its {SHT_DEADLINE_S:.0f} s deadline "
+              "(a slot hangs)", flush=True)
+        os._exit(1)
+
+    watchdog = threading.Timer(SHT_DEADLINE_S, hung)
+    watchdog.daemon = True
+    watchdog.start()
+    try:
+        totals, qkv = {k: 0 for k in k7.LAUNCHES}, None
+        for arch, depth in SHT_MODELS:
+            t_model = time.perf_counter()
+            counts, got = sharded_train_model(arch, depth, meshes, cuda)
+            totals = {k: totals[k] + counts[k] for k in totals}
+            qkv = got or qkv
+            print(f"sharded train {arch}: {time.perf_counter() - t_model:.2f} s")
+    finally:
+        watchdog.cancel()
+        rt_sharding.COLLECTIVE_TIMEOUT_S = timeout
+    took = time.perf_counter() - t0
+    del meshes, slots
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated(cuda) - held
+    print(f"sharded train phase: {took:.2f} s; launches {totals}; {left / 2 ** 20:.1f} MiB "
+          f"more allocated after it; {card_line()}")
+    require(took <= SHT_LIMIT_S, f"sharded train phase took {took:.1f} s "
+            f"(limit {SHT_LIMIT_S:.0f} s)")
+    q, k, v = qkv
+    fwd = k7_record("flash_attention_sharded_train_slot", q, k, v, reps=10)
+    fwd["launches"] = totals["flash_attention_tc"]
+    bwd = k7b_records("flash_attention_bwd_sharded_train_slot", q, k, v, reps=6)
+    for rec in bwd:
+        rec["launches"] = (totals["flash_attention_bwd_tc"] if rec["name"].endswith("_tc")
+                           else totals["flash_attention_bwd"] - totals["flash_attention_bwd_tc"])
+    for rec in (fwd, *bwd):
+        require(rec["launches"] > 0, f"{rec['name']}: launched on the sharded train path")
+    return [fwd, *bwd]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4131,6 +4481,12 @@ def main() -> int:
         device_profile(torch.cuda.synchronize, {}, cpu=False)
         torch.backends.cuda.matmul.allow_tf32 = False
         phase_sharded(cuda)
+        return 1 if _failures else 0
+    if sys.argv[1:] == ["--sharded-train"]:
+        phase_build()
+        device_profile(torch.cuda.synchronize, {}, cpu=False)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(json.dumps(phase_sharded_train(cuda)))
         return 1 if _failures else 0
     if sys.argv[1:] == ["--sharded-lm"]:
         phase_build()
@@ -4253,6 +4609,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     records.append(phase_sharded_lm(cuda))
+    gc.collect()
+    torch.cuda.empty_cache()
+    records += phase_sharded_train(cuda)
 
     if _failures:
         print(f"chip_smoke: {len(_failures)} check(s) failed", file=sys.stderr)

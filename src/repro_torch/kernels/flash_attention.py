@@ -44,6 +44,16 @@ too, picked by :func:`backward_body_for`, a rule of the same kind:
     (float32, head dims past 128 or off the multiple of 8, unaligned
     views), in float32 FMAs.
 
+On ``meta`` tensors (the dry run, ``launch/dryrun.py``) nothing is
+computed: K7 and K7b are the operators ``repro_torch::flash_attention_meta``
+and ``repro_torch::flash_attention_bwd_meta``, whose fake implementations
+return the tensors the launches allocate (o and the log-sum-exp; dq, dk, dv
+and the Δ rows) and whose FLOP formulas (``torch.utils.flop_counter``) are
+the kernels' own: 4·D a (query, key) pair for K7 and 10·D for K7b, over the
+tiles the body that :func:`body_for` / :func:`backward_body_for` picks
+computes (a causal tile wholly above the diagonal is skipped). No launch is
+counted.
+
 The log-sum-exp
 contract, kept by both bodies and the plain version: a float32
 ``(B, Hq, Sq)`` tensor, ``lse[b, h, i] = log sum_j exp(q_i . k_j / sqrt(D))``
@@ -333,6 +343,80 @@ def _launch_backward(q, k, v, o, lse, do, causal: bool, body: str | None = None)
     return dq, dk, dv
 
 
+# ---------------------------------------------------------------------------
+# On meta: the launches' outputs and FLOPs, nothing computed
+# ---------------------------------------------------------------------------
+#: (query rows, keys) of a tile: K7's bodies, then K7b's (its query-major
+#: pass: the tensor-core body's dQ kernel, the CUDA-core body's dQ pass)
+FWD_TILES = {TENSOR_CORES: (128, 128), CUDA_CORES: (64, 64)}
+FWD_TILES_WIDE = (128, 64)   # the tensor-core body past D = 128
+BWD_TILES = {TENSOR_CORES: (128, 64), CUDA_CORES: (64, 64)}
+
+
+def tile_pairs(b: int, hq: int, sq: int, sk: int, tiles: tuple, causal: bool) -> int:
+    """(query, key) pairs in the tiles a launch computes: each query tile
+    of ``tiles[0]`` rows takes whole key tiles of ``tiles[1]`` up to the
+    last key its last row sees (all of them when not causal)."""
+    bq, bk = tiles
+    shift, total = sk - sq, 0
+    for q0 in range(0, sq, bq):
+        kend = min(sk, min(q0 + bq, sq) + shift) if causal else sk
+        total += bq * (-(-max(kend, 0) // bk)) * bk
+    return b * hq * total
+
+
+def _fwd_tiles(q, k, v) -> tuple:
+    body = body_for(q, k, v)
+    return FWD_TILES_WIDE if body == TENSOR_CORES and q.shape[-1] > 128 else FWD_TILES[body]
+
+
+@torch.library.custom_op("repro_torch::flash_attention_meta", mutates_args=())
+def _flash_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                with_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    raise RuntimeError("flash_attention_meta computes nothing: it is for meta tensors")
+
+
+@_flash_meta.register_fake
+def _(q, k, v, causal, with_lse):
+    b, hq, sq, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((b, hq, sq) if with_lse else (0,), dtype=torch.float32))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd_meta", mutates_args=())
+def _flash_bwd_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                    lse: torch.Tensor, do: torch.Tensor, causal: bool
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    raise RuntimeError("flash_attention_bwd_meta computes nothing: it is for meta tensors")
+
+
+@_flash_bwd_meta.register_fake
+def _(q, k, v, o, lse, do, causal):
+    b, hq, sq, _ = q.shape
+    rows = ((2, b, hq, -(-sq // BWD_ROW_PAD) * BWD_ROW_PAD)
+            if backward_body_for(q, k, v, o, do) == TENSOR_CORES else (b, hq, sq))
+    return (q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape),
+            q.new_empty(rows, dtype=torch.float32))
+
+
+def _register_flops() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention_meta, get_raw=True)
+    def _(q, k, v, causal, with_lse, *args, **kwargs):
+        b, hq, sq, d = q.shape
+        return 4 * d * tile_pairs(b, hq, sq, k.shape[2], _fwd_tiles(q, k, v), causal)
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention_bwd_meta, get_raw=True)
+    def _(q, k, v, o, lse, do, causal, *args, **kwargs):
+        b, hq, sq, d = q.shape
+        return 10 * d * tile_pairs(b, hq, sq, k.shape[2],
+                                   BWD_TILES[backward_body_for(q, k, v, o, do)], causal)
+
+
+_register_flops()
+
+
 def flash_attention_backward(q, k, v, o, lse, do, causal: bool = True):
     """(dq, dk, dv) of K7 at q, k, v: K7b for CUDA tensors (the body
     :func:`backward_body_for` picks), the plain version for CPU ones."""
@@ -350,6 +434,8 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal):
         if q.is_cuda:
             o, lse = _launch(q, k, v, causal, body_for(q, k, v), with_lse=True)
+        elif q.is_meta:
+            o, lse = torch.ops.repro_torch.flash_attention_meta(q, k, v, causal, True)
         else:
             o, lse = flash_attention_plain(q, k, v, causal=causal, return_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
@@ -359,7 +445,11 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do, ctx.causal)
+        if q.is_meta:
+            dq, dk, dv, _ = torch.ops.repro_torch.flash_attention_bwd_meta(q, k, v, o, lse, do,
+                                                                           ctx.causal)
+        else:
+            dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do, ctx.causal)
         return dq, dk, dv, None
 
 
@@ -376,4 +466,6 @@ def flash_attention(q, k, v, causal: bool = True):
         return FlashAttention.apply(q, k, v, causal)
     if q.is_cuda:
         return _launch(q, k, v, causal, body_for(q, k, v))
+    if q.is_meta:
+        return torch.ops.repro_torch.flash_attention_meta(q, k, v, causal, False)[0]
     return flash_attention_plain(q, k, v, causal=causal)

@@ -16,7 +16,9 @@ gradient (K7 forward, K7b backward on the card).
 the per-rank program on every slot under ``activate``. Each parameter,
 cache buffer and batch tensor is placed by ``spec_for`` of its logical
 axes (``ParamDef.axes``, ``transformer.cache_axes``): each slot holds the
-bytes the reference's ``NamedSharding`` puts on its device.
+bytes the reference's ``NamedSharding`` puts on its device. Its
+``grads`` and ``train_step`` run the per-rank program of ``loss_fn``, its
+gradient (``runtime.sharding.Tape``) and AdamW on every slot's shards.
 """
 from __future__ import annotations
 
@@ -31,8 +33,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.dp.backends import resolve_device
 from repro_torch.models import ssm
 from repro_torch.models.layers import ParamDef, init_param_, rmsnorm
-from repro_torch.models.transformer import (Block, block_defs, block_forward, cache_axes,
-                                            empty_cache, train_group)
+from repro_torch.models.transformer import (RESIDUAL, Block, block_defs, block_forward,
+                                            cache_axes, empty_cache, train_group, whole_rows)
 from repro_torch.runtime import sharding
 from repro_torch.runtime.sharding import LOCAL, Mesh, activate, hint
 
@@ -62,12 +64,16 @@ def embed_tokens(w, cfg, tokens, frontend=None, comm=LOCAL, vocab=None):
     looks the tokens up in its range (zeros elsewhere) and the slots sum
     over ``vocab``'s axes, exactly, since a token has one nonzero term."""
     cd = cfg.compute_dtype
+    # looked up in float32 where a gradient is wanted: the rows of a repeated
+    # token are then summed in float32 and rounded once, where a bf16 table's
+    # own lookup rounds the row to bf16 at every repeat of the token
+    table = w.float() if w.requires_grad and torch.is_grad_enabled() else w
     if vocab is None:
-        x = w[tokens].to(cd)
+        x = table[tokens].to(cd)
     else:
         rows = tokens - comm.share(vocab)[0] * w.shape[0]
         inside = (rows >= 0) & (rows < w.shape[0])
-        x = w[rows.clamp(0, w.shape[0] - 1)].to(cd)
+        x = table[rows.clamp(0, w.shape[0] - 1)].to(cd)
         x = torch.where(inside[..., None], x, torch.zeros((), dtype=cd, device=x.device))
         x = comm.all_reduce(x, vocab)
     if frontend is not None:
@@ -214,7 +220,7 @@ def place_params(named: dict, cfg, mesh: Mesh, rules: dict, index: tuple) -> dic
     on ``meta``)."""
     specs, parts = param_specs(cfg, mesh, rules), param_parts(cfg)
     coord = dict(zip(mesh.axis_names, index))
-    return {name: sharding.copy_to(sharding.piece(t, specs[name], coord, mesh.shape,
+    return {name: sharding.copy_to(sharding.piece(t.detach(), specs[name], coord, mesh.shape,
                                                   parts.get(name)), mesh.slots[index])
             for name, t in named.items()}
 
@@ -276,21 +282,42 @@ class ShardedLM:
     ``transformer.block_forward`` runs the layer. A slot's failure raises
     out of the call.
 
+    ``grads`` and ``train_step`` run the reference's train step the same
+    way: each slot its share of every microbatch through ``loss_fn``'s
+    per-rank program under a ``Tape`` (collectives differentiated in the
+    slot's thread, each layer group and cross-entropy chunk a remat
+    region), the gradients of each parameter's copies summed, and AdamW on
+    the slot's shards.
+
     ``moe_stats``, None by default, may be set to a dict: the MoE layers
     then count the (token, k) assignments and capacity drops of the whole
     batch there by mode, summed over the layers (``moe_stats[mode]``, see
     ``moe.moe_forward``)."""
 
     def __init__(self, model: CausalLM, mesh: Mesh, rules: Optional[dict] = None):
-        self.cfg, self.mesh = model.cfg, mesh
+        self._setup(model.cfg, mesh, rules)
+        named = dict(model.named_parameters())
+        for idx in np.ndindex(mesh.slots.shape):
+            self.params[tuple(idx)] = place_params(named, self.cfg, mesh, self.rules, tuple(idx))
+
+    @classmethod
+    def of_shards(cls, cfg, mesh: Mesh, rules: dict, shards: dict) -> "ShardedLM":
+        """A sharded model over given shards: ``shards[index]`` a slot's
+        ``{name: tensor}`` as :func:`place_params` makes them (the dry
+        run's one rank on ``meta``)."""
+        self = cls.__new__(cls)
+        self._setup(cfg, mesh, rules)
+        for idx, params in shards.items():
+            self.params[tuple(idx)] = params
+        return self
+
+    def _setup(self, cfg, mesh: Mesh, rules: Optional[dict]) -> None:
+        self.cfg, self.mesh = cfg, mesh
         self.moe_stats = None
         self.rules = rules or sharding.make_rules(multi_pod="pod" in mesh.axis_names)
         self.specs = param_specs(self.cfg, mesh, self.rules)
         self.parts = param_parts(self.cfg)
-        named = dict(model.named_parameters())
         self.params = np.empty(mesh.slots.shape, dtype=object)
-        for idx in np.ndindex(mesh.slots.shape):
-            self.params[idx] = place_params(named, self.cfg, mesh, self.rules, idx)
         self._fsdp = self.rules["embed"][0]
         # the FSDP dims (any entry but "model"), gathered before use
         self._fsdp_dims = {n: d for n, spec in self.specs.items()
@@ -310,13 +337,7 @@ class ShardedLM:
     def gather_params(self) -> dict:
         """Every parameter whole on :attr:`device` (inverting the placement
         bit for bit)."""
-        out = {}
-        for name, spec in self.specs.items():
-            arr = np.empty(self.mesh.slots.shape, dtype=object)
-            for idx in np.ndindex(arr.shape):
-                arr[idx] = self.params[idx][name]
-            out[name] = sharding.gather(arr, self.mesh, spec, parts=self.parts.get(name))
-        return out
+        return {n: p.detach() for n, p in self.gather_named(self.params).items()}
 
     def empty_cache(self, batch: int, max_len: int, dtype=torch.bfloat16) -> ShardedCache:
         _, specs = cache_specs(self.cfg, batch, max_len, dtype, self.mesh, self.rules)
@@ -354,13 +375,16 @@ class ShardedLM:
         return None if first is None else sharding.join(first, self.mesh.slots.flat[0])
 
     def _gathered(self, comm, names: list) -> dict:
-        """``{name: weight}``, this slot's, with the FSDP dims gathered: the
+        """``{name: weight}``, this slot's, with the FSDP dims gathered (one
+        all-gather over the FSDP axes; its adjoint a reduce-scatter): the
         weights as the layer's code reads them (specs ``_local_specs``)."""
         mine = self.params[comm.index]
         dims = {n: self._fsdp_dims[n] for n in names if n in self._fsdp_dims}
-        got = comm.exchange({n: mine[n] for n in dims}, self._fsdp) if dims else []
-        return {n: (torch.cat([g[n].to(comm.device) for g in got], dim=dims[n])
-                    if n in dims else mine[n]) for n in names}
+        out = {n: mine[n] for n in names}
+        if dims:
+            full = comm.all_gather(tuple(mine[n] for n in dims), self._fsdp, tuple(dims.values()))
+            out.update(zip(dims, full))
+        return out
 
     def _layer(self, comm, i: int) -> tuple:
         """(layer ``i``'s weights, their specs) nested as ``block_defs``."""
@@ -372,7 +396,7 @@ class ShardedLM:
         dev = comm.device
         b_all, t = tokens.shape
         batch_spec = sharding.active_spec((b_all,), ("act_batch",))[0]
-        tokens = hint(tokens.to(dev), ("act_batch", "act_seq"))
+        tokens = hint(tokens.to(dev), ("act_batch", None))
         b = tokens.shape[0]
         if mode == "decode":
             pos = hint(pos.to(dev), ("act_batch",))
@@ -383,7 +407,7 @@ class ShardedLM:
             frontend = hint(frontend.to(dev), ("act_batch", None, None))
         x = embed_tokens(self._gathered(comm, ["embed"])["embed"], cfg, tokens, frontend,
                          comm, self.specs["embed"][0])
-        x = hint(x, ("act_batch", "act_seq", "act_embed"), src=(batch_spec, None, None))
+        x = hint(x, RESIDUAL, src=(batch_spec, None, None))
         stats = None
         if self.moe_stats is not None:   # slot 0 keeps the counts: every slot has the totals
             stats = self.moe_stats.setdefault(mode, {}) if comm.rank == 0 else {}
@@ -394,6 +418,7 @@ class ShardedLM:
                                  comm=comm, specs=specs, cache_specs=cache.specs[i],
                                  batch_spec=batch_spec)
             del p
+        x = whole_rows(x, positions, comm, batch_spec)
         x = rmsnorm(x, self.params[comm.index]["ln_f"], cfg.norm_eps)
         name = "embed" if cfg.tie_embeddings else "lm_head"
         w = self._gathered(comm, [name])[name]
@@ -439,6 +464,216 @@ class ShardedLM:
         self._run(fn)
 
 
+    # ------------------------------------------------------------------
+    # Training: the per-rank program of loss_fn and its gradient
+    # ------------------------------------------------------------------
+    def _group(self, comm, g0: int, x, aux, positions, batch_spec) -> tuple:
+        """Layers g0 .. g0 + ``scan_period`` in mode "train": (x, aux plus
+        their aux losses)."""
+        for i in range(g0, g0 + self.cfg.scan_period):
+            p, specs = self._layer(comm, i)
+            x, a = block_forward(p, self.cfg, i, x, positions, "train", comm=comm, specs=specs,
+                                 batch_spec=batch_spec)
+            aux = aux + a
+        return x, aux
+
+    def _loss_rank(self, comm, batch: dict, batch_spec):
+        """``loss_fn`` of the whole batch, on this slot's share of it
+        (``batch``: tokens, labels, optional frontend and loss_mask, split
+        along ``batch_spec``, the ``act_batch`` entry). Each group of
+        ``scan_period`` layers and each chunk of the cross-entropy is a
+        remat region of ``comm.tape`` when ``cfg.remat``. The loss is
+        every slot's: the chunked cross-entropy over the vocab shards (the
+        row max and Σexp taken over ``model``, the gold logit from the
+        shard that holds it), its sum and mask count summed over
+        ``batch_spec``'s axes before the division, and each MoE layer's aux
+        loss over the whole batch."""
+        cfg, dev = self.cfg, comm.device
+        tokens, labels = batch["tokens"], batch["labels"]
+        b, t = tokens.shape
+        positions = torch.arange(t, device=dev).expand(b, t)
+        x = embed_tokens(self._gathered(comm, ["embed"])["embed"], cfg, tokens,
+                         batch.get("frontend"), comm, self.specs["embed"][0])
+        x = hint(x, RESIDUAL, src=(batch_spec, None, None))
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
+        tape = comm.tape if cfg.remat else None
+        for g0 in range(0, cfg.n_layers, cfg.scan_period):
+            def group(x, aux, g0=g0):
+                return self._group(comm, g0, x, aux, positions, batch_spec)
+            x, aux = tape.remat(group, (x, aux)) if tape is not None else group(x, aux)
+        x = whole_rows(x, positions, comm, batch_spec)
+        x = rmsnorm(x, self.params[comm.index]["ln_f"], cfg.norm_eps)
+        name = "embed" if cfg.tie_embeddings else "lm_head"
+        w = self._gathered(comm, [name])[name]
+        w = w.T if cfg.tie_embeddings else w
+        vocab = self.specs[name][0 if cfg.tie_embeddings else 1]
+        mask = batch.get("loss_mask")
+        if mask is None:
+            mask = torch.ones(labels.shape, dtype=torch.float32, device=dev)
+            if cfg.n_frontend_tokens:
+                mask[:, :cfg.n_frontend_tokens] = 0.0
+        tot, cnt = sharded_xent(x, w, labels, mask, cfg.xent_chunk, comm, vocab, tape)
+        tot, cnt = comm.all_reduce((tot, cnt), batch_spec)
+        xent = tot / torch.clamp_min(cnt, 1.0)
+        loss = xent + AUX_COEF * aux
+        return loss, {"xent": xent, "aux": aux, "tokens": cnt}
+
+    def _batch_spec(self, global_batch: int):
+        return sharding.spec_for((global_batch,), ("act_batch",), self.rules, self.mesh.shape)[0]
+
+    def rank_grads(self, comm, batches: list, global_batch: int,
+                   accum_dtype=torch.float32) -> tuple:
+        """The per-rank program of the reference's gradient-accumulating
+        step (``launch/dryrun.py::make_train_step``) up to the optimizer:
+        for each microbatch of ``batches`` (this slot's share of each, of
+        ``global_batch`` rows in all), the loss under a :class:`Tape` and
+        its backward (the loss seeded with 1 / slots); the gradients summed
+        (in ``accum_dtype`` over more than one microbatch), then each
+        parameter's summed over the mesh axes its spec does not shard
+        (one all-reduce per set of axes) and divided by the microbatches.
+        Returns ({name: this slot's gradient}, metrics)."""
+        params = self.params[comm.index]
+        for p in params.values():
+            p.requires_grad_(True)
+        batch_spec = self._batch_spec(global_batch)
+        n, seed = len(batches), 1.0 / self.mesh.size
+        acc, losses, auxes, metrics = {}, [], [], {}
+        for batch in batches:
+            tape = sharding.Tape(comm)
+            comm.tape = tape
+            try:
+                with tape:
+                    loss, metrics = self._loss_rank(comm, batch, batch_spec)
+                tape.backward((loss,),
+                              (torch.full((), seed, dtype=loss.dtype, device=loss.device),))
+            finally:
+                comm.tape = None
+            losses.append(loss.detach())
+            auxes.append(metrics["aux"].detach())
+            for name, p in params.items():
+                g = tape.grad(p)
+                g = torch.zeros_like(p) if g is None else g
+                if n > 1:
+                    g = g.to(accum_dtype)
+                acc[name] = g if name not in acc else acc[name] + g
+            del tape
+        for axes, names in self._replicated_axes().items():
+            for name, g in zip(names, comm.all_reduce(tuple(acc[k] for k in names), axes)):
+                acc[name] = g
+        if n == 1:
+            return acc, {"loss": losses[0], "xent": metrics["xent"].detach(),
+                         "aux": auxes[0], "tokens": metrics["tokens"].detach()}
+        acc = {k: g / n for k, g in acc.items()}
+        loss = sum(losses[1:], losses[0]) / n
+        return acc, {"loss": loss, "xent": loss, "aux": sum(auxes[1:], auxes[0]) / n,
+                     "tokens": torch.zeros((), dtype=torch.float32, device=comm.device)}
+
+    def _replicated_axes(self) -> dict:
+        """``{mesh axes: parameter names}``: the axes each parameter's spec
+        leaves unnamed (its copies), a group of more than one slot."""
+        out: dict = {}
+        for name, spec in self.specs.items():
+            named = {a for e in spec for a in sharding.axes_of(e)}
+            axes = tuple(a for a in self.mesh.axis_names
+                         if a not in named and self.mesh.shape[a] > 1)
+            if axes:
+                out.setdefault(axes, []).append(name)
+        return out
+
+    def owned(self, comm) -> dict:
+        """``{name: whether this slot counts its shard}``: the slot at index
+        0 of every axis a parameter's spec leaves unnamed (one copy of each
+        element in the mesh)."""
+        out = {}
+        for name, spec in self.specs.items():
+            named = {a for e in spec for a in sharding.axes_of(e)}
+            out[name] = all(comm.coord[a] == 0 for a in self.mesh.axis_names if a not in named)
+        return out
+
+    def rank_train_step(self, comm, opt_cfg, opt_state: dict, batches: list,
+                        global_batch: int, accum_dtype=torch.float32) -> dict:
+        """:meth:`rank_grads`, then AdamW on this slot's shards in place
+        (``adamw.apply`` with the global gradient norm over every slot's
+        owned elements). Returns the metrics with grad_norm and lr."""
+        from repro_torch.optim import adamw
+
+        grads, metrics = self.rank_grads(comm, batches, global_batch, accum_dtype)
+        _, _, om = adamw.apply(opt_cfg, grads, opt_state, self.params[comm.index],
+                               comm=comm, owned=self.owned(comm))
+        return {**metrics, **om}
+
+    def split_batch(self, batch: dict, microbatches: int = 1) -> tuple:
+        """(the mesh-shaped array of each slot's list of microbatch shards,
+        the rows of one microbatch): microbatch j is rows [j·B/m, (j+1)·B/m)
+        of ``batch``, as the reference's reshape takes them, split over
+        ``act_batch``'s axes and copied to each slot."""
+        rows = next(iter(batch.values())).shape[0]
+        if rows % microbatches:
+            raise ValueError(f"a batch of {rows} rows does not split into {microbatches} "
+                             "microbatches")
+        b = rows // microbatches
+        spec = self._batch_spec(b)
+        out = np.empty(self.mesh.slots.shape, dtype=object)
+        for idx in np.ndindex(out.shape):
+            out[idx] = []
+        for j in range(microbatches):
+            placed = {k: sharding.place(v[j * b:(j + 1) * b], self.mesh, (spec,))
+                      for k, v in batch.items()}
+            for idx in np.ndindex(out.shape):
+                out[idx].append({k: v[idx] for k, v in placed.items()})
+        return out, b
+
+    def init_opt(self, opt_cfg) -> np.ndarray:
+        """Each slot's AdamW state (``adamw.init`` of its shards, the
+        moments in ``opt_cfg.moment_dtype``)."""
+        from repro_torch.optim import adamw
+
+        out = np.empty(self.mesh.slots.shape, dtype=object)
+        for idx in np.ndindex(out.shape):
+            with self.mesh.slots[idx].scope():
+                out[idx] = adamw.init(self.params[idx], opt_cfg.moment_dtype)
+        return out
+
+    def grads(self, batch: dict, microbatches: int = 1, accum_dtype=torch.float32) -> tuple:
+        """(every parameter's gradient whole on :attr:`device`, slot 0's
+        metrics): :meth:`rank_grads` on every slot, the shards gathered."""
+        shards, b = self.split_batch(batch, microbatches)
+        out = np.empty(self.mesh.slots.shape, dtype=object)
+
+        def fn(comm):
+            grads, metrics = self.rank_grads(comm, shards[comm.index], b, accum_dtype)
+            out[comm.index] = grads
+            return metrics
+
+        with activate(self.mesh, self.rules):
+            metrics = sharding.run(self.mesh, fn).flat[0]
+        return self.gather_named(out), metrics
+
+    def train_step(self, opt_cfg, opt_state: np.ndarray, batch: dict, microbatches: int = 1,
+                   accum_dtype=torch.float32) -> dict:
+        """One step of the reference's train step over the mesh: every slot
+        runs :meth:`rank_train_step` on its shards of each microbatch of
+        ``batch`` (global tensors) and updates its parameters and
+        ``opt_state[index]`` in place. Returns slot 0's metrics (every
+        slot's are equal)."""
+        shards, b = self.split_batch(batch, microbatches)
+        with activate(self.mesh, self.rules):
+            out = sharding.run(self.mesh, lambda comm: self.rank_train_step(
+                comm, opt_cfg, opt_state[comm.index], shards[comm.index], b, accum_dtype))
+        return out.flat[0]
+
+    def gather_named(self, shards: np.ndarray) -> dict:
+        """Tensors placed as the parameters (``shards[index]`` a slot's
+        ``{name: shard}``), each whole on :attr:`device`."""
+        out = {}
+        for name, spec in self.specs.items():
+            arr = np.empty(self.mesh.slots.shape, dtype=object)
+            for idx in np.ndindex(arr.shape):
+                arr[idx] = shards[idx][name]
+            out[name] = sharding.gather(arr, self.mesh, spec, parts=self.parts.get(name))
+        return out
+
+
 # ---------------------------------------------------------------------------
 # Chunked cross-entropy and the loss
 # ---------------------------------------------------------------------------
@@ -466,6 +701,43 @@ def chunked_xent(hidden, w, labels, mask, chunk: int):
     for c0 in range(0, t, chunk):
         s, n = checkpoint(_xent_chunk, hidden[:, c0:c0 + chunk], w, labels[:, c0:c0 + chunk],
                           mask[:, c0:c0 + chunk], use_reentrant=False)
+        tot, cnt = tot + s, cnt + n
+    return tot, cnt
+
+
+def _sharded_xent_chunk(h, w, labels, mask, comm, vocab):
+    logits = (h @ w.to(h.dtype)).float()                              # (B, c, V shard)
+    m = comm.all_max(logits.amax(dim=-1), vocab)
+    lse = m + torch.log(comm.all_reduce(torch.exp(logits - m[..., None]).sum(dim=-1), vocab))
+    n = logits.shape[-1]
+    rows = labels.long() - comm.share(vocab)[0] * n
+    inside = (rows >= 0) & (rows < n)
+    gold = logits.gather(-1, rows.clamp(0, n - 1)[..., None])[..., 0]
+    gold = comm.all_reduce(torch.where(inside, gold, 0.0), vocab)
+    return ((lse - gold) * mask).sum(), mask.sum()
+
+
+def sharded_xent(hidden, w, labels, mask, chunk: int, comm, vocab, tape=None):
+    """:func:`chunked_xent` on a slot: ``w`` (d, V shard) holds the slot's
+    columns of the vocab split by spec entry ``vocab``. Each chunk's row
+    max (not differentiated: the log Σexp does not depend on it) and Σexp
+    are taken over ``vocab``'s axes, and the gold logit comes from the
+    shard that holds it (zeros elsewhere, summed). Each chunk is a remat
+    region of ``tape`` where one is given. Returns (sum_loss, sum_mask) of
+    the slot's rows."""
+    t = hidden.shape[1]
+    chunk = min(chunk, t)
+    if t % chunk:
+        raise ValueError(f"sharded_xent: T={t} is not a multiple of the chunk {chunk}")
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    mask = mask.float()
+    for c0 in range(0, t, chunk):
+        def part(h, w, c0=c0):
+            return _sharded_xent_chunk(h, w, labels[:, c0:c0 + chunk], mask[:, c0:c0 + chunk],
+                                       comm, vocab)
+        h = hidden[:, c0:c0 + chunk]
+        s, n = tape.remat(part, (h, w)) if tape is not None else part(h, w)
         tot, cnt = tot + s, cnt + n
     return tot, cnt
 

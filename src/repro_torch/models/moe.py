@@ -66,7 +66,8 @@ def top_k(probs, k: int) -> tuple:
     return vals[..., :k], idx[..., :k]
 
 
-def moe_forward(p, cfg, x, stats=None, comm=LOCAL, specs=None, batch_spec=None):
+def moe_forward(p, cfg, x, stats=None, comm=LOCAL, specs=None, batch_spec=None,
+                whole_aux: bool = False):
     """x: (B, T, d). Returns (out, aux_loss).
 
     ``stats``, where given, is a dict whose ``"assigned"`` entry grows by
@@ -83,7 +84,9 @@ def moe_forward(p, cfg, x, stats=None, comm=LOCAL, specs=None, batch_spec=None):
     its FFN share, where the experts do not divide ``model``), and the
     slots' outputs are summed over ``model`` in slot order. ``stats``
     counts the whole batch (the drops summed over ``batch_spec``); the aux
-    loss covers the slot's tokens."""
+    loss covers the slot's tokens, or, with ``whole_aux`` (training), the
+    whole batch's, as the reference's: each expert's share of the primary
+    assignments and its mean probability summed over ``batch_spec``."""
     m = cfg.moe
     b, t, d = x.shape
     cd = cfg.compute_dtype
@@ -101,7 +104,11 @@ def moe_forward(p, cfg, x, stats=None, comm=LOCAL, specs=None, batch_spec=None):
 
     # load-balancing aux loss (Switch-style): E * Σ_e f_e · p̄_e
     assign = F.one_hot(top_e[:, 0], e).float()                        # primary
-    aux = e * torch.sum(assign.mean(0) * probs.mean(0))
+    if whole_aux and nb > 1:
+        share, mean_p = comm.all_reduce((assign.sum(0), probs.sum(0)), batch_spec)
+        aux = e * torch.sum((share / (n * nb)) * (mean_p / (n * nb)))
+    else:
+        aux = e * torch.sum(assign.mean(0) * probs.mean(0))
 
     # positions within each expert: cumsum over the one-hot of the (N·k)
     # assignments in (token, k)-major order, held expert-major (E, N·k) so

@@ -111,6 +111,7 @@ def block_forward(p: dict, cfg, i: int, x, positions, mode: str, cache: dict = N
     kind, mlp_kind = cfg.mixer_of(i), cfg.mlp_of(i)
     sm, sl = (specs["mixer"], specs["mlp"]) if specs else (None, None)
     kv_spec = cache_specs["k"] if cache_specs and kind == "attn" else None
+    x = whole_rows(x, positions, comm, batch_spec)
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if kind == "attn":
         if decode:
@@ -130,7 +131,8 @@ def block_forward(p: dict, cfg, i: int, x, positions, mode: str, cache: dict = N
     h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
     aux = 0.0
     if mlp_kind == "moe":
-        out, aux = moe.moe_forward(p["mlp"], cfg, h2, stats, comm, sl, batch_spec)
+        out, aux = moe.moe_forward(p["mlp"], cfg, h2, stats, comm, sl, batch_spec,
+                                   whole_aux=train)
     elif mlp_kind == "rwkv_cm":
         out, x_cm = ssm.rwkv_cm_forward(p["mlp"], cfg, h2, cache["x_cm"] if decode else None,
                                         comm, sl)
@@ -141,7 +143,22 @@ def block_forward(p: dict, cfg, i: int, x, positions, mode: str, cache: dict = N
                      cfg.compute_dtype)
         if sharding.sharded(sl, "w_down", 0):
             out = comm.all_reduce(out, "model")
-    return hint(x + out, ("act_batch", "act_seq", "act_embed"), src=(batch_spec, None, None)), aux
+    return hint(x + out, RESIDUAL, src=(batch_spec, None, None)), aux
+
+
+RESIDUAL = ("act_batch", "act_seq", "act_embed")
+
+
+def whole_rows(x, positions, comm=LOCAL, batch_spec=None):
+    """The residual stream ``x`` with every position of its rows: where the
+    rules shard the stream's sequence between layers (``act_seq``, the
+    sequence-parallel residual), an all-gather of ``x`` over those axes;
+    else ``x``. ``positions`` (B, T) gives the whole length T."""
+    if comm is LOCAL or sharding.current_state() is None:
+        return x
+    full = (x.shape[0] * comm.share(batch_spec)[1], positions.shape[1], x.shape[2])
+    spec = sharding.active_spec(full, RESIDUAL)
+    return sharding.reshard(x, spec, (batch_spec, None, None), comm) if spec[1] else x
 
 
 def train_group(blocks, x, aux, positions) -> tuple:

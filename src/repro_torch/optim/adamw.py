@@ -14,6 +14,12 @@ parameter's update is computed in float32 and cast to its dtype:
 
 ``torch.optim.AdamW`` places eps and the decay elsewhere and rounds
 differently, so it is not used.
+
+Over a mesh of slots each slot calls ``apply`` on its own shards with its
+communicator: the gradient norm then sums the squares of the elements the
+slot owns (one copy of each in the mesh) and adds the slots' sums in slot
+order. :func:`abstract_state` is the dry run's state: ``meta`` moments
+beside one slot's ``meta`` shards.
 """
 from __future__ import annotations
 
@@ -22,7 +28,6 @@ from typing import Callable
 
 import torch
 
-from repro_torch.utils.tree import global_norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +38,9 @@ class AdamWConfig:
     eps: float = 1e-8
     weight_decay: float = 0.1
     clip_norm: float = 1.0
+    # bf16 moments halve the optimizer's memory (the reference's rule:
+    # the dry run takes them past 1e11 parameters)
+    moment_dtype: torch.dtype = torch.float32
 
 
 def init(params: dict, moment_dtype=torch.float32) -> dict:
@@ -45,12 +53,33 @@ def init(params: dict, moment_dtype=torch.float32) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def abstract_state(abstract_params: dict, moment_dtype=torch.float32) -> dict:
+    """The optimizer state of ``abstract_params`` (one slot's ``meta``
+    shards) on ``meta``: moments of their shapes in ``moment_dtype``."""
+    mk = lambda p: torch.empty(p.shape, dtype=moment_dtype, device="meta")
+    return {"m": {k: mk(p) for k, p in abstract_params.items()},
+            "v": {k: mk(p) for k, p in abstract_params.items()},
+            "step": torch.empty((), dtype=torch.int32, device="meta")}
+
+
 @torch.no_grad()
-def apply(cfg: AdamWConfig, grads: dict, state: dict, params: dict):
+def apply(cfg: AdamWConfig, grads: dict, state: dict, params: dict, comm=None,
+          owned: dict = None):
     """One step over every parameter, in place. Returns (params, state,
-    {"grad_norm", "lr"}), the metrics float32 tensors on the device."""
+    {"grad_norm", "lr"}), the metrics float32 tensors on the device.
+
+    Over a mesh ``comm`` is the slot's communicator and ``owned[name]``
+    says whether the slot counts its shard of ``name`` in the norm (a
+    shard replicated over some axes counts on one slot of them); the
+    squares are summed over the mesh in slot order. Without them every
+    gradient counts once."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    sq = torch.zeros((), dtype=torch.float32, device=step.device)
+    for name, g in grads.items():
+        if owned is None or owned[name]:
+            f = g.float()
+            sq = sq + (f * f).sum()
+    gnorm = torch.sqrt(sq if comm is None else comm.all_reduce(sq, comm.mesh.axis_names))
     scale = torch.clamp(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9), max=1.0)
     b1, b2 = cfg.b1, cfg.b2
     stepf = step.float()

@@ -36,6 +36,13 @@ the identity, so both run one body. :func:`hint` is kept
 as the point where the program re-places a tensor to ``spec_for``'s
 placement of logical axes; outside :func:`activate` it returns the tensor
 unchanged.
+
+Training differentiates the per-rank program: a slot's :class:`Tape`
+makes each collective a boundary of its graph and runs the collectives'
+adjoints in the slot's own thread (its docstring says why), and a
+:class:`RecordingComm` stands in for one rank alone, recording each
+collective's kind and bytes instead of sending (the dry run,
+``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -214,7 +221,7 @@ def _full_spec(spec: Sequence, ndim: int) -> tuple:
     return spec + (None,) * (ndim - len(spec))
 
 
-def _entries(entry) -> tuple:
+def axes_of(entry) -> tuple:
     """A spec entry as a tuple of mesh axes (None: no axis)."""
     if entry is None:
         return ()
@@ -286,7 +293,7 @@ def gather(placed: np.ndarray, mesh: Mesh, spec: Sequence,
         entry = spec[dim]
         if entry is None:
             return build(dim + 1, coord)
-        axes = _entries(entry)
+        axes = axes_of(entry)
         sizes = [mesh.shape[a] for a in axes]
         pieces = [build(dim + 1, {**coord, **dict(zip(axes, np.unravel_index(k, sizes)))})
                   for k in range(int(np.prod(sizes)))]
@@ -362,15 +369,27 @@ class _Rendezvous:
                     pass
 
 
-def _tensors(obj):
+def tensors(obj):
+    """The tensors in ``obj`` (a tensor, or dicts, lists and tuples of
+    them)."""
     if isinstance(obj, torch.Tensor):
         yield obj
     elif isinstance(obj, dict):
         for v in obj.values():
-            yield from _tensors(v)
+            yield from tensors(v)
     elif isinstance(obj, (list, tuple)):
         for v in obj:
-            yield from _tensors(v)
+            yield from tensors(v)
+
+
+#: the reference's five collective kinds (``launch/hlo_analysis.py``), as
+#: :attr:`Comm.log` records them
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
+
+def _nbytes(obj) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors(obj))
 
 
 class Comm:
@@ -378,9 +397,19 @@ class Comm:
     collectives over named mesh axes. ``axes`` is an axis name, a tuple of
     them (the group's order is row-major over the tuple, as a spec entry's
     shards are) or None (a group of one). Every slot must call the same
-    collectives in the same order, as a per-rank program does."""
+    collectives in the same order, as a per-rank program does.
 
-    def __init__(self, mesh: Mesh, index: tuple, rendezvous: _Rendezvous):
+    ``log``, None by default, may be set to a list: each collective of a
+    group of more than one slot then appends (its kind, one of
+    :data:`COLLECTIVES`, and the bytes of its output on this slot).
+
+    ``tape``, None by default, may be set to a :class:`Tape`: while it
+    records, every collective on an input that needs a gradient is a
+    boundary of it, and its adjoint runs when the tape's backward reaches
+    it (all-reduce ↔ all-reduce, all-gather ↔ reduce-scatter, all-to-all ↔
+    the reverse all-to-all)."""
+
+    def __init__(self, mesh: Mesh, index: tuple, rendezvous: Optional[_Rendezvous]):
         self.mesh, self.index = mesh, tuple(index)
         self.coord = dict(zip(mesh.axis_names, self.index))
         self.rank = int(np.ravel_multi_index(self.index, mesh.slots.shape))
@@ -389,6 +418,8 @@ class Comm:
         self._rv = rendezvous
         self._turn = 0
         self._groups: dict = {}
+        self.log: Optional[list] = None
+        self.tape: Optional[Tape] = None
 
     def share(self, entry, **at) -> tuple:
         """(shard index, shard count) of this slot along a spec entry, or
@@ -402,7 +433,7 @@ class Comm:
         """Flat ranks of the slots that share every coordinate but ``axes``
         with this one, in the order of their shard index along ``axes``."""
         if axes not in self._groups:
-            self._groups[axes] = self._group(_entries(axes))
+            self._groups[axes] = self._group(axes_of(axes))
         return self._groups[axes]
 
     def _group(self, axes: tuple) -> list:
@@ -414,7 +445,11 @@ class Comm:
                                                 self.mesh.slots.shape)))
         return out
 
-    def exchange(self, payload, axes) -> list:
+    def _record(self, kind: str, out) -> None:
+        if self.log is not None:
+            self.log.append((kind, _nbytes(out)))
+
+    def _exchange(self, payload, axes) -> list:
         """Every member's ``payload`` (tensors, or lists, tuples and dicts of
         them), in group order. A peer's tensors are read on this slot's
         stream after the work that made them on the peer's: the stream
@@ -437,29 +472,79 @@ class Comm:
             for r, (obj, ev) in zip(group, got):
                 if r != self.rank and ev is not None:
                     cur.wait_event(ev)
-                    for t in _tensors(obj):
+                    for t in tensors(obj):
                         if t.is_cuda:
                             t.record_stream(cur)
         return [obj for obj, _ in got]
 
-    def all_reduce(self, x: torch.Tensor, axes) -> torch.Tensor:
-        """The sum of the group's ``x``, added in group order from the
-        first (every member gets the same bits)."""
-        parts = self.exchange(x, axes)
-        total = parts[0].to(self.device)
-        for p in parts[1:]:
-            total = total + p.to(self.device)
-        return total
+    def exchange(self, payload, axes) -> list:
+        """Every member's ``payload`` in group order (an all-gather that
+        keeps the members apart; not differentiable)."""
+        got = self._exchange(payload, axes)
+        if len(got) > 1:
+            self._record("all-gather", got)
+        return got
 
-    def all_gather(self, x, axes, dim: int, parts: int = 1):
+    def _node(self, xs: tuple, fwd, adjoint):
+        """``fwd(*xs)`` (a tuple of tensors), a boundary of :attr:`tape`
+        where it records and an input needs a gradient."""
+        tape = self.tape
+        if (tape is None or not tape.recording or not torch.is_grad_enabled()
+                or not any(x.requires_grad for x in xs)):
+            return fwd(*xs)
+        return tape.boundary(xs, fwd, adjoint)
+
+    def all_reduce(self, x, axes):
+        """The sum of the group's ``x`` (a tensor, or a tuple of them summed
+        each in one collective), added in group order from the first
+        (every member gets the same bits)."""
+        if len(self.group(axes)) == 1:
+            return x
+        xs = x if isinstance(x, tuple) else (x,)
+        out = self._node(xs, lambda *ts: self._sum(ts, axes),
+                         lambda *gs: self._sum(gs, axes))
+        return out if isinstance(x, tuple) else out[0]
+
+    def _sum(self, xs: tuple, axes) -> tuple:
+        got = self._exchange(xs, axes)
+        out = []
+        for i in range(len(xs)):
+            total = got[0][i].to(self.device)
+            for g in got[1:]:
+                total = total + g[i].to(self.device)
+            out.append(total)
+        out = tuple(out)
+        self._record("all-reduce", out)
+        return out
+
+    def all_max(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """The elementwise max of the group's ``x`` (not differentiable)."""
+        got = self._exchange(x.detach(), axes)
+        if len(got) == 1:
+            return got[0]
+        out = torch.stack([g.to(self.device) for g in got]).amax(dim=0)
+        self._record("all-reduce", out)
+        return out
+
+    def all_gather(self, x, axes, dim, parts: int = 1):
         """The group's ``x`` concatenated along ``dim`` in group order (a
-        tuple of tensors: each gathered, in one collective); with ``parts``
-        > 1 each member's ``x`` holds its share of that many parts
-        (:func:`piece`), and the result is the parts in order."""
-        got = self.exchange(x, axes)
-        if isinstance(x, tuple):
-            return tuple(self._joined([g[i] for g in got], dim, parts) for i in range(len(x)))
-        return self._joined(got, dim, parts)
+        tuple of tensors: each gathered, in one collective, along ``dim``
+        or its own entry of a tuple ``dim``); with ``parts`` > 1 each
+        member's ``x`` holds its share of that many parts (:func:`piece`),
+        and the result is the parts in order."""
+        if len(self.group(axes)) == 1:
+            return x
+        xs = x if isinstance(x, tuple) else (x,)
+        dims = dim if isinstance(dim, tuple) else (dim,) * len(xs)
+        out = self._node(xs, lambda *ts: self._gather(ts, axes, dims, parts),
+                         lambda *gs: self.reduce_scatter(gs, axes, dims, parts))
+        return out if isinstance(x, tuple) else out[0]
+
+    def _gather(self, xs: tuple, axes, dims: tuple, parts: int) -> tuple:
+        got = self._exchange(xs, axes)
+        out = tuple(self._joined([g[i] for g in got], d, parts) for i, d in enumerate(dims))
+        self._record("all-gather", out)
+        return out
 
     def _joined(self, pieces: list, dim: int, parts: int) -> torch.Tensor:
         if len(pieces) == 1:
@@ -470,15 +555,80 @@ class Comm:
             pieces = [s[i] for i in range(parts) for s in split]
         return torch.cat(pieces, dim=dim)
 
+    def reduce_scatter(self, xs: tuple, axes, dims: tuple, parts: int = 1) -> tuple:
+        """The adjoint of :meth:`all_gather`: of each tensor of ``xs`` (each
+        the shape of a gathered one), this member's share along its dim,
+        summed over the group in group order (not differentiable)."""
+        group = self.group(axes)
+        n, me = len(group), group.index(self.rank)
+        got = self._exchange(tuple(x.detach() for x in xs), axes)
+        out = []
+        for i, d in enumerate(dims):
+            def mine(t):
+                return torch.cat([torch.chunk(c, n, dim=d)[me]
+                                  for c in torch.chunk(t.to(self.device), parts, dim=d)], dim=d)
+            total = mine(got[0][i])
+            for g in got[1:]:
+                total = total + mine(g[i])
+            out.append(total)
+        out = tuple(out)
+        if n > 1:
+            self._record("reduce-scatter", out)
+        return out
+
     def all_to_all(self, chunks: Sequence, axes, dim: int) -> torch.Tensor:
         """``chunks[k]`` goes to the group's k-th member; returns what every
         member sent this one, concatenated along ``dim`` in group order."""
         group = self.group(axes)
         if len(chunks) != len(group):
             raise ValueError(f"all_to_all: {len(chunks)} chunks for a group of {len(group)}")
+        if len(group) == 1:
+            return chunks[0]
+        sizes = []
+
+        def fwd(*cs):
+            got = self._to_all(cs, axes)
+            sizes[:] = [g.shape[dim] for g in got]
+            return (torch.cat(got, dim=dim),)
+
+        def back(g):
+            return self._to_all(tuple(torch.split(g, sizes, dim=dim)), axes)
+
+        return self._node(tuple(chunks), fwd, back)[0]
+
+    def _to_all(self, chunks: tuple, axes) -> tuple:
+        group = self.group(axes)
         me = group.index(self.rank)
-        got = self.exchange(list(chunks), axes)
-        return torch.cat([g[me].to(self.device) for g in got], dim=dim)
+        got = self._exchange(tuple(c.detach() for c in chunks), axes)
+        out = tuple(g[me].to(self.device) for g in got)
+        self._record("all-to-all", out)
+        return out
+
+
+class RecordingComm(Comm):
+    """A communicator that records instead of sending: one rank of a mesh
+    traced alone (the dry run). Each collective appends its kind and this
+    rank's output bytes to :attr:`log`, as :class:`Comm` does, and returns
+    tensors of the shapes the real exchange returns, on the input's device
+    (``meta`` in the dry run). Every member is taken to send what this rank
+    sends: the per-rank program is one program on every rank, and every
+    tensor it exchanges is a shard that ``spec_for`` placed (an axis only
+    where it divides the dim) or a slice all members cut alike. Where a
+    rank's pieces for its peers differ in shape (an all-to-all of ragged
+    chunks), what the peers send it is unknown, and it raises."""
+
+    def __init__(self, mesh: Mesh, index: tuple):
+        super().__init__(mesh, index, None)
+        self.log = []
+
+    def _exchange(self, payload, axes) -> list:
+        return [payload] * len(self.group(axes))
+
+    def _to_all(self, chunks: tuple, axes) -> tuple:
+        if len({tuple(c.shape) for c in chunks}) > 1:
+            raise ValueError("RecordingComm: an all-to-all of chunks of different shapes "
+                             f"{[tuple(c.shape) for c in chunks]}: the peers' are unknown")
+        return super()._to_all(chunks, axes)
 
 
 class LocalComm:
@@ -496,7 +646,10 @@ class LocalComm:
     def all_reduce(self, x, axes):
         return x
 
-    def all_gather(self, x, axes, dim: int, parts: int = 1):
+    def all_max(self, x, axes):
+        return x.detach()
+
+    def all_gather(self, x, axes, dim, parts: int = 1):
         return x
 
     def all_to_all(self, chunks: Sequence, axes, dim: int):
@@ -504,6 +657,231 @@ class LocalComm:
 
 
 LOCAL = LocalComm()
+
+
+# ---------------------------------------------------------------------------
+# Gradients across collectives: a tape of segments
+# ---------------------------------------------------------------------------
+def _rebuilt(fn, obj):
+    """``obj`` with ``fn`` applied to each tensor in it, its lists and
+    tuples rebuilt."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if type(obj) in (list, tuple):
+        return type(obj)(_rebuilt(fn, o) for o in obj)
+    return obj
+
+
+class Tape:
+    """The backward of one slot's per-rank program, run in the slot's own
+    thread.
+
+    PyTorch's autograd engine runs a CUDA graph's backward nodes on one
+    worker thread per device, not on the caller's: a collective inside a
+    backward node would wait there for its peers, which share that thread
+    when several slots share a card. So no collective is an autograd node.
+    Each collective on an input that needs a gradient is a *boundary*
+    (:meth:`boundary`): its inputs end a segment of the graph, its outputs
+    are new leaves that start the next, and its adjoint is recorded beside
+    them. While the tape is entered (``with tape:``) a
+    ``TorchFunctionMode`` tags every tensor an op makes with its segment,
+    and an op of a later segment that reads it reads a leaf cut from it
+    instead, so no segment's graph reaches into another's. :meth:`backward`
+    walks the segments from the last: ``torch.autograd.grad`` over one
+    segment in the calling thread, then the adjoint of the boundary that
+    opened it (a collective, in the slot's thread under the rendezvous's
+    turn), and so on down to the first. Every node runs once.
+
+    Gradients follow one rule: every slot's gradient is its part of the
+    whole, and a replicated tensor's is the sum of its copies' parts. So
+    each collective's adjoint is fixed (all-reduce ↔ all-reduce, all-gather
+    ↔ reduce-scatter, all-to-all ↔ the reverse all-to-all), the loss, which
+    every slot holds whole, is seeded with 1 / (slots), and a parameter's
+    gradient is summed over the mesh axes its spec does not shard.
+
+    :meth:`remat` runs a region without a graph and, when the backward
+    reaches it, again with one on a tape of its own, collectives included,
+    as the reference's remat recomputes its collectives. An exchanged
+    payload is always detached, so no slot's graph reaches a peer's."""
+
+    def __init__(self, comm=None):
+        self.comm = comm
+        self.token = object()      # tags this tape's tensors (holds no tape)
+        self.seg = 0
+        self.recording = True
+        self.nodes: list = []      # (inputs, output leaves, adjoint) per boundary
+        self.exports: list = [[]]  # per segment: its tensors read later
+        self.used: list = [{}]     # per segment: the leaves its ops read
+        self._alias: dict = {}     # id(cut leaf) -> the tensor it was cut from
+        self._cuts: dict = {}      # id(tensor) -> its cut leaf
+        self._exported: set = set()
+        self.grads: dict = {}      # id(tensor) -> (tensor, gradient)
+        self._mode = None
+
+    # -- forward ------------------------------------------------------------
+    def __enter__(self):
+        from torch.overrides import TorchFunctionMode
+
+        tape = self
+
+        class _Segments(TorchFunctionMode):
+            def __torch_function__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                if tape.recording:
+                    args = _rebuilt(tape._read, args)
+                    if kwargs:
+                        kwargs = {k: _rebuilt(tape._read, v) for k, v in kwargs.items()}
+                out = func(*args, **kwargs)
+                if tape.recording:
+                    for t in tensors(out):
+                        tape._tag(t)
+                return out
+
+        self._mode = _Segments()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+        self._mode = None
+
+    def _seg_of(self, t) -> int:
+        tag = getattr(t, "_tape_seg", None)
+        if tag is None or tag[0] is not self.token:   # an autograd.Function's output
+            t._tape_seg = tag = (self.token, self.seg)
+        return tag[1]
+
+    def _tag(self, t):
+        if isinstance(t, torch.Tensor) and t.grad_fn is not None:
+            self._seg_of(t)
+        return t
+
+    def _read(self, t):
+        """What an op of the current segment reads for ``t``: ``t``, or the
+        leaf cut from it where an earlier segment made it."""
+        if not isinstance(t, torch.Tensor) or not t.requires_grad:
+            return t
+        if t.grad_fn is None:
+            self.used[self.seg][id(t)] = t
+            return t
+        seg = self._seg_of(t)
+        if seg == self.seg:
+            return t
+        leaf = self._cuts.get(id(t))
+        if leaf is None:
+            leaf = t.detach().requires_grad_()
+            self._cuts[id(t)] = leaf
+            self._alias[id(leaf)] = t
+            self._export(t, seg)
+        self.used[self.seg][id(leaf)] = leaf
+        return leaf
+
+    def _export(self, t, seg: int) -> None:
+        if id(t) not in self._exported:
+            self._exported.add(id(t))
+            self.exports[seg].append(t)
+
+    def _next(self) -> None:
+        self.seg += 1
+        self.exports.append([])
+        self.used.append({})
+
+    def boundary(self, xs: tuple, fwd, adjoint) -> tuple:
+        """``fwd(*xs)`` (a tuple of tensors) on the inputs detached: the
+        outputs are leaves of a new segment, ``adjoint(*output grads)`` the
+        inputs' gradients."""
+        for x in xs:
+            if x.requires_grad and x.grad_fn is not None:
+                self._export(x, self._seg_of(x))
+        ys = tuple(y.requires_grad_() if y.is_floating_point() else y
+                   for y in fwd(*(x.detach() for x in xs)))
+        self.nodes.append((xs, ys, adjoint))
+        self._next()
+        return ys
+
+    def remat(self, fn, xs: tuple) -> tuple:
+        """``fn(*xs)`` (a tuple of tensors) run now without a graph, and
+        again with one when the backward reaches it."""
+        if not (self.recording and torch.is_grad_enabled()):
+            return fn(*xs)
+        self.recording = False
+        try:
+            with torch.no_grad():
+                out = fn(*(x.detach() for x in xs))
+        finally:
+            self.recording = True
+        return self.boundary(xs, lambda *_: out, lambda *gs: self._rerun(fn, xs, gs))
+
+    # -- backward -----------------------------------------------------------
+    def _add(self, t, g) -> None:
+        if g is None or not t.requires_grad:
+            return
+        t = self._alias.get(id(t), t)
+        hit = self.grads.get(id(t))
+        self.grads[id(t)] = (t, g if hit is None else hit[1] + g)
+
+    def _grad_of(self, t):
+        hit = self.grads.pop(id(t), None)
+        return torch.zeros_like(t) if hit is None else hit[1]
+
+    def backward(self, roots: tuple, seeds: tuple) -> None:
+        """Propagate ``seeds`` from ``roots`` through every segment and
+        boundary; :attr:`grads` then holds each leaf's gradient
+        (:meth:`grad`)."""
+        self.recording = False
+        for t, g in zip(roots, seeds):
+            if t.grad_fn is not None:
+                self._export(t, self._seg_of(t))
+            self._add(t, g)
+        for s in range(self.seg, -1, -1):
+            self._propagate(s)
+            if s:
+                xs, ys, adjoint = self.nodes[s - 1]
+                for x, g in zip(xs, adjoint(*[self._grad_of(y) for y in ys])):
+                    self._add(x, g)
+                self.nodes[s - 1] = None
+
+    def _propagate(self, s: int) -> None:
+        roots = [(t, self.grads.pop(id(t))[1]) for t in self.exports[s] if id(t) in self.grads]
+        want = list(self.used[s].values())
+        for t in self.exports[s]:   # nothing reads these again: let them go
+            self._exported.discard(id(t))
+            leaf = self._cuts.pop(id(t), None)
+            if leaf is not None:
+                self._alias.pop(id(leaf), None)
+        self.exports[s], self.used[s] = [], {}
+        if not roots or not want:
+            return
+        got = torch.autograd.grad([t for t, _ in roots], want, [g for _, g in roots],
+                                  allow_unused=True)
+        for leaf, g in zip(want, got):
+            self._add(leaf, g)
+
+    def grad(self, t):
+        """The gradient the backward left for leaf ``t`` (None: none)."""
+        hit = self.grads.get(id(t))
+        return None if hit is None else hit[1]
+
+    def _rerun(self, fn, xs: tuple, gys: tuple) -> tuple:
+        comm = self.comm
+        sub = Tape(comm)
+        leaves = tuple(x.detach().requires_grad_() if x.requires_grad else x for x in xs)
+        prev = None if comm is None else comm.tape
+        if comm is not None:
+            comm.tape = sub
+        try:
+            with sub:
+                out = fn(*leaves)
+            sub.backward(out, gys)
+        finally:
+            if comm is not None:
+                comm.tape = prev
+        mine = {id(x) for x in leaves}
+        for t, g in sub.grads.values():
+            if id(t) not in mine:
+                self._add(t, g)
+        return tuple(sub.grad(x) for x in leaves)
+
 
 
 def sharded(specs: Optional[dict], name: str, dim: int) -> bool:
@@ -527,6 +905,30 @@ def activate(mesh: Mesh, rules: dict):
         yield
     finally:
         _ctx.state = prev
+
+
+@contextlib.contextmanager
+def acting_as(comm):
+    """Inside this context the calling thread is ``comm``'s slot for
+    :func:`hint` (as :func:`run` makes each slot's thread): the dry run
+    traces one rank with a :class:`RecordingComm` this way."""
+    prev = getattr(_ctx, "comm", None)
+    _ctx.comm = comm
+    try:
+        yield
+    finally:
+        _ctx.comm = prev
+
+
+def current_state():
+    """(mesh, rules) under :func:`activate`, else None."""
+    return getattr(_ctx, "state", None)
+
+
+def current_comm():
+    """The calling thread's communicator in :func:`run` or
+    :func:`acting_as`, else None."""
+    return getattr(_ctx, "comm", None)
 
 
 def active_spec(shape: Sequence[int], axes: Sequence) -> tuple:

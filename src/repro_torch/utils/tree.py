@@ -27,3 +27,22 @@ def count_params(tree) -> int:
 
 def tree_bytes(tree) -> int:
     return sum(x.numel() * x.element_size() for x in leaves(tree))
+
+
+def tree_map(fn, tree):
+    """``tree`` with ``fn`` applied to every leaf, its dicts, lists and
+    tuples rebuilt."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_cast(tree, dtype):
+    return tree_map(lambda x: x.to(dtype), tree)
+
+
+def tree_zeros_like(tree, dtype=None):
+    return tree_map(lambda x: torch.zeros(x.shape, dtype=dtype or x.dtype, device=x.device),
+                    tree)

@@ -32,6 +32,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "import repro_torch.dp.sharding, repro_torch.runtime.sharding; "
             "import repro_torch.runtime.elastic, repro_torch.runtime.pipeline_parallel; "
             "import repro_torch.launch.mesh; "
+            "import repro_torch.launch.dryrun, repro_torch.launch.op_analysis; "
+            "import repro_torch.launch.perf, repro_torch.launch.roofline; "
             "from repro_torch import dp; dp.backends.ensure_registered(); "
             "from repro_torch.dp import (DPEngine, DPRequest, DPResponse, "
             "DPService, ServiceResult, Session, AdmissionError, PrefixIndex, "
