@@ -185,7 +185,17 @@ bf16, against the single slot on the same weights and batch, K7 launched
 twice and K7b once an attention layer and slot, phi3's float32 AdamW step
 against ``build_step``, and ``launch/dryrun.py``'s trace of its (2, 2) step
 on ``meta`` slots against the collectives slot 0 carried and its real
-argument bytes; K7 and K7b at slot 0's share of a layer beside SDPA.
+argument bytes; K7 and K7b at slot 0's share of a layer beside SDPA; and
+last the same program one process a rank (``--processes`` alone,
+``runtime/distributed.py``): qwen3-14b (depth 8) and granite-moe-3b-a800m
+(depth 4) serving 4 requests of the LM traffic on (1, 4) and (2, 2), and
+phi3-mini-3.8b (depth 8) taking a float32 gradient pass and AdamW step on
+(2, 2), first on the threads (the results kept on the host), then in four
+rank processes of the card over gloo: tokens, logits, caches, gradients
+and parameters bit-equal, K7's and K7b's launches summed over the ranks
+equal to the threads', the times and each rank's peak memory, and K7 and
+K7b timed in rank 0's process at a rank's shapes; over NCCL, one rank a
+card, where the host has two cards or more.
 
 K1, K2, K3, K4 and K6 (both schedules) are also timed at every shape they
 launch on the main and grid paths (each new shape held against the plain
@@ -259,7 +269,8 @@ from repro_torch.models.attention import _project_qkv, attn_forward  # noqa: E40
 from repro_torch.models.layers import rmsnorm, silu  # noqa: E402
 from repro_torch.models.model import CausalLM, loss_fn, param_defs  # noqa: E402
 from repro_torch.optim import grad_compress  # noqa: E402
-from repro_torch.runtime import elastic, pipeline_parallel  # noqa: E402
+from repro_torch.launch import ranks  # noqa: E402
+from repro_torch.runtime import distributed, elastic, pipeline_parallel  # noqa: E402
 from repro_torch.runtime import sharding as rt_sharding  # noqa: E402
 from repro_torch.serving import Engine, Request, Scheduler  # noqa: E402
 
@@ -4449,6 +4460,264 @@ def phase_sharded_train(cuda) -> list:
     return [fwd, *bwd]
 
 
+# ---------------------------------------------------------------------------
+# The sharded LM one process a rank (runtime/distributed.py), against threads
+# ---------------------------------------------------------------------------
+#: (arch, depth) served over each of SLM_MESHES at full width, float32
+#: compute on the seed's weights, PROC_REQUESTS requests of the LM traffic
+#: with PROC_NEW tokens each (a prefill each, then one decode step of all
+#: four); (arch, depth) trained in float32 on (2, 2) (one train step of
+#: SHT_BATCH x SHT_SEQ tokens, its gradients kept); four
+#: ranks as four processes of the card (gloo: NCCL refuses two ranks on a
+#: device); the ranks' collective timeout and the phase's limit. The phase
+#: took 101.8-108.7 s on an H100 80GB HBM3 at 700 W, most of it (2, 2)'s
+#: FSDP gathers crossing gloo through host memory (a qwen3-14b call ~6 s):
+#: the limit is 1.2 x the slowest, and every call past the first decode
+#: step would add one such call a request batch, so one step is timed.
+PROC_SERVE = (("qwen3-14b", 8), ("granite-moe-3b-a800m", 4))
+PROC_TRAIN, PROC_TRAIN_MESH = ("phi3-mini-3.8b", 8), (2, 2)
+PROC_REQUESTS, PROC_NEW = 4, 2
+PROC_TIMEOUT_S, PROC_LIMIT_S = 120.0, 130.0
+#: new tokens a request over NCCL (one rank a card: decode steps to time)
+PROC_NCCL_NEW = 6
+K7_COUNTERS = ("flash_attention", "flash_attention_tc", "flash_attention_bwd",
+               "flash_attention_bwd_tc")
+
+
+def process_jobs(cuda) -> list:
+    """The phase's rank programs as ``(fn, kwargs)`` (``launch/ranks.py``),
+    each run by the threads and by the processes: serving on each mesh,
+    then the train step."""
+    jobs = []
+    for arch, depth in PROC_SERVE:
+        cfg = dataclasses.replace(get_config(arch), n_layers=depth, compute_dtype=torch.float32)
+        prompts = lm_traffic(cfg)[1][:PROC_REQUESTS]
+        for shape in SLM_MESHES:
+            jobs.append((ranks.serve, {"cfg": cfg, "prompts": prompts, "max_new": PROC_NEW,
+                                       "max_len": LM_MAX_LEN, "mesh": shape, "seed": SEED}))
+    arch, depth = PROC_TRAIN
+    cfg = dataclasses.replace(get_config(arch), n_layers=depth, param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    batch = {k: (v if v.is_floating_point() else v.int()).cpu().numpy()
+             for k, v in train_batches(cfg, SHT_BATCH, SHT_SEQ, cuda)(0).items()}
+    jobs.append((ranks.train, {"cfg": cfg, "batch": batch, "mesh": PROC_TRAIN_MESH,
+                               "seed": SEED, "lr": SHT_LR, "warmup": 10, "total": 20}))
+    return jobs
+
+
+def job_label(fn, kw) -> str:
+    return (f"{'serve' if fn is ranks.serve else 'train'} {kw['cfg'].name} "
+            f"{kw['mesh'][0]}x{kw['mesh'][1]}")
+
+
+def threaded_job(fn, kw, mesh, cuda) -> dict:
+    """One job through the threaded ``ShardedLM`` (``CausalLM.from_seed`` on
+    the card, placed on ``mesh``): its record with every large tensor as
+    each slot's digest, the logits on the host."""
+    cfg = kw["cfg"]
+    model = CausalLM.from_seed(cfg, seed=SEED, device=cuda)
+    sharded = model.place(mesh)
+    del model
+    if fn is ranks.serve:
+        eng, rec = ranks.serve_requests(sharded, kw["prompts"], kw["max_new"], kw["max_len"])
+        rec["cache"] = {tuple(int(i) for i in idx): ranks.digest(eng.cache.shards[idx])
+                        for idx in np.ndindex(mesh.slots.shape)}
+        rec["logits"] = [t.cpu() for t in rec["logits"]]
+        del eng
+    else:
+        batch = {k: torch.as_tensor(v, device=cuda) for k, v in kw["batch"].items()}
+        rec = ranks.train_record(sharded, batch, ranks.opt_config(kw["lr"], kw["warmup"],
+                                                                    kw["total"]))
+        rec["grads"] = {idx: ranks.digest(g) for idx, g in rec["grads"].items()}
+        rec["params"] = {idx: ranks.digest(p) for idx, p in rec["params"].items()}
+        rec["metrics"] = {k: v.cpu() for k, v in rec["metrics"].items()}
+    del sharded
+    return rec
+
+
+def same_job(label: str, want: dict, got: list, fn, shape: tuple) -> None:
+    """The ranks' records of one job over a ``shape`` mesh (rank order)
+    against the threads': bit for bit."""
+    first = got[0]["result"]
+    by_index = list(zip(np.ndindex(*shape), got))
+    if fn is ranks.serve:
+        tokens = all(g["result"]["tokens"] == want["tokens"] for g in got)
+        logits = (len(first["logits"]) == len(want["logits"])
+                  and all(torch.equal(a, b) for a, b in zip(first["logits"], want["logits"])))
+        others = all(g["result"]["logits"] == ranks.digest(want["logits"]) for g in got[1:])
+        err = max(max_err(a, b) for a, b in zip(first["logits"], want["logits"]))
+        cache = all(g["result"]["cache"] == want["cache"][idx] for idx, g in by_index)
+        require(tokens and logits and others and cache,
+                f"{label}: every rank's tokens, rank 0's {len(want['logits'])} logits (largest "
+                f"gap {err}) and the other ranks' digests of them, and every rank's cache "
+                "shards bit-equal to the threaded ShardedLM's")
+    else:
+        grads = all(g["result"]["grads"] == want["grads"][idx] for idx, g in by_index)
+        params = all(g["result"]["params"] == want["params"][idx] for idx, g in by_index)
+        metrics = all(ranks.digest(g["result"]["metrics"]) == ranks.digest(want["metrics"])
+                      for g in got)
+        require(grads and params and metrics,
+                f"{label}: every rank's gradient shards of the step, parameters after it and "
+                f"metrics (loss {float(want['metrics']['loss'])}, grad norm "
+                f"{float(want['metrics']['grad_norm'])}) bit-equal to the threaded step's")
+
+
+def k7_counts(counts: dict) -> dict:
+    return {k: counts.get(k, 0) for k in K7_COUNTERS}
+
+
+def phase_processes(cuda) -> list:
+    """The sharded LM's serving and train step one process a rank: every
+    job of :func:`process_jobs` first through the threaded ``ShardedLM``
+    on four slots of the card (its results kept on the host, the model
+    freed), then in four rank processes of the card over gloo, bit-equal,
+    with K7's and K7b's launches summed over the ranks equal to the
+    threads'; K7 and K7b timed in rank 0 at a rank's shapes. Over NCCL,
+    one rank a card, where the host has two cards or more. Returns the
+    records of K7 and K7b in the rank processes."""
+    print(card_line())
+    t0 = time.perf_counter()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    jobs = process_jobs(cuda)
+    slots = rt_sharding.Mesh([cuda] * SHARD_SLOTS, ("slot",)).slots
+    meshes = {shape: rt_sharding.Mesh.of_slots(slots.reshape(shape), ("data", "model"))
+              for shape in SLM_MESHES}
+    threads = []
+    for fn, kw in jobs:
+        reset_launches()
+        torch.cuda.synchronize()
+        t_job = time.perf_counter()
+        rec = threaded_job(fn, kw, meshes[kw["mesh"]], cuda)
+        torch.cuda.synchronize()
+        threads.append((rec, time.perf_counter() - t_job, k7_counts(launches())))
+        gc.collect()
+        torch.cuda.empty_cache()
+    threads_s = time.perf_counter() - t0
+    del meshes, slots
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+
+    prompts = jobs[0][1]["prompts"]
+    qwen = jobs[0][1]["cfg"]
+    hq, hkv = qwen.n_heads // SHARD_SLOTS, qwen.n_kv_heads // SHARD_SLOTS
+    k7_shape = ((1, hq, len(prompts[0]), qwen.hd), (1, hkv, len(prompts[0]), qwen.hd))
+    phi3 = jobs[-1][1]["cfg"]
+    d_, m_ = PROC_TRAIN_MESH
+    k7b_shape = ((SHT_BATCH // d_, phi3.n_heads // m_, SHT_SEQ, phi3.hd),
+                 (SHT_BATCH // d_, phi3.n_kv_heads // m_, SHT_SEQ, phi3.hd))
+    rank_jobs = [(fn, {**kw, "digest_out": True}) for fn, kw in jobs] + [
+        (ranks.attention_ms, {"q_shape": k7_shape[0], "kv_shape": k7_shape[1]}),
+        (ranks.attention_ms, {"q_shape": k7b_shape[0], "kv_shape": k7b_shape[1],
+                              "backward": True})]
+    t1 = time.perf_counter()
+    done = distributed.launch(ranks.sequence, (1, SHARD_SLOTS), ("data", "model"),
+                              [cuda] * SHARD_SLOTS, args=(rank_jobs,), timeout=PROC_TIMEOUT_S)
+    procs_s = time.perf_counter() - t1
+    require(done.backend == "gloo" and not any(r.foreign for r in done.reports)
+            and all(r.contexts == [cuda.index] for r in done.reports),
+            f"processes: four ranks on one card over {done.backend} (gloo), none loading jax "
+            f"or repro, each holding a context on card {cuda.index} alone "
+            f"{[r.contexts for r in done.reports]}")
+    path = {k: 0 for k in K7_COUNTERS}
+    for j, (fn, kw) in enumerate(jobs):
+        label = f"processes {job_label(fn, kw)}"
+        got = [r.result[j] for r in done.reports]
+        want, t_s, t_counts = threads[j]
+        same_job(label, want, got, fn, kw["mesh"])
+        counts = {k: sum(g["launches"].get(k, 0) for g in got) for k in K7_COUNTERS}
+        path = {k: path[k] + counts[k] for k in K7_COUNTERS}
+        require(counts == t_counts and counts["flash_attention"] > 0
+                and (fn is ranks.serve or counts["flash_attention_bwd"] > 0),
+                f"{label}: K7 and K7b launches summed over the ranks {counts} equal the "
+                f"threads' {t_counts}")
+        peaks = [(g["peak_bytes"] or 0) / 2 ** 30 for g in got]
+        line = (f"{label}: processes {max(g['seconds'] for g in got):.2f} s, threads "
+                f"{t_s:.2f} s; peak device memory by rank "
+                f"{', '.join(f'{p:.3f}' for p in peaks)} GiB")
+        if fn is ranks.serve:
+            line += (f"; decode ms of each step ({len(want['ms']['decode'])}) processes "
+                     f"(rank 0) {', '.join(f'{x:.3f}' for x in got[0]['result']['ms']['decode'])}"
+                     f", threads {', '.join(f'{x:.3f}' for x in want['ms']['decode'])}"
+                     f"; prefill ms processes "
+                     f"{', '.join(f'{x:.1f}' for x in got[0]['result']['ms']['prefill'])}, "
+                     f"threads {', '.join(f'{x:.1f}' for x in want['ms']['prefill'])}")
+        print(line + f"; {card_line()}")
+    records = []
+    for j, (name, source, replaces, shapes, backward) in enumerate((
+            ("flash_attention_rank_process", "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:68", k7_shape, False),
+            ("flash_attention_bwd_rank_process", "src/repro_torch/csrc/flash_attention_bwd.cu",
+             "src/repro/kernels/ops.py:316", k7b_shape, True))):
+        t = done.reports[0].result[len(jobs) + j]["result"]
+        (b, h, s, d), (_, g, _, _) = shapes
+        if backward:
+            nbytes = 4 * d * s * b * (4 * h + 4 * g) + 4 * b * h * s
+            flops = 10 * d * b * h * s * (s + 1) // 2
+        else:
+            nbytes = 4 * d * s * b * (2 * h + 2 * g)
+            flops = 4 * d * b * h * s * (s + 1) // 2
+        tol = (K7B_TOL if backward else K7_TOL)[torch.float32]
+        require(t["share"] <= tol, f"{name} in rank 0's process at q {shapes[0]}, k and v "
+                f"{shapes[1]} float32: {t['share']:.3e} of max|·| from its plain version, "
+                f"within {tol}")
+        rec = kernel_record(name, source, replaces, t["max_abs_err"], t["ms"], t["plain_ms"],
+                            nbytes, flops, peak=F32_OPS_PER_S, library_ms=t["library_ms"])
+        rec["launches"] = path["flash_attention_bwd" if backward else "flash_attention"]
+        require(rec["launches"] > 0, f"{name}: launched in the rank processes")
+        records.append(rec)
+    print(f"processes phase: threads {threads_s:.2f} s, processes {procs_s:.2f} s (spawn, "
+          f"weights drawn in each rank and every job); K7 and K7b launches in the ranks "
+          f"{path}; {card_line()}")
+    processes_nccl(cuda, jobs[0])
+    took = time.perf_counter() - t0
+    require(took <= PROC_LIMIT_S, f"processes phase took {took:.1f} s "
+            f"(limit {PROC_LIMIT_S:.0f} s)")
+    return records
+
+
+def processes_nccl(cuda, job) -> None:
+    """The first serving job over NCCL, one rank a card on up to four cards
+    as a (1, n) mesh, against the threaded ``ShardedLM`` over the same
+    cards (``--processes-nccl`` alone); where the host has one card, a
+    line saying so (not a check)."""
+    n = min(SHARD_SLOTS, torch.cuda.device_count())
+    if n < 2:
+        print(f"processes over NCCL: not run, {torch.cuda.device_count()} card on this host "
+              "(NCCL takes one rank a card)")
+        return
+    fn, kw = job
+    kw = {**kw, "mesh": (1, n), "max_new": PROC_NCCL_NEW}
+    cards = [torch.device("cuda", i) for i in range(n)]
+    mesh = rt_sharding.Mesh(np.array(cards, dtype=object).reshape(1, n), ("data", "model"))
+    t0 = time.perf_counter()
+    want = threaded_job(fn, kw, mesh, cuda)
+    threads_s = time.perf_counter() - t0
+    del mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    done = distributed.launch(ranks.sequence, (1, n), ("data", "model"), cards,
+                              args=([(fn, {**kw, "digest_out": True})],), timeout=PROC_TIMEOUT_S)
+    got = done.result[0]
+    peaks = ", ".join(f"{r.result[0]['peak_bytes'] / 2 ** 30:.3f}" for r in done.reports)
+    print(f"processes over NCCL {job_label(fn, kw)}: launch {time.perf_counter() - t0:.2f} s "
+          f"(job {got['seconds']:.2f} s in rank 0), threads {threads_s:.2f} s; decode step ms "
+          f"processes (rank 0) {np.median(got['result']['ms']['decode']):.3f}, threads "
+          f"{np.median(want['ms']['decode']):.3f}; prefill ms processes "
+          f"{', '.join(f'{x:.1f}' for x in got['result']['ms']['prefill'])}, threads "
+          f"{', '.join(f'{x:.1f}' for x in want['ms']['prefill'])}; peak device memory by rank "
+          f"{peaks} GiB; {card_line()}")
+    require(done.backend == "nccl" and [r.contexts for r in done.reports] == [[i] for i in range(n)]
+            and not any(r.foreign for r in done.reports),
+            f"processes over {n} cards: backend {done.backend} (nccl), rank r holding a "
+            f"context on card r alone {[r.contexts for r in done.reports]}, none loading jax "
+            "or repro")
+    same_job(f"processes over NCCL {job_label(fn, kw)}", want,
+             [r.result[0] for r in done.reports], fn, kw["mesh"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4487,6 +4756,17 @@ def main() -> int:
         device_profile(torch.cuda.synchronize, {}, cpu=False)
         torch.backends.cuda.matmul.allow_tf32 = False
         print(json.dumps(phase_sharded_train(cuda)))
+        return 1 if _failures else 0
+    if sys.argv[1:] == ["--processes-nccl"]:
+        phase_build()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(card_line())
+        processes_nccl(cuda, process_jobs(cuda)[0])
+        return 1 if _failures else 0
+    if sys.argv[1:] == ["--processes"]:
+        phase_build()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(json.dumps(phase_processes(cuda)))
         return 1 if _failures else 0
     if sys.argv[1:] == ["--sharded-lm"]:
         phase_build()
@@ -4612,6 +4892,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     records += phase_sharded_train(cuda)
+    gc.collect()
+    torch.cuda.empty_cache()
+    records += phase_processes(cuda)
 
     if _failures:
         print(f"chip_smoke: {len(_failures)} check(s) failed", file=sys.stderr)

@@ -19,6 +19,10 @@ axes (``ParamDef.axes``, ``transformer.cache_axes``): each slot holds the
 bytes the reference's ``NamedSharding`` puts on its device. Its
 ``grads`` and ``train_step`` run the per-rank program of ``loss_fn``, its
 gradient (``runtime.sharding.Tape``) and AdamW on every slot's shards.
+:meth:`ShardedLM.of_rank` is one rank of it in a process of its own
+(``runtime/distributed.py``): it holds only that rank's shards, and its
+entry points run the same per-rank program once, with the rank's
+communicator.
 """
 from __future__ import annotations
 
@@ -214,15 +218,44 @@ def param_parts(cfg) -> dict:
             if cfg.mixer_of(i) == "mamba" for w, n in ssm.MAMBA_PARTS.items()}
 
 
+def _cutter(cfg, mesh: Mesh, rules: dict, index: tuple):
+    """``cut(name, tensor)``: the slot at ``index``'s shard of a parameter,
+    copied to the slot's device."""
+    specs, parts = param_specs(cfg, mesh, rules), param_parts(cfg)
+    coord = dict(zip(mesh.axis_names, index))
+
+    def cut(name: str, t: torch.Tensor) -> torch.Tensor:
+        return sharding.copy_to(sharding.piece(t.detach(), specs[name], coord, mesh.shape,
+                                               parts.get(name)), mesh.slots[index])
+    return cut
+
+
 def place_params(named: dict, cfg, mesh: Mesh, rules: dict, index: tuple) -> dict:
     """The slot at ``index``'s shard of every parameter of ``named``
     (``{name: tensor}``), copied to the slot's device (nothing is allocated
     on ``meta``)."""
-    specs, parts = param_specs(cfg, mesh, rules), param_parts(cfg)
-    coord = dict(zip(mesh.axis_names, index))
-    return {name: sharding.copy_to(sharding.piece(t.detach(), specs[name], coord, mesh.shape,
-                                                  parts.get(name)), mesh.slots[index])
-            for name, t in named.items()}
+    cut = _cutter(cfg, mesh, rules, index)
+    return {name: cut(name, t) for name, t in named.items()}
+
+
+def drawn_params(cfg, seed: int, mesh: Mesh, rules: dict, index: tuple) -> dict:
+    """The slot at ``index``'s shard of every parameter of
+    ``CausalLM.from_seed(cfg, seed, device)`` on the slot's device, bit for
+    bit, made there alone: each parameter is drawn whole from the same
+    generator in the same order, cut to the slot's piece and dropped, so
+    no more than one whole parameter exists at a time."""
+    slot = mesh.slots[index]
+    cut, defs = _cutter(cfg, mesh, rules, index), param_defs(cfg)
+    gen = torch.Generator(device=slot.device)
+    gen.manual_seed(seed)
+    out = {}
+    with slot.scope():
+        for name, p in CausalLM(cfg, device="meta").named_parameters():
+            whole = torch.empty(p.shape, dtype=p.dtype, device=slot.device)
+            init_param_(whole, defs[name], gen)
+            out[name] = cut(name, whole)
+            del whole
+    return out
 
 
 def cache_specs(cfg, batch: int, max_len: int, dtype, mesh: Mesh, rules: dict) -> tuple:
@@ -292,13 +325,32 @@ class ShardedLM:
     ``moe_stats``, None by default, may be set to a dict: the MoE layers
     then count the (token, k) assignments and capacity drops of the whole
     batch there by mode, summed over the layers (``moe_stats[mode]``, see
-    ``moe.moe_forward``)."""
+    ``moe.moe_forward``; rank 0 keeps them).
+
+    :meth:`of_rank` makes one rank of the model in a process of its own
+    (``runtime.distributed.launch``): :attr:`comm` is the rank's
+    ``ProcessComm``, the model holds its shards alone (``params``,
+    caches, optimizer state and batches at its index only), and each
+    entry point runs the per-rank program once, in the calling thread, as
+    ``run`` runs it in each slot's. :meth:`grads` then returns the rank's
+    gradient shards; ``gather_*`` need every shard and refuse."""
 
     def __init__(self, model: CausalLM, mesh: Mesh, rules: Optional[dict] = None):
         self._setup(model.cfg, mesh, rules)
         named = dict(model.named_parameters())
         for idx in np.ndindex(mesh.slots.shape):
             self.params[tuple(idx)] = place_params(named, self.cfg, mesh, self.rules, tuple(idx))
+
+    @classmethod
+    def of_rank(cls, cfg, comm, rules: Optional[dict] = None, seed: int = 0) -> "ShardedLM":
+        """Rank ``comm.index`` of ``CausalLM.from_seed(cfg, seed)`` over
+        ``comm.mesh``: its shards, drawn on the rank's device
+        (:func:`drawn_params`)."""
+        self = cls.__new__(cls)
+        self._setup(cfg, comm.mesh, rules)
+        self.comm = comm
+        self.params[comm.index] = drawn_params(cfg, seed, comm.mesh, self.rules, comm.index)
+        return self
 
     @classmethod
     def of_shards(cls, cfg, mesh: Mesh, rules: dict, shards: dict) -> "ShardedLM":
@@ -313,7 +365,7 @@ class ShardedLM:
 
     def _setup(self, cfg, mesh: Mesh, rules: Optional[dict]) -> None:
         self.cfg, self.mesh = cfg, mesh
-        self.moe_stats = None
+        self.moe_stats, self.comm = None, None
         self.rules = rules or sharding.make_rules(multi_pod="pod" in mesh.axis_names)
         self.specs = param_specs(self.cfg, mesh, self.rules)
         self.parts = param_parts(self.cfg)
@@ -332,7 +384,23 @@ class ShardedLM:
 
     @property
     def device(self) -> torch.device:
-        return self.mesh.slots.flat[0].device
+        """The mesh's first slot's device (a rank's own in :meth:`of_rank`)."""
+        return self._slots()[0].device
+
+    def _indices(self) -> list:
+        """The indices of the slots this object holds shards for: every
+        slot's, or a rank's own."""
+        if self.comm is not None:
+            return [self.comm.index]
+        return [tuple(i) for i in np.ndindex(self.mesh.slots.shape)]
+
+    def _slots(self) -> list:
+        return [self.mesh.slots[i] for i in self._indices()]
+
+    def _whole(self, what: str) -> None:
+        if self.comm is not None:
+            raise ValueError(f"{what} needs every rank's shards; a rank of its own process "
+                             "holds its own (gather what the ranks report)")
 
     def gather_params(self) -> dict:
         """Every parameter whole on :attr:`device` (inverting the placement
@@ -342,13 +410,14 @@ class ShardedLM:
     def empty_cache(self, batch: int, max_len: int, dtype=torch.bfloat16) -> ShardedCache:
         _, specs = cache_specs(self.cfg, batch, max_len, dtype, self.mesh, self.rules)
         shards = np.empty(self.mesh.slots.shape, dtype=object)
-        for idx in np.ndindex(shards.shape):
+        for idx in self._indices():
             shards[idx] = place_cache(self.cfg, batch, max_len, dtype, self.mesh,
                                       self.rules, idx)
         return ShardedCache(shards, specs)
 
     def gather_cache(self, cache: ShardedCache) -> list:
         """The cache whole on :attr:`device`, as ``CausalLM`` holds it."""
+        self._whole("gather_cache")
         out = []
         for i, specs in enumerate(cache.specs):
             layer = {}
@@ -361,18 +430,27 @@ class ShardedLM:
         return out
 
     # ------------------------------------------------------------------
+    def _each(self, fn):
+        """``fn(comm)`` under ``activate`` on every slot (``sharding.run``),
+        or once with this rank's communicator; slot 0's result (the
+        rank's own)."""
+        with activate(self.mesh, self.rules):
+            if self.comm is None:
+                return sharding.run(self.mesh, fn).flat[0]
+            with sharding.acting_as(self.comm), self.comm.slot.scope():
+                return fn(self.comm)
+
     def _run(self, fn, *inputs):
-        """``fn(comm)`` on every slot under ``activate``, after each slot's
-        stream has waited for the work that made ``inputs``; returns slot
-        0's result, safe to read on the caller's stream."""
-        for slot in self.mesh.slots.flat:
+        """:meth:`_each` after each slot's stream has waited for the work
+        that made ``inputs``; slot 0's result, safe to read on the caller's
+        stream."""
+        slots = self._slots()
+        for slot in slots:
             for t in inputs:
                 if isinstance(t, torch.Tensor):
                     slot.follow(t)
-        with activate(self.mesh, self.rules):
-            out = sharding.run(self.mesh, fn)
-        first = out.flat[0]
-        return None if first is None else sharding.join(first, self.mesh.slots.flat[0])
+        first = self._each(fn)
+        return None if first is None else sharding.join(first, slots[0])
 
     def _gathered(self, comm, names: list) -> dict:
         """``{name: weight}``, this slot's, with the FSDP dims gathered (one
@@ -591,13 +669,18 @@ class ShardedLM:
         return out
 
     def rank_train_step(self, comm, opt_cfg, opt_state: dict, batches: list,
-                        global_batch: int, accum_dtype=torch.float32) -> dict:
+                        global_batch: int, accum_dtype=torch.float32,
+                        grads_out: Optional[dict] = None) -> dict:
         """:meth:`rank_grads`, then AdamW on this slot's shards in place
         (``adamw.apply`` with the global gradient norm over every slot's
-        owned elements). Returns the metrics with grad_norm and lr."""
+        owned elements). Returns the metrics with grad_norm and lr;
+        ``grads_out``, where given, receives the slot's gradient shards at
+        its index."""
         from repro_torch.optim import adamw
 
         grads, metrics = self.rank_grads(comm, batches, global_batch, accum_dtype)
+        if grads_out is not None:
+            grads_out[comm.index] = grads
         _, _, om = adamw.apply(opt_cfg, grads, opt_state, self.params[comm.index],
                                comm=comm, owned=self.owned(comm))
         return {**metrics, **om}
@@ -614,13 +697,11 @@ class ShardedLM:
         b = rows // microbatches
         spec = self._batch_spec(b)
         out = np.empty(self.mesh.slots.shape, dtype=object)
-        for idx in np.ndindex(out.shape):
-            out[idx] = []
-        for j in range(microbatches):
-            placed = {k: sharding.place(v[j * b:(j + 1) * b], self.mesh, (spec,))
-                      for k, v in batch.items()}
-            for idx in np.ndindex(out.shape):
-                out[idx].append({k: v[idx] for k, v in placed.items()})
+        for idx in self._indices():
+            coord = dict(zip(self.mesh.axis_names, idx))
+            out[idx] = [{k: sharding.copy_to(sharding.piece(
+                torch.as_tensor(v[j * b:(j + 1) * b]), (spec,), coord, self.mesh.shape),
+                self.mesh.slots[idx]) for k, v in batch.items()} for j in range(microbatches)]
         return out, b
 
     def init_opt(self, opt_cfg) -> np.ndarray:
@@ -629,14 +710,15 @@ class ShardedLM:
         from repro_torch.optim import adamw
 
         out = np.empty(self.mesh.slots.shape, dtype=object)
-        for idx in np.ndindex(out.shape):
+        for idx in self._indices():
             with self.mesh.slots[idx].scope():
                 out[idx] = adamw.init(self.params[idx], opt_cfg.moment_dtype)
         return out
 
     def grads(self, batch: dict, microbatches: int = 1, accum_dtype=torch.float32) -> tuple:
         """(every parameter's gradient whole on :attr:`device`, slot 0's
-        metrics): :meth:`rank_grads` on every slot, the shards gathered."""
+        metrics): :meth:`rank_grads` on every slot, the shards gathered; in
+        a rank of :meth:`of_rank`, (its gradient shards, its metrics)."""
         shards, b = self.split_batch(batch, microbatches)
         out = np.empty(self.mesh.slots.shape, dtype=object)
 
@@ -645,26 +727,28 @@ class ShardedLM:
             out[comm.index] = grads
             return metrics
 
-        with activate(self.mesh, self.rules):
-            metrics = sharding.run(self.mesh, fn).flat[0]
+        metrics = self._each(fn)
+        if self.comm is not None:
+            return out[self.comm.index], metrics
         return self.gather_named(out), metrics
 
     def train_step(self, opt_cfg, opt_state: np.ndarray, batch: dict, microbatches: int = 1,
-                   accum_dtype=torch.float32) -> dict:
+                   accum_dtype=torch.float32, grads_out: Optional[dict] = None) -> dict:
         """One step of the reference's train step over the mesh: every slot
         runs :meth:`rank_train_step` on its shards of each microbatch of
         ``batch`` (global tensors) and updates its parameters and
         ``opt_state[index]`` in place. Returns slot 0's metrics (every
-        slot's are equal)."""
+        slot's are equal); ``grads_out``, where given, receives each slot's
+        gradient shards by index."""
         shards, b = self.split_batch(batch, microbatches)
-        with activate(self.mesh, self.rules):
-            out = sharding.run(self.mesh, lambda comm: self.rank_train_step(
-                comm, opt_cfg, opt_state[comm.index], shards[comm.index], b, accum_dtype))
-        return out.flat[0]
+        return self._each(lambda comm: self.rank_train_step(
+            comm, opt_cfg, opt_state[comm.index], shards[comm.index], b, accum_dtype,
+            grads_out))
 
     def gather_named(self, shards: np.ndarray) -> dict:
         """Tensors placed as the parameters (``shards[index]`` a slot's
         ``{name: shard}``), each whole on :attr:`device`."""
+        self._whole("gather_named")
         out = {}
         for name, spec in self.specs.items():
             arr = np.empty(self.mesh.slots.shape, dtype=object)

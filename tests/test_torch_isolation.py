@@ -179,3 +179,28 @@ def test_lm_sharding_slice_is_scanned_on_its_own():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+
+
+def test_distributed_slice_is_scanned_on_its_own():
+    """The process-per-rank communicator and launcher and the rank programs
+    (the port's, and the tests' own that a rank imports) exist, import no
+    JAX and no ``repro`` (nor load them when imported), and read no
+    environment variable."""
+    files = [PORT / p for p in ("runtime/distributed.py", "launch/ranks.py")]
+    files.append(ROOT / "tests" / "torch_rank_programs.py")
+    env = re.compile(r"os\.environ|getenv")
+    for f in files:
+        text = f.read_text()
+        assert not FORBIDDEN.findall(text), f"{f.relative_to(ROOT)} imports JAX or repro"
+        assert not env.search(text), f.relative_to(ROOT)
+    code = ("import sys; from repro_torch.runtime.distributed import ProcessComm, launch; "
+            "from repro_torch.launch import ranks; "
+            "sys.path.insert(0, 'tests'); import torch_rank_programs; "
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "assert not bad, bad; print('clean')")
+    env_vars = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env_vars, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"

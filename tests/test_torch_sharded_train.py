@@ -16,6 +16,8 @@ step, is not determined: those elements are held to the two steps' size
 instead, ``NOISE_STEPS`` lr each (one element of ~10⁵ in a run, measured).
 """
 import dataclasses
+import functools
+import tempfile
 
 import numpy as np
 import pytest
@@ -29,6 +31,7 @@ from repro.models import model as jmodel  # noqa: E402
 from repro.optim import adamw as jadamw  # noqa: E402
 from repro.optim import schedules as jschedules  # noqa: E402
 from repro.utils import tree as jtree  # noqa: E402
+import torch_rank_programs as programs  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.launch import dryrun as tdryrun  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
@@ -37,6 +40,8 @@ from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.models.convert import params_from_reference, reference_flat  # noqa: E402
 from repro_torch.optim import adamw as tadamw  # noqa: E402
 from repro_torch.optim import schedules as tschedules  # noqa: E402
+from repro_torch.launch import ranks  # noqa: E402
+from repro_torch.runtime import distributed  # noqa: E402
 from repro_torch.runtime import sharding as rt  # noqa: E402
 from repro_torch.utils import tree as ttree  # noqa: E402
 
@@ -435,12 +440,34 @@ def _step_log(sharded, batch, kind: str):
         return rt.run(sharded.mesh, fn)[0, 0]
 
 
+LOGGED_ARCHS = ("qwen3-14b", "granite-moe-3b-a800m", "jamba-1.5-large-398b")
+
+
+@functools.lru_cache(maxsize=None)
+def _process_logs() -> dict:
+    """{(arch, kind): rank 0's log} of each step of
+    ``test_recording_comm_equals_the_real_comm`` one process a rank: four
+    gloo ranks of a (2, 2) mesh on the CPU, one launch for all of them."""
+    jobs, keys = [], []
+    for arch in LOGGED_ARCHS:
+        cfg = _model(arch)[0]
+        for kind in ("train", "decode"):
+            jobs.append((programs.step_log, {"cfg": cfg, "batch": _batch(cfg, 5), "kind": kind,
+                                          "cache_len": 2 * T, "pos": 3}))
+            keys.append((arch, kind))
+    with tempfile.TemporaryDirectory() as tmp:
+        got = distributed.launch(ranks.sequence, (2, 2), ("data", "model"), ["cpu"] * 4,
+                                 args=(jobs,), init_method=f"file://{tmp}/rendezvous")
+    return {key: job["result"] for key, job in zip(keys, got.result)}
+
+
 @pytest.mark.parametrize("kind", ["train", "decode"])
-@pytest.mark.parametrize("arch", ["qwen3-14b", "granite-moe-3b-a800m", "jamba-1.5-large-398b"])
+@pytest.mark.parametrize("arch", LOGGED_ARCHS)
 def test_recording_comm_equals_the_real_comm(arch, kind):
     """Rank 0 of a (2, 2) mesh traced alone on ``meta`` with the recording
     communicator: the same (kind, bytes) list, in order, as the real
-    ``Comm`` carried on CPU slots for a train step and a decode step."""
+    ``Comm`` carried on CPU slots for a train step and a decode step, and
+    as rank 0's ``ProcessComm`` for the same step one process a rank."""
     cfg, model = _model(arch)
     sharded = model.place(_mesh(2, 2))
     batch = _torch(_batch(cfg, 5))
@@ -464,3 +491,4 @@ def test_recording_comm_equals_the_real_comm(arch, kind):
                                    torch.full((B,), 3, dtype=torch.int64, device="meta"), None)
     assert comm.log == want and len(want) > 4
     assert {k for k, _ in want} <= set(rt.COLLECTIVES)
+    assert _process_logs()[arch, kind] == want
