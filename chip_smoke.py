@@ -3796,6 +3796,10 @@ def sharded_pipeline(cuda) -> int:
 
     with torch.no_grad(), compute_dtype(model, torch.float32):
         x = model.embed_tokens(tokens)[:, None]               # (M, 1, S, d)
+        # the first call is the slots' threads' first: each makes its cuBLAS
+        # handle and workspace then
+        _, first_ms = timed_once(lambda: pipeline_parallel.pipeline_apply(
+            stage_fn, stages, x, mesh))
         reset_launches()
         got, pipe_ms = timed_once(lambda: pipeline_parallel.pipeline_apply(
             stage_fn, stages, x, mesh))
@@ -3808,7 +3812,8 @@ def sharded_pipeline(cuda) -> int:
           f"{cfg.n_kv_heads} kv heads, hd {cfg.hd}, {cfg.param_dtype} weights, float32 "
           f"compute; stages {[len(s) for s in stages]} (boundaries {bounds}, bottleneck "
           f"{bottleneck:.0f} parameters); {PIPE_MICRO} microbatches of 1 x {PIPE_S}: "
-          f"pipeline {pipe_ms:.1f} ms on {PIPE_STAGES} streams, the blocks in sequence "
+          f"pipeline {pipe_ms:.1f} ms on {PIPE_STAGES} streams (its first call "
+          f"{first_ms:.1f} ms), the blocks in sequence "
           f"{seq_ms:.1f} ms; max_abs_err {err} of max|h| {scale:.3f}; bits equal: "
           f"{torch.equal(got, want)}; K7 launches {counts['flash_attention']} "
           f"({counts['flash_attention_tc']} on the tensor-core body)")
@@ -4615,6 +4620,8 @@ def phase_processes(cuda) -> list:
     done = distributed.launch(ranks.sequence, (1, SHARD_SLOTS), ("data", "model"),
                               [cuda] * SHARD_SLOTS, args=(rank_jobs,), timeout=PROC_TIMEOUT_S)
     procs_s = time.perf_counter() - t1
+    print("dp processes, rank 0's jobs (s): " + ", ".join(
+        f"{job['seconds']:.2f}" for job in done.reports[0].result))
     require(done.backend == "gloo" and not any(r.foreign for r in done.reports)
             and all(r.contexts == [cuda.index] for r in done.reports),
             f"processes: four ranks on one card over {done.backend} (gloo), none loading jax "
@@ -4718,6 +4725,261 @@ def processes_nccl(cuda, job) -> None:
              [r.result[0] for r in done.reports], fn, kw["mesh"])
 
 
+# ---------------------------------------------------------------------------
+# The sharded DP drains, the pipeline and compressed_psum one process a rank
+# ---------------------------------------------------------------------------
+#: drains of each bucket (a cold one, a warm one); the ranks' collective
+#: timeout and the phase's time limit (at most the processes phase's)
+DPP_ROUNDS, DPP_TIMEOUT_S, DPP_LIMIT_S = 2, 120.0, 130.0
+#: the kernels timed in rank 0's process at its share of a bucket, by
+#: SHARD_BUCKETS' route: (record name, source, replaced Pallas function,
+#: reconstruct: the variant the drains launch)
+DPP_KERNELS = {
+    "kernel_blocked": ("sdp_pipeline_rank_process", "src/repro_torch/csrc/sdp_pipeline.cu",
+                       "src/repro/kernels/sdp_pipeline.py:110", False),
+    "kernel_wavefront": ("mcm_pipeline_rank_process", "src/repro_torch/csrc/mcm_pipeline.cu",
+                         "src/repro/kernels/mcm_pipeline.py:105", False),
+    "kernel_tiled_wavefront": ("mcm_tiled_fused_rank_process",
+                               "src/repro_torch/csrc/mcm_tiled.cu",
+                               "src/repro/kernels/mcm_tiled.py:380", True),
+    "kernel_grid": ("grid_pipeline_antidiag_rank_process",
+                    "src/repro_torch/csrc/grid_pipeline.cu",
+                    "src/repro/kernels/grid_pipeline.py:259", False),
+}
+
+
+def fmt(xs, digits: int) -> str:
+    return ", ".join(f"{x:.{digits}f}" for x in xs)
+
+
+def dpp_work(spec, lanes: int, reconstruct: bool) -> tuple:
+    """(bytes, operations) of a DP kernel's launch at ``lanes`` instances
+    of ``spec``'s shape, as the smoke's kernel records count them."""
+    if isinstance(spec, dp.GridSpec):
+        P, RC, L = spec.planes, spec.cells, len(spec.moves)
+        nbytes = 4 * (L + 2 * P) * RC + 4 * P * RC * (2 if reconstruct else 1)
+        return lanes * nbytes, lanes * 2 * antidiag_candidates(spec)
+    if isinstance(spec, dp.TriangularSpec):
+        return mcm_work(spec.n, lanes, reconstruct, reconstruct)
+    nbytes, ops = sdp_work(spec, reconstruct)
+    return lanes * nbytes, lanes * ops
+
+
+def threaded_drains(buckets: list, mesh, cuda) -> list:
+    """Each bucket through the threaded ``ShardedDPEngine`` over ``mesh``
+    and the single engine on the card (fresh engines each, the route
+    forced, ``DPP_ROUNDS`` drains; buckets that share their instances
+    share their encoding): for each, {"sharded", "single": (the records,
+    each drain's seconds), "stats", "launches": the sharded drains' kernel
+    launches}."""
+    out, specs = [], {}
+    for prob_name, route, instances, recon in buckets:
+        prob = dp.get_problem(prob_name)
+        if id(instances) not in specs:
+            specs[id(instances)] = ranks.encoded(prob, instances)
+        shard = dp.ShardedDPEngine(mesh=mesh, max_batch=8, feedback=False)
+        reset_launches()
+        sharded = ranks.drain_rounds(shard, prob, specs[id(instances)], route, recon,
+                                     DPP_ROUNDS, True)
+        counts = launches()
+        single = ranks.drain_rounds(dp.DPEngine(max_batch=8, feedback=False, device=cuda),
+                                    prob, specs[id(instances)], route, recon, DPP_ROUNDS, True)
+        out.append({"sharded": sharded, "single": single, "stats": dict(shard.stats),
+                    "launches": counts})
+    return out
+
+
+def threaded_pipeline(cfg, tokens, cuda) -> tuple:
+    """``pipeline_apply`` over ``SHARD_SLOTS`` slots of the card of
+    ``CausalLM.from_seed(cfg)``'s blocks, staged by
+    ``ranks.pipeline_stages``: (the outputs' digest, seconds, K7's
+    launches)."""
+    model = init_model(cfg, cuda, "dp processes, threaded pipeline")
+    bounds, _ = ranks.pipeline_stages(cfg, SHARD_SLOTS)
+    edges = (0, *bounds, cfg.n_layers)
+    stages = [list(model.layers[a:b]) for a, b in zip(edges, edges[1:])]
+    mesh = rt_sharding.Mesh([cuda] * SHARD_SLOTS, ("stage",))
+    with torch.no_grad():
+        x = ranks.pipeline_input(model.embed, cfg, tokens)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pipeline_parallel.pipeline_apply(ranks.block_stage, stages, x, mesh)
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+    counts = launches()["flash_attention"]
+    got = ranks.digest(out)
+    del model, stages, x, out, mesh
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    return got, took, counts
+
+
+def phase_dp_processes(cuda) -> list:
+    """``ShardedDPEngine``'s drains, ``pipeline_apply`` and ``compressed_psum``
+    one process a rank: four rank processes of the card over gloo drain
+    every ``SHARD_BUCKETS`` bucket (ragged, with and without reconstruct),
+    run qwen3-14b's blocks (depth ``PIPE_DEPTH``, full width, float32
+    compute) as ``PIPE_STAGES`` stages over ``PIPE_MICRO`` microbatches of
+    ``PIPE_S`` tokens, and ``compressed_psum_rank``, each bit-equal to the
+    threaded engine, ``pipeline_apply`` and ``compressed_psum`` on
+    ``SHARD_SLOTS`` slots of the card (the drains to the single engine
+    too), the kernels' launches summed over the ranks equal to the
+    threads'. K1, K2, K4 fused, K6 antidiag and K7 timed in rank 0 at a
+    rank's shapes. Returns their records."""
+    print(card_line())
+    t0 = time.perf_counter()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED + 11)
+    buckets, labels = [], []
+    for label, name, n, route, _ in SHARD_BUCKETS:
+        instances = shard_instances(rng, name, n)
+        for recon in (False, True):
+            buckets.append((name, route, instances, recon))
+            labels.append(f"{label}{' reconstruct' if recon else ''}")
+    mesh = rt_sharding.Mesh([cuda] * SHARD_SLOTS, (dp.sharding.BATCH_AXIS,))
+    threads = threaded_drains(buckets, mesh, cuda)
+    t_psum = time.perf_counter()
+    xs = [rng.standard_normal(1 << 20).astype(np.float32) * (i + 1) for i in range(SHARD_SLOTS)]
+    shards = []
+    for x, slot in zip(xs, mesh.slots.flat):
+        with slot.scope():
+            shards.append(torch.from_numpy(x).to(cuda))
+    psum = ranks.digest(grad_compress.compressed_psum(shards, mesh))
+    del mesh, shards
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=PIPE_DEPTH,
+                              compute_dtype=torch.float32)
+    tokens = rng.integers(0, cfg.vocab_size, (PIPE_MICRO, PIPE_S))
+    t_pipe = time.perf_counter()
+    pipe_digest, pipe_s, pipe_k7 = threaded_pipeline(cfg, tokens, cuda)
+    threads_s = time.perf_counter() - t0
+    print(f"dp processes, the threads' parts (s): drains {t_psum - t0:.2f}, compressed_psum "
+          f"{t_pipe - t_psum:.2f}, pipeline with its model's draw "
+          f"{time.perf_counter() - t_pipe:.2f}")
+
+    # a job an instance set, with and without reconstruct (one encoding)
+    jobs = [(ranks.dp_drains, {"buckets": buckets[k:k + 2], "rounds": DPP_ROUNDS,
+                               "digest_out": True}) for k in range(0, len(buckets), 2)]
+    jobs += [(ranks.pipeline, {"cfg": cfg, "tokens": tokens, "seed": SEED, "digest_out": True}),
+             (ranks.compressed, {"shards": xs, "digest_out": True})]
+    timed = {}
+    for (name, route, instances, recon), label in zip(buckets, labels):
+        if DPP_KERNELS[route][3] == recon:
+            timed[route] = len(jobs)
+            jobs.append((ranks.dp_kernel_ms, {"problem": name, "route": route,
+                                              "instances": instances, "reconstruct": recon}))
+    q_shape, kv_shape = (1, cfg.n_heads, PIPE_S, cfg.hd), (1, cfg.n_kv_heads, PIPE_S, cfg.hd)
+    jobs.append((ranks.attention_ms, {"q_shape": q_shape, "kv_shape": kv_shape}))
+    t1 = time.perf_counter()
+    done = distributed.launch(ranks.sequence, (SHARD_SLOTS,), (dp.sharding.BATCH_AXIS,),
+                              [cuda] * SHARD_SLOTS, args=(jobs,), timeout=DPP_TIMEOUT_S)
+    procs_s = time.perf_counter() - t1
+    print("dp processes, rank 0's jobs (s): " + ", ".join(
+        f"{job['seconds']:.2f}" for job in done.reports[0].result))
+    require(done.backend == "gloo" and not any(r.foreign for r in done.reports)
+            and all(r.contexts == [cuda.index] for r in done.reports),
+            f"dp processes: four ranks on one card over {done.backend} (gloo), none loading "
+            f"jax or repro, each holding a context on card {cuda.index} alone")
+
+    def summed(j: int) -> dict:
+        got = [r.result[j]["launches"] for r in done.reports]
+        return {k: sum(g.get(k, 0) for g in got) for k in got[0]}
+
+    def peaks(j: int) -> str:
+        return fmt([(r.result[j]["peak_bytes"] or 0) / 2 ** 30 for r in done.reports], 3)
+
+    path = {}
+    for k, (label, want) in enumerate(zip(labels, threads)):
+        j = k // 2
+        got = [r.result[j]["result"][k % 2] for r in done.reports]
+        records, _ = want["sharded"]
+        single, single_s = want["single"]
+        same = all(g["responses"] == records for g in got) and records == single
+        stats = all(g["stats"]["sharded_drains"] == want["stats"]["sharded_drains"]
+                    and g["stats"]["padded_lanes"] == want["stats"]["padded_lanes"] for g in got)
+        procs = [max(g["seconds"][i] for g in got) for i in range(DPP_ROUNDS)]
+        print(f"dp processes {label}: drain s processes (slowest rank) {fmt(procs, 4)}, "
+              f"threads {fmt(want['sharded'][1], 4)}, single engine {fmt(single_s, 4)} "
+              f"(cold, warm); {card_line()}")
+        require(same and stats,
+                f"dp processes {label}: every rank's answers, tables, args and decoded paths "
+                f"of {DPP_ROUNDS} drains bit-equal to the threaded sharded engine's and the "
+                f"single engine's, sharded_drains and padded_lanes as the threads' "
+                f"({want['stats']['sharded_drains']}, {want['stats']['padded_lanes']})")
+        if k % 2:
+            counts = {key: v for key, v in summed(j).items() if v}
+            for key, v in counts.items():
+                path[key] = path.get(key, 0) + v
+            want_counts = {key: v for t in threads[k - 1:k + 1]
+                           for key, v in t["launches"].items() if v}
+            print(f"dp processes {label[:-len(' reconstruct')]}: peak device memory by rank "
+                  f"{peaks(j)} GiB (both buckets)")
+            require(counts == want_counts and sum(counts.values()) > 0,
+                    f"dp processes {label[:-len(' reconstruct')]}, with and without "
+                    f"reconstruct: launches summed over the ranks {counts} equal the "
+                    f"threads' {want_counts}")
+    j = len(buckets) // 2
+    got = [r.result[j] for r in done.reports]
+    k7 = summed(j)["flash_attention"]
+    path["flash_attention"] = path.get("flash_attention", 0) + k7
+    bounds = ranks.pipeline_stages(cfg, SHARD_SLOTS)[0]
+    layers = [b - a for a, b in zip((0, *bounds), (*bounds, cfg.n_layers))]
+    print(f"dp processes pipeline: {cfg.name} blocks (depth {cfg.n_layers}, d {cfg.d_model}) "
+          f"in stages of {layers} layers, {PIPE_MICRO} x {PIPE_S} tokens: processes "
+          f"{max(g['seconds'] for g in got):.2f} s (slowest rank, its draw included), threads "
+          f"{pipe_s:.2f} s (the pipeline alone); peak device memory by rank {peaks(j)} GiB; "
+          f"{card_line()}")
+    require(all(g["result"] == pipe_digest for g in got),
+            "dp processes pipeline: every rank's outputs bit-equal to the threaded "
+            "pipeline_apply's")
+    require(k7 == pipe_k7 == PIPE_DEPTH * PIPE_MICRO,
+            f"dp processes pipeline: K7 launched {k7} times over the ranks, the threads' "
+            f"{pipe_k7} ({PIPE_DEPTH} layers x {PIPE_MICRO} microbatches)")
+    got = [r.result[j + 1] for r in done.reports]
+    require([g["result"] for g in got] == psum,
+            f"dp processes compressed_psum_rank of {SHARD_SLOTS} x 2^20 floats: every rank's "
+            f"sum bit-equal to the threaded compressed_psum's "
+            f"({max(g['seconds'] for g in got):.3f} s)")
+
+    records = []
+    for (name, route, instances, recon) in buckets:
+        if route not in timed or DPP_KERNELS[route][3] != recon:
+            continue
+        rec_name, source, replaces, _ = DPP_KERNELS[route]
+        t = done.reports[0].result[timed[route]]["result"]
+        spec = dp.get_problem(name).encode(**instances[0])
+        nbytes, ops_ = dpp_work(spec, t["lanes"], recon)
+        require(t["equal"], f"{rec_name}: rank 0's {t['lanes']} lanes bit-equal to the plain "
+                "version on the card")
+        rec = kernel_record(rec_name, source, replaces, t["max_abs_err"], t["ms"],
+                            t["plain_ms"], nbytes, ops_)
+        prefix = rec_name[:-len("_rank_process")].replace("_fused", "")
+        rec["launches"] = sum(v for k, v in path.items() if k.startswith(prefix))
+        require(rec["launches"] > 0, f"{rec_name}: launched in the rank processes")
+        records.append(rec)
+    t = done.reports[0].result[-1]["result"]
+    (b, h, sq, d), g = q_shape, kv_shape[1]
+    require(t["share"] <= K7_TOL[torch.float32], f"flash_attention in rank 0's process at a "
+            f"stage's shapes q {q_shape}, k and v {kv_shape} float32: {t['share']:.3e} of "
+            f"max|·| from its plain version")
+    rec = kernel_record("flash_attention_pipeline_rank_process",
+                        "src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:68", t["max_abs_err"], t["ms"],
+                        t["plain_ms"], 4 * d * sq * b * (2 * h + 2 * g),
+                        4 * d * b * h * sq * (sq + 1) // 2, library_ms=t["library_ms"])
+    rec["launches"] = path["flash_attention"]
+    records.append(rec)
+    took = time.perf_counter() - t0
+    print(f"dp processes phase: threads {threads_s:.2f} s, processes {procs_s:.2f} s (spawn, "
+          f"encodes and draws in each rank, every job); launches in the ranks "
+          f"{ {k: v for k, v in path.items() if v} }; {card_line()}")
+    require(took <= DPP_LIMIT_S, f"dp processes phase took {took:.1f} s "
+            f"(limit {DPP_LIMIT_S:.0f} s)")
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4767,6 +5029,11 @@ def main() -> int:
         phase_build()
         torch.backends.cuda.matmul.allow_tf32 = False
         print(json.dumps(phase_processes(cuda)))
+        return 1 if _failures else 0
+    if sys.argv[1:] == ["--dp-processes"]:
+        phase_build()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(json.dumps(phase_dp_processes(cuda)))
         return 1 if _failures else 0
     if sys.argv[1:] == ["--sharded-lm"]:
         phase_build()
@@ -4895,6 +5162,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     records += phase_processes(cuda)
+    gc.collect()
+    torch.cuda.empty_cache()
+    records += phase_dp_processes(cuda)
 
     if _failures:
         print(f"chip_smoke: {len(_failures)} check(s) failed", file=sys.stderr)

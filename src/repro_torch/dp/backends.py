@@ -165,17 +165,24 @@ def ensure_registered() -> None:
 # ---------------------------------------------------------------------------
 # Builders used by the registering modules
 # ---------------------------------------------------------------------------
-def _stack(arrays, device: torch.device, sharding=None):
-    """float32 ``(batch, ...)`` tensor on ``device`` from numpy arrays (one
-    conversion pass on the host, one copy to the device); under
-    ``sharding`` (a ``repro_torch.dp.sharding.ShardContext``) one tensor a
-    slot instead, each slot's contiguous slice copied to its device."""
+def host_stack(arrays) -> np.ndarray:
+    """float32 ``(batch, ...)`` numpy array of the arrays (one conversion
+    pass on the host)."""
     out = np.empty((len(arrays),) + np.shape(arrays[0]), dtype=np.float32)
     for i, a in enumerate(arrays):
         out[i] = a
+    return out
+
+
+def _stack(arrays, device: torch.device, sharding=None):
+    """float32 ``(batch, ...)`` tensor on ``device`` from numpy arrays
+    (:func:`host_stack`, one copy to the device); under ``sharding`` (a
+    ``repro_torch.dp.sharding.ShardContext``) one tensor a slot it runs
+    instead, each slot's contiguous share copied to its device
+    (``ShardContext.stack``)."""
     if sharding is not None:
-        return sharding.place(out)
-    return torch.from_numpy(out).to(device)
+        return sharding.stack(arrays)
+    return torch.from_numpy(host_stack(arrays)).to(device)
 
 
 def _call(apply: Callable, stacked: tuple, sharding=None):

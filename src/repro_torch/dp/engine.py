@@ -287,6 +287,11 @@ class DPEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _agreed_ms(self, ms: float) -> float:
+        """The time a drain (or a lane) is observed and reported at, from
+        its measured ``ms``; the sharded engine's ranks agree on one."""
+        return ms
+
     # -- warm-start extend drain -------------------------------------------
     def _extend_route(self, request, backend):
         """Route one extend lane: explicit override > the token's sticky
@@ -355,7 +360,7 @@ class DPEngine:
                 table = r.spec.stitch_extension(tok.prefix_spec,
                                                 tok.prefix_table, ext)
                 self._sync()
-                lane_ms = (time.perf_counter() - t0) * 1e3
+                lane_ms = self._agreed_ms((time.perf_counter() - t0) * 1e3)
                 extend_ms += lane_ms
                 # same freezing rule as batched drains: dedup fan-out and
                 # the caches share this exact array
@@ -470,7 +475,7 @@ class DPEngine:
             tables, argss, source, paths = self._run_bucket(
                 chosen, uniq_specs, reconstruct)
             self._sync()
-            solve_ms = (time.perf_counter() - t0) * 1e3
+            solve_ms = self._agreed_ms((time.perf_counter() - t0) * 1e3)
             _telemetry.add_phase("solve", solve_ms)
             # dedup fan-out (and the service answer cache) hand the SAME
             # arrays to multiple consumers — freeze them so a caller's

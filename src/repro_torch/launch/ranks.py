@@ -1,15 +1,22 @@
-"""Rank programs of the sharded LM for ``runtime.distributed.launch``: each
-is ``fn(comm, ...)``, runs in every rank's process on that rank's share of
-the model (``ShardedLM.of_rank``), and returns what its caller compares
+"""Rank programs for ``runtime.distributed.launch`` (and
+``runtime.sharding.run``): each is ``fn(comm, ...)``, runs in every rank on
+that rank's share of the work, and returns what its caller compares
 (tensors come back on the CPU; with ``digest_out=True`` the large ones
 come back as :func:`digest`\\ s).
 
-* :func:`serve`: requests through the serving engine (:func:`serve_requests`,
-  which the threaded model runs too);
+* :func:`serve`: requests through the serving engine on the rank's share of
+  the model (``ShardedLM.of_rank``; :func:`serve_requests`, which the
+  threaded model runs too);
 * :func:`train`: one train step with its gradients (:func:`train_record`,
   which the threaded model runs too);
-* :func:`attention_ms`: K7 or K7b timed in rank 0 at a rank's shapes,
-  beside its plain version and PyTorch's attention;
+* :func:`dp_drains`: buckets of DP instances through a ``ShardedDPEngine``
+  rank, each rank solving its share (:func:`response_record` of each
+  response, which the threaded engine's responses give too);
+* :func:`pipeline`: ``pipeline_apply_rank`` over a model's blocks, each rank
+  one stage (``stage_params``);
+* :func:`compressed`: ``compressed_psum_rank`` of each rank's shard;
+* :func:`attention_ms` and :func:`dp_kernel_ms`: K7 or K7b, or a DP route's
+  kernel, timed in rank 0 at a rank's shapes beside its plain version;
 * :func:`sequence`: several programs in one launch, each timed, with the
   kernel launches and the peak memory it took in the rank.
 
@@ -28,8 +35,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.models.model import ShardedLM
-from repro_torch.runtime import distributed, sharding
+from repro_torch.models.model import CausalLM, ShardedLM, embed_tokens, stage_params
+from repro_torch.optim.grad_compress import compressed_psum_rank
+from repro_torch.runtime import distributed, pipeline_parallel, sharding
 
 
 def _on(comm, mesh: Optional[Sequence[int]]):
@@ -54,10 +62,14 @@ def _sha256(t: torch.Tensor) -> str:
 def digest(obj):
     """``obj`` with each tensor replaced by the sha256 of its dtype, shape
     and bytes (equal digests: equal bits), hashed on a pool of threads
-    (hashlib lets go of the interpreter lock)."""
+    (hashlib lets go of the interpreter lock). The caller's current streams
+    are waited for first: a pool thread copies a tensor to the host on its
+    device's default stream, which is not ordered after them."""
     ts = list(sharding.tensors(obj))
+    for dev in {t.device for t in ts if t.is_cuda}:
+        torch.cuda.current_stream(dev).synchronize()
     with ThreadPoolExecutor(8) as pool:
-        return distributed.refill(obj, iter(list(pool.map(_sha256, ts))))
+        return sharding.refill(obj, iter(list(pool.map(_sha256, ts))))
 
 
 class Recording:
@@ -222,6 +234,212 @@ def attention_ms(comm, q_shape: tuple, kv_shape: tuple, backward: bool = False,
     dist.barrier()
     return {"ms": ms, "plain_ms": plain, "library_ms": lib, "max_abs_err": err,
             "share": share}
+
+
+# ---------------------------------------------------------------------------
+# The DP engine, the pipeline and the compressed all-reduce
+# ---------------------------------------------------------------------------
+def _np_digest(a) -> str:
+    return _sha256(torch.from_numpy(np.ascontiguousarray(a)))
+
+
+def response_record(r, digest_out: bool = False) -> dict:
+    """A ``DPResponse`` as plain data: its rid, route, answer and, under
+    reconstruct, its solution's value, table, args and decoded path (with
+    ``digest_out`` the answer, value, table and args as digests of their
+    float32 or own bytes)."""
+    keep = _np_digest if digest_out else (lambda a: a)
+    rec = {"rid": r.rid, "backend": r.backend, "answer": keep(np.float32(r.answer)),
+           "solution": None}
+    if r.solution is not None:
+        sol = r.solution
+        rec["solution"] = {"value": keep(np.float32(sol.value)), "table": keep(sol.table),
+                           "args": keep(sol.args), "path": sol.solution}
+    return rec
+
+
+def drain_rounds(engine, prob, specs: Sequence, route: Optional[str], reconstruct: bool,
+                 rounds: int, digest_out: bool = False) -> tuple:
+    """``specs`` (of problem ``prob``, each with its ``spec_digest``:
+    ``(spec, digest)`` pairs) submitted to ``engine`` and drained,
+    ``rounds`` times, with ``route`` forced (None: the engine's choice):
+    (each round's :func:`response_record`\\ s, each round's seconds on the
+    host clock with the engine's device synchronised)."""
+    records, seconds = [], []
+    for _ in range(rounds):
+        for spec, key in specs:
+            engine.submit_spec(prob, spec, reconstruct=reconstruct, digest=key)
+        got = []
+        _sync(engine.device)
+        t0 = time.perf_counter()
+        while engine.pending():
+            got += engine.step(backend=route)
+        _sync(engine.device)
+        seconds.append(time.perf_counter() - t0)
+        records.append([response_record(r, digest_out) for r in got])
+    return records, seconds
+
+
+def encoded(prob, instances: Sequence) -> list:
+    """``(spec, spec_digest)`` of each instance (keyword dicts) of ``prob``."""
+    from repro_torch.dp.problem import spec_digest
+
+    specs = [prob.encode(**kw) for kw in instances]
+    return [(spec, spec_digest(spec)) for spec in specs]
+
+
+def dp_drains(comm, buckets: Sequence, *, rounds: int = 1, max_batch: int = 8,
+              axis: Optional[str] = None, digest_out: bool = False) -> list:
+    """Each bucket of ``buckets``, ``(problem, route, instances,
+    reconstruct)`` with the instances as numpy keyword dicts (buckets that
+    share one list of instances share its encoding), through a fresh
+    ``ShardedDPEngine(comm=comm)`` (no feedback; :func:`drain_rounds`).
+    For each bucket {"responses": each round's records, "seconds": each
+    round's, "stats": the engine's}."""
+    from repro_torch import dp
+
+    out, specs = [], {}
+    for problem, route, instances, reconstruct in buckets:
+        prob = dp.get_problem(problem)
+        if id(instances) not in specs:
+            specs[id(instances)] = encoded(prob, instances)
+        eng = dp.ShardedDPEngine(comm=comm, axis=axis, max_batch=max_batch, feedback=False)
+        records, seconds = drain_rounds(eng, prob, specs[id(instances)], route, reconstruct,
+                                        rounds, digest_out)
+        out.append({"responses": records, "seconds": seconds, "stats": dict(eng.stats)})
+    return out
+
+
+def _dp_calls(route: str, specs: list, reconstruct: bool, device) -> tuple:
+    """(the route's kernel, its plain version), each a call with no
+    arguments on ``specs`` stacked on ``device``, returning the table first
+    (and, under ``reconstruct``, the args, and K4's fused nodes)."""
+    from repro_torch.dp.backends import _stack
+    from repro_torch.kernels import grid_pipeline as k6
+    from repro_torch.kernels import mcm_pipeline as k2
+    from repro_torch.kernels import mcm_tiled as k4
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sdp_pipeline as k1
+
+    s0 = specs[0]
+    if route == "kernel_blocked":
+        init = _stack([s.init for s in specs], device)
+        w = None if s0.weights is None else _stack([s.weights for s in specs], device)
+        kern = ops.sdp_blocked_with_args if reconstruct else ops.sdp_blocked
+        return (lambda: kern(init, s0.offsets, s0.op, s0.n, weights=w),
+                lambda: k1.sdp_pipeline_plain(init, s0.offsets, s0.op, s0.n, weights=w,
+                                              with_args=reconstruct))
+    if route == "kernel_grid":
+        arrs = tuple(_stack(a, device) for a in zip(*(s.device_arrays() for s in specs)))
+        meta = s0.static_meta()
+        kern = ops.grid_blocked_with_args if reconstruct else ops.grid_blocked
+        return (lambda: kern(arrs, meta),
+                lambda: k6.grid_pipeline_plain(arrs, meta, with_args=reconstruct))
+    wtab = _stack([s.weights for s in specs], device)
+    if route == "kernel_wavefront":
+        kern = ops.mcm_blocked_with_args if reconstruct else ops.mcm_blocked
+        return (lambda: kern(wtab, s0.n),
+                lambda: k2.mcm_pipeline_plain(wtab, s0.n, with_args=reconstruct))
+    if route == "kernel_tiled_wavefront":
+        kern = ops.mcm_tiled_fused if reconstruct else ops.mcm_tiled
+        return (lambda: kern(wtab, s0.n),
+                lambda: k4.mcm_tiled_plain(wtab, s0.n, fused=reconstruct))
+    raise ValueError(f"no kernel to time for route {route!r}")
+
+
+def dp_kernel_ms(comm, problem: str, route: str, instances: Sequence,
+                 reconstruct: bool = False, reps: int = 5, axis: Optional[str] = None):
+    """The kernel of ``route`` at rank 0's share of the bucket of
+    ``instances`` (padded to the ranks along ``axis`` as the sharded engine
+    pads it), timed by CUDA events in rank 0 while the others wait at a
+    barrier, beside its plain version (one call): {"ms", "plain_ms",
+    "max_abs_err" of the table, "equal": every output bit-equal, "lanes"}
+    in rank 0, None in the others."""
+    import torch.distributed as dist
+
+    from repro_torch import dp
+
+    dist.barrier()
+    if comm.rank:
+        dist.barrier()
+        return None
+    prob = dp.get_problem(problem)
+    ctx = dp.ShardContext(comm.mesh, axis or comm.mesh.axis_names[0], comm)
+    padded, _ = ctx.pad([prob.encode(**kw) for kw in instances])
+    k, n = comm.share(ctx.axis)
+    mine = [padded[i] for i in np.array_split(np.arange(len(padded)), n)[k]]
+    run, plain = _dp_calls(route, mine, reconstruct, comm.device)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = plain()
+    end.record()
+    got = run()
+    end.synchronize()
+    flat = lambda o: list(sharding.tensors(o))   # noqa: E731
+    equal = all(torch.equal(a, b) for a, b in zip(flat(got), flat(want)))
+    err = _largest_gap(flat(got)[:1], flat(want)[:1])[0]
+    result = {"ms": _events_ms(run, reps), "plain_ms": start.elapsed_time(end),
+              "max_abs_err": err, "equal": equal, "lanes": len(mine)}
+    dist.barrier()
+    return result
+
+
+def pipeline_input(embed, cfg, tokens) -> torch.Tensor:
+    """(M, 1, S, d) microbatches: the embeddings of ``tokens`` (M, S), one
+    sequence a microbatch, in the compute dtype."""
+    tok = torch.as_tensor(np.asarray(tokens), device=embed.device).long()
+    return embed_tokens(embed, cfg, tok)[:, None]
+
+
+def block_stage(blocks: Sequence, x: torch.Tensor) -> torch.Tensor:
+    """``blocks`` applied in order to a microbatch (1, S, d): each block's
+    causal full-sequence forward at positions 0..S-1."""
+    positions = torch.arange(x.shape[-2], device=x.device).expand(1, x.shape[-2])
+    for blk in blocks:
+        x, _ = blk(x, positions, "train")
+    return x
+
+
+def pipeline_stages(cfg, stages: int) -> tuple:
+    """(the stages' first layers after the first, as
+    ``pipeline_parallel.stage_boundaries`` balances the layers' parameter
+    counts, and its bottleneck)."""
+    model = CausalLM(cfg, device="meta")
+    return pipeline_parallel.stage_boundaries(
+        [sum(p.numel() for p in b.parameters()) for b in model.layers], stages)
+
+
+def pipeline(comm, cfg, tokens, *, seed: int = 0, axis: Optional[str] = None,
+             digest_out: bool = False) -> torch.Tensor:
+    """``pipeline_apply_rank`` of ``CausalLM.from_seed(cfg, seed)``'s blocks
+    over the ranks along ``axis`` (the mesh's first by default), each rank
+    one stage of :func:`pipeline_stages`: it draws its stage's blocks and
+    the embedding table alone on its device (``stage_params``), embeds
+    ``tokens`` (M, S) as M microbatches (:func:`pipeline_input`) and runs
+    :func:`block_stage`, without gradients. Returns the (M, 1, S, d)
+    outputs (every rank's copy), or their digest."""
+    axis = axis or comm.mesh.axis_names[0]
+    group = comm.group(axis)
+    bounds, _ = pipeline_stages(cfg, len(group))
+    edges = (0, *bounds, cfg.n_layers)
+    j = group.index(comm.rank)
+    embed, blocks = stage_params(cfg, seed, comm.device, range(edges[j], edges[j + 1]))
+    with torch.no_grad():
+        x = pipeline_input(embed, cfg, tokens)
+        del embed
+        out = pipeline_parallel.pipeline_apply_rank(block_stage, blocks, x, comm, axis)
+    return digest(out) if digest_out else out
+
+
+def compressed(comm, shards: Sequence, axis: Optional[str] = None, *, mesh=None,
+               digest_out: bool = False):
+    """``compressed_psum_rank`` of this rank's ``shards[comm.rank]`` (numpy)
+    over ``axis`` (the mesh's first by default; over the processes arranged
+    as ``mesh``), or its digest."""
+    comm = _on(comm, mesh)
+    x = torch.as_tensor(np.asarray(shards[comm.rank])).to(comm.device)
+    out = compressed_psum_rank(x, comm, axis or comm.mesh.axis_names[0])
+    return digest(out) if digest_out else out
 
 
 def sequence(comm, jobs: Sequence) -> list:

@@ -27,7 +27,7 @@ communicator.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -238,24 +238,53 @@ def place_params(named: dict, cfg, mesh: Mesh, rules: dict, index: tuple) -> dic
     return {name: cut(name, t) for name, t in named.items()}
 
 
+def draw_params(cfg, seed: int, device, take) -> None:
+    """Each parameter of ``CausalLM.from_seed(cfg, seed, device)``, bit for
+    bit, drawn whole from the same generator in the same order and handed
+    to ``take(name, tensor)``, which keeps what it wants: no more than one
+    whole parameter exists at a time."""
+    defs = param_defs(cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    for name, p in CausalLM(cfg, device="meta").named_parameters():
+        whole = torch.empty(p.shape, dtype=p.dtype, device=device)
+        init_param_(whole, defs[name], gen)
+        take(name, whole)
+        del whole
+
+
 def drawn_params(cfg, seed: int, mesh: Mesh, rules: dict, index: tuple) -> dict:
     """The slot at ``index``'s shard of every parameter of
     ``CausalLM.from_seed(cfg, seed, device)`` on the slot's device, bit for
-    bit, made there alone: each parameter is drawn whole from the same
-    generator in the same order, cut to the slot's piece and dropped, so
-    no more than one whole parameter exists at a time."""
+    bit, made there alone (:func:`draw_params`, each cut to the slot's
+    piece)."""
     slot = mesh.slots[index]
-    cut, defs = _cutter(cfg, mesh, rules, index), param_defs(cfg)
-    gen = torch.Generator(device=slot.device)
-    gen.manual_seed(seed)
+    cut = _cutter(cfg, mesh, rules, index)
     out = {}
     with slot.scope():
-        for name, p in CausalLM(cfg, device="meta").named_parameters():
-            whole = torch.empty(p.shape, dtype=p.dtype, device=slot.device)
-            init_param_(whole, defs[name], gen)
-            out[name] = cut(name, whole)
-            del whole
+        draw_params(cfg, seed, slot.device,
+                    lambda name, whole: out.update({name: cut(name, whole)}))
     return out
+
+
+def stage_params(cfg, seed: int, device, layers: Sequence[int]) -> tuple:
+    """(the embedding table, the :class:`Block`\\ s of ``layers``) of
+    ``CausalLM.from_seed(cfg, seed, device)``, bit for bit, drawn on
+    ``device`` with nothing else kept (:func:`draw_params`): one stage of
+    a pipeline of the model's layers."""
+    blocks = [Block(cfg, i, device) for i in layers]
+    dest = {f"layers.{b.i}.{n}": p for b in blocks for n, p in b.named_parameters()}
+    embed = []
+
+    def take(name, whole):
+        if name in dest:
+            dest[name].copy_(whole)
+        elif name == "embed":
+            embed.append(whole)
+
+    with torch.no_grad():
+        draw_params(cfg, seed, device, take)
+    return embed[0], blocks
 
 
 def cache_specs(cfg, batch: int, max_len: int, dtype, mesh: Mesh, rules: dict) -> tuple:

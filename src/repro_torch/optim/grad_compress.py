@@ -1,12 +1,13 @@
 """Gradient compression with error feedback (port of
 ``repro/optim/grad_compress.py``): per-tensor int8 quantization and top-k
-sparsification, and ``compressed_psum``, the int8-compressed all-reduce
-over the shards of a mesh axis."""
+sparsification, and ``compressed_psum_rank``, the int8-compressed
+all-reduce of the members of a mesh axis (``compressed_psum``: the same in
+a thread a slot)."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.runtime.sharding import join
+from repro_torch.runtime.sharding import run
 
 
 def quantize_int8(x):
@@ -49,35 +50,33 @@ def ef_compress_grads(grads: dict, residual: dict, mode: str = "int8",
     return out, res
 
 
-def compressed_psum(shards: list, mesh) -> list:
-    """Int8-compressed all-reduce with a shared scale over ``shards``, one
-    tensor a slot of the 1-D ``mesh`` (a :class:`repro_torch.runtime.
-    sharding.Mesh`, e.g. ``mesh.line(axis)``), each on its slot's device
-    and made on its slot's stream; returns every slot's copy of the sum, on
-    its device and made on its stream, in ``x``'s dtype.
+def compressed_psum_rank(x, comm, axes):
+    """The reference's ``compressed_psum(x, axis_name)`` as a per-rank
+    program: the int8-compressed all-reduce with a shared scale of every
+    member's ``x`` over ``comm``'s ``axes``, in ``x``'s dtype.
 
-    1. the max of |x| over the shards fixes one scale for all of them (one
-       scalar exchange),
-    2. each shard ships its int8-range payload, summed in int32 (as a real
+    1. ``all_max`` of |x| fixes one scale for all members (one scalar
+       exchange),
+    2. each member ships its int8-range payload, summed in int32 (as a real
        ring-reduce accumulator would, without overflow),
     3. one dequantize at the end.
     Wire bytes: 1/2 of bf16, 1/4 of float32."""
+    xf = x.float()
+    gmax = comm.all_max(xf.abs().max(), axes)
+    scale = torch.clamp_min(gmax, 1e-12) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int32)
+    total = comm.all_reduce(q, axes)
+    return (total.float() * scale).to(x.dtype)
+
+
+def compressed_psum(shards: list, mesh) -> list:
+    """:func:`compressed_psum_rank` over ``shards``, one tensor a slot of
+    the 1-D ``mesh`` (a :class:`repro_torch.runtime.sharding.Mesh`, e.g.
+    ``mesh.line(axis)``), each on its slot's device and made on its slot's
+    stream, one thread a slot; returns every slot's copy of the sum, on its
+    device and made on its stream."""
     slots = list(mesh.slots.flat)
     if len(slots) != len(shards):
         raise ValueError(f"{len(shards)} shards over a mesh of {len(slots)} slots")
-    shards = [join(x, slot) for x, slot in zip(shards, slots)]
-    home = shards[0].device
-    gmax = torch.stack([x.float().abs().max().to(home) for x in shards]).max()
-    scale = torch.clamp_min(gmax, 1e-12) / 127.0
-    total = None
-    for x in shards:
-        q = torch.clamp(torch.round(x.float() / scale.to(x.device)), -127, 127)
-        q = q.to(torch.int32).to(home)
-        total = q if total is None else total + q
-    out = total.float() * scale
-    copies = []
-    for x, slot in zip(shards, slots):
-        slot.follow(out)
-        with slot.scope():
-            copies.append(out.to(device=slot.device, dtype=x.dtype, copy=True))
-    return copies
+    axis = mesh.axis_names[0]
+    return list(run(mesh, lambda comm: compressed_psum_rank(shards[comm.rank], comm, axis)))

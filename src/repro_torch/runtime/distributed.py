@@ -24,6 +24,9 @@ bytes) as the threaded ``Comm``:
   then ``Comm``'s own code on the members' tensors.
 * ``all_to_all``: the chunks' shapes first (a small int64 all-gather: the
   spans of a prompt's cache write may be ragged), then the chunks.
+* ``permute``: point to point (``batch_isend_irecv``): the tensors' shapes
+  to the member the payload goes to, then the payload (a pipeline's idle
+  stage sends a microbatch of no rows).
 
 Every backend call moves one flat uint8 buffer, each tensor's bytes at a
 multiple of 16, so every dtype crosses every backend and a collective of a
@@ -59,7 +62,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.runtime import sharding
-from repro_torch.runtime.sharding import Comm, Mesh, Slot, tensors
+from repro_torch.runtime.sharding import Comm, Mesh, Slot, refill, tensors
 
 #: the byte alignment of each tensor in a packed buffer (a view as any dtype)
 ALIGN = 16
@@ -134,19 +137,6 @@ def _summed(parts: list) -> list:
             total = total + p[i]
         out.append(total)
     return out
-
-
-def refill(obj, it):
-    """``obj`` with each of its tensors replaced by the next of ``it``
-    (dicts, lists and tuples rebuilt), in the order of
-    ``sharding.tensors``."""
-    if isinstance(obj, torch.Tensor):
-        return next(it)
-    if isinstance(obj, dict):
-        return {k: refill(v, it) for k, v in obj.items()}
-    if isinstance(obj, (list, tuple)):
-        return type(obj)(refill(v, it) for v in obj)
-    return obj
 
 
 # ---------------------------------------------------------------------------
@@ -271,7 +261,42 @@ class ProcessComm(Comm):
         pieces = torch.split(self._in(out), recv)
         return [pieces[p] for p in pos]
 
+    def _sendrecv(self, buf: torch.Tensor, nbytes: int, dst: int, src: int,
+                  group: list) -> torch.Tensor:
+        """``buf`` to world rank ``dst``, and ``nbytes`` bytes from world rank
+        ``src``, in one batch of point-to-point calls (each at least
+        :data:`ALIGN` bytes: ``buf`` zero-padded, the padding dropped)."""
+        pg, _ = self._pg(group)
+        if buf.numel() < ALIGN:
+            buf = _pack([buf], self.device, ALIGN)[0]
+        out = self._empty(max(nbytes, ALIGN))
+        ops = [dist.P2POp(dist.isend, self._out(buf), dst, pg),
+               dist.P2POp(dist.irecv, out, src, pg)]
+
+        def swap():
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+
+        self._call(swap)
+        return self._in(out)[:nbytes]
+
     # -- the collectives --------------------------------------------------------
+    def _permute(self, xs: tuple, axes, shift: int) -> tuple:
+        group = self.group(axes)
+        me, n = group.index(self.rank), len(group)
+        dst, src = group[(me + shift) % n], group[(me - shift) % n]
+        dims = torch.tensor([d for x in xs for d in x.shape], dtype=torch.int64)
+        got = self._sendrecv(dims.view(torch.uint8).to(self.device), dims.numel() * 8, dst, src,
+                             group).view(torch.int64).tolist()
+        metas, off = [], 0
+        for x in xs:
+            shape, got = tuple(got[:x.dim()]), got[x.dim():]
+            nbytes = int(np.prod(shape)) * x.element_size()
+            metas.append((shape, x.dtype, off, nbytes))
+            off += nbytes + (-nbytes % ALIGN)
+        buf, _ = _pack(list(xs), self.device)
+        return tuple(_unpack(self._sendrecv(buf, off, dst, src, group), metas))
+
     def _exchange(self, payload, axes) -> list:
         group = self.group(axes)
         if len(group) == 1:

@@ -24,7 +24,7 @@ The reference partitions one traced program with GSPMD under
 starts one Python thread per slot (a CUDA stream is current per thread, so
 each thread makes its slot's stream current) and hands each a
 :class:`Comm`: the slot's coordinates and the collectives ``all_reduce``,
-``all_gather`` and ``all_to_all`` over named mesh axes. One slot runs at a
+``all_gather``, ``all_to_all`` and ``permute`` over named mesh axes. One slot runs at a
 time and passes a turn on at each collective, so the slots of a collective
 meet at a barrier (the turn's round) without contending for the
 interpreter lock, while their launches overlap on their streams; they
@@ -382,6 +382,18 @@ def tensors(obj):
             yield from tensors(v)
 
 
+def refill(obj, it):
+    """``obj`` with each of its tensors replaced by the next of ``it``
+    (dicts, lists and tuples rebuilt), in the order of :func:`tensors`."""
+    if isinstance(obj, torch.Tensor):
+        return next(it)
+    if isinstance(obj, dict):
+        return {k: refill(v, it) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(refill(v, it) for v in obj)
+    return obj
+
+
 #: the reference's five collective kinds (``launch/hlo_analysis.py``), as
 #: :attr:`Comm.log` records them
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
@@ -604,6 +616,27 @@ class Comm:
         self._record("all-to-all", out)
         return out
 
+    def permute(self, x, axes, shift: int = 1):
+        """The reference's ``lax.ppermute`` over a cycle: this member's
+        ``x`` (a tensor or a tuple of them) goes to the member ``shift``
+        places on along ``axes`` (in group order, cyclically), and what the
+        member ``shift`` places back sent comes back, on this slot's
+        device. The members' tensors may differ in shape, not in number,
+        rank or dtype. Every member calls it, idle or not (not
+        differentiable)."""
+        n = len(self.group(axes))
+        if n == 1 or shift % n == 0:
+            return x
+        xs = x if isinstance(x, tuple) else (x,)
+        out = self._permute(tuple(t.detach() for t in xs), axes, shift % n)
+        self._record("collective-permute", out)
+        return out if isinstance(x, tuple) else out[0]
+
+    def _permute(self, xs: tuple, axes, shift: int) -> tuple:
+        group = self.group(axes)
+        got = self._exchange(xs, axes)[(group.index(self.rank) - shift) % len(group)]
+        return tuple(t.to(self.device) for t in got)
+
 
 class RecordingComm(Comm):
     """A communicator that records instead of sending: one rank of a mesh
@@ -654,6 +687,9 @@ class LocalComm:
 
     def all_to_all(self, chunks: Sequence, axes, dim: int):
         return chunks[0]
+
+    def permute(self, x, axes, shift: int = 1):
+        return x
 
 
 LOCAL = LocalComm()

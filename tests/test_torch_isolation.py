@@ -204,3 +204,42 @@ def test_distributed_slice_is_scanned_on_its_own():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+
+
+def test_rank_programs_of_the_dp_engine_pipeline_and_psum_are_scanned_on_their_own():
+    """The per-rank forms of the sharded DP engine, the pipeline and the
+    compressed all-reduce (``ShardedDPEngine(comm=...)``,
+    ``pipeline_apply_rank``, ``compressed_psum_rank``) and their rank
+    programs exist, import no JAX and no ``repro`` (nor load them when
+    imported, nor when a rank runs them on a CPU mesh), and read no
+    environment variable."""
+    files = [PORT / p for p in (
+        "dp/sharding.py", "dp/engine.py", "dp/backends.py", "runtime/pipeline_parallel.py",
+        "optim/grad_compress.py", "runtime/sharding.py", "runtime/distributed.py",
+        "launch/ranks.py", "models/model.py")]
+    files.append(ROOT / "tests" / "torch_rank_programs.py")
+    env = re.compile(r"os\.environ|getenv")
+    for f in files:
+        text = f.read_text()
+        assert not FORBIDDEN.findall(text), f"{f.relative_to(ROOT)} imports JAX or repro"
+        assert not env.search(text), f.relative_to(ROOT)
+    code = ("import sys, numpy as np, torch; "
+            "from repro_torch.dp.sharding import ShardedDPEngine, ShardContext; "
+            "from repro_torch.runtime.pipeline_parallel import pipeline_apply_rank; "
+            "from repro_torch.optim.grad_compress import compressed_psum_rank; "
+            "from repro_torch.launch.ranks import dp_drains, pipeline, compressed; "
+            "from repro_torch.runtime import sharding as rt; "
+            "mesh = rt.Mesh(['cpu'] * 2, ('shard',)); "
+            "rt.run(mesh, lambda c: ShardedDPEngine(comm=c, device='cpu', feedback=False)"
+            ".submit('mcm', dims=np.arange(1.0, 6.0))); "
+            "rt.run(mesh, lambda c: pipeline_apply_rank(lambda p, x: x + p, 1.0, "
+            "torch.zeros(3, 2), c, 'shard')); "
+            "rt.run(mesh, lambda c: compressed_psum_rank(torch.ones(4), c, 'shard')); "
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "assert not bad, bad; print('clean')")
+    env_vars = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env_vars, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"

@@ -12,7 +12,14 @@ only: no ``jax``, no ``repro``, nothing of a test file.
 * :func:`step_log`: the collectives' log of one train or decode step;
 * :func:`collectives`: every collective of the communicator on given
   inputs, a gradient through them included (a ``Comm`` of
-  ``runtime.sharding.run`` runs it too).
+  ``runtime.sharding.run`` runs it too);
+* :func:`dp_sweep`: DP traffic through one ``ShardedDPEngine`` rank, with
+  the rank's calibration table;
+* :func:`permutes`: ``permute`` over every set of the mesh's axes;
+* :func:`skipped_permute`: a pipeline's permutes with one rank skipping
+  one (the call must fail);
+* :func:`pipeline_tanh`: ``pipeline_apply_rank`` of the reference's
+  ``tanh(x @ W + b)`` stages.
 """
 from __future__ import annotations
 
@@ -22,8 +29,10 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.launch import ranks
 from repro_torch.models.model import ShardedLM
 from repro_torch.runtime import sharding
+from repro_torch.runtime.pipeline_parallel import pipeline_apply_rank
 
 
 def prefill_and_decode(model, tokens, steps: int, forced=None, max_len: Optional[int] = None,
@@ -118,3 +127,85 @@ def collectives(comm, inputs: Sequence) -> dict:
     tape.backward((loss,), (torch.ones((), dtype=loss.dtype, device=dev),))
     comm.tape = None
     return {"out": out, "grad": tape.grad(wl), "log": list(comm.log)}
+
+
+def dp_sweep(comm, traffic: Sequence, *, mesh=None, axis: str = "model", max_batch: int = 16,
+             rounds: int = 1, **engine) -> dict:
+    """Every ``(problem, reconstruct, instance)`` of ``traffic`` through one
+    ``ShardedDPEngine(comm=comm, **engine)`` along ``axis`` (over the
+    processes arranged as ``mesh``; no feedback unless ``engine`` asks),
+    submitted and stepped until empty ``rounds`` times: {"responses": the
+    ``ranks.response_record`` of each of the last round's, in submission
+    order, "stats", "lanes": each drain's responses, "table": the rank's
+    calibration table}."""
+    from repro_torch import dp
+    from repro_torch.dp import autotune
+
+    comm = ranks._on(comm, mesh)
+    eng = dp.ShardedDPEngine(comm=comm, axis=axis, max_batch=max_batch,
+                             **{"feedback": False, **engine})
+    out, lanes = {}, []
+    for _ in range(rounds):
+        rids = [eng.submit(name, reconstruct=recon, **kw) for name, recon, kw in traffic]
+        while eng.pending():
+            drained = eng.step()
+            lanes.append(len(drained))
+            out.update((r.rid, r) for r in drained)
+    return {"responses": [ranks.response_record(out[r]) for r in rids],
+            "stats": dict(eng.stats), "lanes": lanes,
+            "table": {k: (e.ms, e.count, e.source) for k, e in autotune.get_table().items()}}
+
+
+def permutes(comm, inputs: Sequence, *, mesh=None, ragged: bool = True) -> dict:
+    """``comm.permute`` of this rank's ``inputs[comm.rank]`` (as
+    :func:`collectives` takes them) over every set of the mesh's axes in
+    mesh order and over all axes in reverse order, by shifts 1, 2 and -1:
+    a float32 tensor, a tuple with an int64 and a bf16 member and, with
+    ``ragged``, rows that differ by rank. Returns {"out": {name: result},
+    "log": ``comm.log``}."""
+    comm = ranks._on(comm, mesh)
+    dev = comm.device
+    mine = {k: torch.as_tensor(np.asarray(v)).to(dev) for k, v in inputs[comm.rank].items()}
+    x, y, b = mine["x"], mine["y"], mine["b"].view(torch.bfloat16)
+    names = comm.mesh.axis_names
+    sets = [a for k in range(1, len(names) + 1) for a in itertools.combinations(names, k)]
+    sets.append(tuple(reversed(names)))
+    comm.log = []
+    out = {}
+    for axes in sets:
+        for shift in (1, 2, -1):
+            key = f"{'+'.join(axes)} by {shift}"
+            out[f"x {key}"] = comm.permute(x, axes, shift)
+            out[f"tuple {key}"] = comm.permute((y, b), axes, shift)
+            if ragged:
+                out[f"ragged {key}"] = comm.permute(x[:comm.rank % 3], axes, shift)
+    log, comm.log = comm.log, None
+    return {"out": out, "log": log}
+
+
+def skipped_permute(comm, steps: int = 3, skipper: int = 2) -> list:
+    """``steps`` permutes of a small tensor along the mesh's last axis, with
+    rank ``skipper`` calling one fewer, as a pipeline stage that skipped an
+    idle step would: its peers wait at the last one until the collective
+    fails."""
+    axis = comm.mesh.axis_names[-1]
+    x = torch.full((4,), float(comm.rank), device=comm.device)
+    got = []
+    for step in range(steps - (comm.rank == skipper)):
+        got.append(comm.permute(x + step, axis))
+    return got
+
+
+def tanh_stage(params, h):
+    """The reference pipeline test's stage: ``tanh(h @ W + b)``."""
+    return torch.tanh(h @ params[0] + params[1])
+
+
+def pipeline_tanh(comm, Ws, bs, x, *, axis: str = "model") -> torch.Tensor:
+    """``pipeline_apply_rank`` of :func:`tanh_stage` over the ranks along
+    ``axis``: rank j's stage holds ``Ws[j]``, ``bs[j]``; ``x`` (M, mb, d)
+    numpy microbatches."""
+    j = comm.group(axis).index(comm.rank)
+    dev = comm.device
+    params = (torch.as_tensor(Ws[j]).to(dev), torch.as_tensor(bs[j]).to(dev))
+    return pipeline_apply_rank(tanh_stage, params, torch.as_tensor(x).to(dev), comm, axis)
