@@ -8,6 +8,7 @@
     python3 chip_smoke.py --families      # the MoE and SSM families alone
     python3 chip_smoke.py --train         # the training path alone
     python3 chip_smoke.py --sharded-train # the sharded train step alone
+    python3 chip_smoke.py --service-processes   # DPService one process a rank alone
     python3 chip_smoke.py --train-witness # phi3's 6 steps on a 6-step schedule,
                                           # bf16 and float32 compute (not in the
                                           # default run)
@@ -155,8 +156,6 @@ slot its own CUDA stream):
     forced the same, the first drain also to the route's plain twin (its
     kernels' plain versions on the card), four launches a drain, the drain
     times and one sharded drain's device idle share under the profiler;
-  * ``DPService(mesh=...)`` on 64 of the service path's requests, answers
-    equal to the single-engine service's;
   * ``compressed_psum`` over the four slots, each shard made late on its
     slot's stream, bit-equal to the CPU port's,
     ``best_mesh`` and ``reshard`` after a simulated loss;
@@ -195,12 +194,25 @@ rank processes of the card over gloo: tokens, logits, caches, gradients
 and parameters bit-equal, K7's and K7b's launches summed over the ranks
 equal to the threads', the times and each rank's peak memory, and K7 and
 K7b timed in rank 0's process at a rank's shapes; over NCCL, one rank a
-card, where the host has two cards or more.
+card, where the host has two cards or more (``--processes-nccl``, which
+also runs one sharded MCM 512 bucket and the service path's traffic over
+NCCL against the threads over the same cards); then the DP drains, the
+pipeline and ``compressed_psum`` one process a rank (``--dp-processes``);
+and last the service one process a rank (``--service-processes``): the
+service path's 256 requests and three sessions through ``DPService(comm=
+comm)`` in four rank processes of the card over gloo, run A (no
+deadlines) bit-equal on every rank to the threaded ``DPService(mesh=...)``
+on four slots of the card and to the single-engine service, launches
+summed over the ranks equal to the threads', run B (the path's 5 ms
+deadlines) equal on every rank with tickets expired and each done answer
+the single engine's, and K3 and K6 spandiag timed in rank 0's process at
+its share of their service buckets against their plain versions.
 
 K1, K2, K3, K4 and K6 (both schedules) are also timed at every shape they
 launch on the main and grid paths (each new shape held against the plain
-version, or, where that would take minutes, K3 against K1 at viterbi 64 x
-2048 and edit_distance 2048² and K4 against K2), each kernel's
+version, the alignment grids' edit_distance and lcs read a grid row at a
+time, or, where that would take minutes, K3 against K1 at viterbi 64 x
+2048 and K4 against K2), each kernel's
 ``path_ms`` summed over its path launches, and every DP kernel's launches
 on the main, grid and blocked paths timed by CUDA events. K4 is also timed
 at K2's path shape (mcm 8 x 256), beside K2. K5 is held against its plain
@@ -867,10 +879,12 @@ SDP_PATH_SHAPES = {
 
 def phase_sdp_shapes(cuda, records: list) -> dict:
     """K1 and K3 at every shape they launch on the main path: each new shape
-    held against the plain version (or, where that would take half a minute
-    or more, K3 against K1 on the same tensors), timed, and its bound; the
-    sdp shapes' times are the records'. Returns {record name: [shape
-    rows]}."""
+    held against the plain version (the alignment grids' read a grid row at
+    a time, ``k1.grid_rows_plain``: cell by cell it takes ~25 s at 513² and
+    minutes at 2048²; viterbi 64 x 2048, where the plain version would take
+    half a minute, K3 against K1 on the same tensors), timed, and its
+    bound; the sdp shapes' times are the records'. Returns {record name:
+    [shape rows]}."""
     t0 = time.perf_counter()
     by_name = {r["name"]: r for r in records}
     times = {("sdp_pipeline", "sdp 2^20"): by_name["sdp_pipeline"],
@@ -900,27 +914,33 @@ def phase_sdp_shapes(cuda, records: list) -> dict:
             return torch.equal(got, want)
         return check
 
+    def rows(s, with_args):
+        return lambda init, _, w: k1.grid_rows_plain(init, s.offsets, s.op, s.n, w,
+                                                     with_args=with_args)
+
     others = other_instances(np.random.default_rng(SEED))
     for name, label in (("edit_distance", "edit_distance 513^2"), ("lcs", "lcs 513^2"),
                         ("unbounded_knapsack", "unbounded_knapsack 4097")):
         spec = dp.get_problem(name).encode(**others[name])
-        plain = lambda init, _, w, s=spec: k1.sdp_pipeline_plain(  # noqa: E731
-            init, s.offsets, s.op, s.n, weights=w, with_args=True)
-        timed(("sdp_pipeline_with_args", label), spec, k1.sdp_pipeline_with_args,
-              True, 3, equals_plain(plain, True), "table and args bit-equal to plain")
-        if name == "edit_distance":
+        if name == "unbounded_knapsack":
             plain = lambda init, _, w, s=spec: k1.sdp_pipeline_plain(  # noqa: E731
-                init, s.offsets, s.op, s.n, weights=w)
+                init, s.offsets, s.op, s.n, weights=w, with_args=True)
+            what = "table and args bit-equal to plain"
+        else:
+            plain, what = rows(spec, True), "table and args bit-equal to plain, a row a step"
+        timed(("sdp_pipeline_with_args", label), spec, k1.sdp_pipeline_with_args,
+              True, 3, equals_plain(plain, True), what)
+        if name == "edit_distance":
             timed(("sdp_pipeline", label), spec, k1.sdp_pipeline, False, 3,
-                  equals_plain(plain, False), "table bit-equal to plain")
+                  equals_plain(rows(spec, False), False), "table bit-equal to plain, a row a step")
     def equals_k1(spec):
         def check(init, w, got):
             want = k1.sdp_pipeline_with_args(init, spec.offsets, spec.op, spec.n, weights=w)
             return torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         return check
 
-    # the plain version would take ~30 s and minutes here: K3 against K1
-    # (viterbi 64 x 256 is held against the plain version above)
+    # the plain version would take ~30 s here: K3 against K1 (viterbi 64 x 256
+    # is held against the plain version above)
     vspec = dp.get_problem("viterbi").encode(**others["viterbi"])
     timed(("sdp_chunked_with_args", "viterbi 64 x 2048"), vspec, k3.sdp_chunked_with_args,
           True, 3, equals_k1(vspec), "table and args bit-equal to sdp_pipeline's (K1)")
@@ -928,7 +948,8 @@ def phase_sdp_shapes(cuda, records: list) -> dict:
     espec = dp.get_problem("edit_distance").encode(
         x=rs.integers(0, 4, EDIT_BIG_N), y=rs.integers(0, 4, EDIT_BIG_N))
     timed(("sdp_chunked_with_args", "edit_distance 2048^2"), espec, k3.sdp_chunked_with_args,
-          True, 2, equals_k1(espec), "table and args bit-equal to sdp_pipeline's (K1)")
+          True, 2, equals_plain(rows(espec, True), True),
+          "table and args bit-equal to plain, a row a step")
 
     rows = shape_rows(SDP_PATH_SHAPES, times, by_name)
     print(f"S-DP shapes phase: {time.perf_counter() - t0:.2f} s")
@@ -3220,19 +3241,23 @@ def service_plain_check(results: list, cuda) -> None:
             f"groups ({time.perf_counter() - t0:.1f} s)")
 
 
-def service_sessions(svc, cuda) -> None:
-    """Three streaming sessions, every append checked against a cold
-    ``dp.solve`` of the same full instance on the card, bit for bit."""
+def session_traffic() -> list:
+    """The service path's three streaming sessions, seeded: ``(problem,
+    each append's full instance)``."""
     rng = np.random.default_rng(SEED + 7)
     x, y = rng.integers(0, 4, 256), rng.integers(0, 4, 2048)
     dims = rng.integers(1, 30, 257).astype(np.float64)
     knap = {"item_weights": np.array([3, 5, 7, 11, 13, 17]),
             "item_values": np.round(rng.random(6) * 10 + 0.5, 3)}
-    sessions = [("needleman_wunsch", [dict(x=x, y=y[:c]) for c in range(256, 2049, 256)]),
-                ("mcm", [dict(dims=dims[:n + 1]) for n in (64, 128, 192, 256)]),
-                ("unbounded_knapsack", [dict(knap, capacity=c)
-                                        for c in (1024, 2048, 3072, 4096)])]
-    for name, steps in sessions:
+    return [("needleman_wunsch", [dict(x=x, y=y[:c]) for c in range(256, 2049, 256)]),
+            ("mcm", [dict(dims=dims[:n + 1]) for n in (64, 128, 192, 256)]),
+            ("unbounded_knapsack", [dict(knap, capacity=c) for c in (1024, 2048, 3072, 4096)])]
+
+
+def service_sessions(svc, cuda) -> None:
+    """Three streaming sessions, every append checked against a cold
+    ``dp.solve`` of the same full instance on the card, bit for bit."""
+    for name, steps in session_traffic():
         sid = svc.open_session(name)
         same, kinds, took = 0, [], []
         for kw in steps:
@@ -3452,8 +3477,6 @@ SHARD_BUCKETS = (
     ("needleman_wunsch 1024^2 (K6 antidiag)", "needleman_wunsch", ALIGN_BATCH_N,
      "kernel_grid", k6.LAUNCHES),
 )
-#: the service's traffic through the sharded and the single engine
-SHARD_SERVICE_REQUESTS = 64
 #: pipeline_apply: qwen3-14b at full width cut to PIPE_DEPTH layers, in
 #: PIPE_STAGES stages, over PIPE_MICRO microbatches of 1 x PIPE_S tokens
 PIPE_DEPTH, PIPE_STAGES, PIPE_MICRO, PIPE_S = 8, 4, 6, 1746
@@ -3640,8 +3663,9 @@ def sharded_buckets(mesh, cuda) -> dict:
     for label, name, n, route, counter in SHARD_BUCKETS:
         prob = dp.get_problem(name)
         t_enc = time.perf_counter()
-        specs = [prob.encode(**kw) for kw in shard_instances(rng, name, n)]
+        keyed = ranks.encoded(prob, shard_instances(rng, name, n))   # digested once
         enc_s = time.perf_counter() - t_enc
+        specs = [sp for sp, _ in keyed]
         twin = plain_twin_bucket(prob, route, specs, cuda)
         for recon in (False, True):
             tag = f"sharded {label}{' reconstruct' if recon else ''}"
@@ -3652,8 +3676,8 @@ def sharded_buckets(mesh, cuda) -> dict:
             launched, equal = [], True
             for rnd in range(3):
                 for eng in (shard, plain):
-                    for sp in specs:
-                        eng.submit_spec(prob, sp, reconstruct=recon)
+                    for sp, key in keyed:
+                        eng.submit_spec(prob, sp, reconstruct=recon, digest=key)
                 before = sum(counter.values())
                 if rnd < 2:
                     got, t_s = timed_step(shard, route)
@@ -3667,8 +3691,8 @@ def sharded_buckets(mesh, cuda) -> dict:
                 ms["sharded"].append(t_s)
                 ms["single"].append(t_p)
             st = shard.stats
-            print(f"{tag}: {time.perf_counter() - t_tag:.2f} s in all; encode {enc_s:.2f} s "
-                  f"for {SHARD_BUCKET}; drain ms sharded "
+            print(f"{tag}: {time.perf_counter() - t_tag:.2f} s in all; encode and digest "
+                  f"{enc_s:.2f} s for {SHARD_BUCKET}; drain ms sharded "
                   f"{ms['sharded'][0]:.3f} (cold), {ms['sharded'][1]:.3f}, "
                   f"{ms['sharded'][2]:.3f} (profiled); single engine "
                   f"{ms['single'][0]:.3f} (cold), {ms['single'][1]:.3f}, "
@@ -3687,37 +3711,6 @@ def sharded_buckets(mesh, cuda) -> dict:
                     f"{SHARD_SLOTS} each)")
             times[tag] = (ms["sharded"][1], ms["single"][1])
     return times
-
-
-def sharded_service(mesh, cuda) -> None:
-    """``DPService(mesh=mesh)`` and the single-engine service on the same
-    requests (the service path's traffic, no deadlines): equal answers."""
-    rng = np.random.default_rng(SEED + 5)
-    traffic = service_traffic(rng)[:SHARD_SERVICE_REQUESTS]
-    sharded = dp.DPService(mesh=mesh, max_batch=SERVICE_BATCH, feedback=False)
-    single = dp.DPService(mesh=None, max_batch=SERVICE_BATCH, feedback=False, device=cuda)
-    require(isinstance(sharded.engine, dp.ShardedDPEngine)
-            and type(single.engine) is dp.DPEngine,
-            "service: an explicit mesh builds a ShardedDPEngine, mesh=None the single one")
-    out = {}
-    for label, svc in (("sharded", sharded), ("single", single)):
-        tids = [svc.submit(name, reconstruct=recon, **kw) for name, kw, recon, _ in traffic]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = svc.run()
-        torch.cuda.synchronize()
-        out[label] = [res[t] for t in tids]
-        print(f"service ({label}): {len(tids)} requests in "
-              f"{time.perf_counter() - t0:.2f} s, engine {svc.engine.stats}")
-    bad = [a.problem for a, b in zip(out["sharded"], out["single"])
-           if a.status != "done" or b.status != "done"
-           or not np.array_equal(np.float32(a.answer), np.float32(b.answer))
-           or (a.solution is None) != (b.solution is None)
-           or (a.solution is not None and a.solution.solution != b.solution.solution)]
-    require(not bad and sharded.engine.stats["sharded_drains"] > 0,
-            f"service: {len(traffic)} answers of the sharded service equal the single "
-            f"engine's ({len(bad)} differ: {sorted(set(bad))}), "
-            f"{sharded.engine.stats['sharded_drains']} sharded drains")
 
 
 def sharded_runtime(mesh, cuda) -> None:
@@ -3832,9 +3825,11 @@ def sharded_pipeline(cuda) -> int:
 def phase_sharded(cuda) -> dict:
     """A mesh of SHARD_SLOTS slots on the card: the cooperative kernels on
     concurrent streams under a deadline, ShardedDPEngine's ragged buckets
-    against the single engine, DPService over the mesh, compressed_psum,
-    best_mesh and reshard, and pipeline_apply over qwen3-14b's blocks.
-    Returns the DP kernels' launches of the drains."""
+    against the single engine, compressed_psum, best_mesh and reshard, and
+    pipeline_apply over qwen3-14b's blocks (``DPService`` over the mesh is
+    held against the single engine on the service path's whole traffic by
+    :func:`phase_service_processes`). Returns the DP kernels' launches of
+    the drains."""
     print(card_line())
     t_phase = time.perf_counter()
     mesh = rt_sharding.Mesh([cuda] * SHARD_SLOTS, (dp.sharding.BATCH_AXIS,))
@@ -3849,16 +3844,14 @@ def phase_sharded(cuda) -> dict:
         n = sum(v for k, v in counts.items() if k.startswith(name))
         require(n > 0, f"sharded drains: {name} launched {n} times")
     gate_launches("sharded", cuda)
-    t_service = time.perf_counter()
-    sharded_service(mesh, cuda)
     t_runtime = time.perf_counter()
     sharded_runtime(mesh, cuda)
     t_pipe = time.perf_counter()
     sharded_pipeline(cuda)
     t_end = time.perf_counter()
     print(f"sharded phase parts (s): probes {t_drains - t_phase:.2f}, drains "
-          f"{t_service - t_drains:.2f}, service {t_runtime - t_service:.2f}, psum and "
-          f"elastic {t_pipe - t_runtime:.2f}, pipeline {t_end - t_pipe:.2f}")
+          f"{t_runtime - t_drains:.2f}, psum and elastic {t_pipe - t_runtime:.2f}, pipeline "
+          f"{t_end - t_pipe:.2f}")
     print("sharded drain ms (warm; sharded over 4 streams, single engine): " + "; ".join(
         f"{k} {a:.3f} / {b:.3f}" for k, (a, b) in times.items()))
     took = t_end - t_phase
@@ -4755,6 +4748,9 @@ def fmt(xs, digits: int) -> str:
 def dpp_work(spec, lanes: int, reconstruct: bool) -> tuple:
     """(bytes, operations) of a DP kernel's launch at ``lanes`` instances
     of ``spec``'s shape, as the smoke's kernel records count them."""
+    if isinstance(spec, dp.GridSpec) and spec.schedule == "spandiag":
+        nbytes, ops_ = spandiag_work(spec, reconstruct)
+        return lanes * nbytes, lanes * ops_
     if isinstance(spec, dp.GridSpec):
         P, RC, L = spec.planes, spec.cells, len(spec.moves)
         nbytes = 4 * (L + 2 * P) * RC + 4 * P * RC * (2 if reconstruct else 1)
@@ -4980,6 +4976,259 @@ def phase_dp_processes(cuda) -> list:
     return records
 
 
+# ---------------------------------------------------------------------------
+# DPService one process a rank
+# ---------------------------------------------------------------------------
+#: the ranks' collective timeout and the phase's time limit
+SVP_TIMEOUT_S, SVP_LIMIT_S = 120.0, 150.0
+#: the service-path kernels rank 0 times at its share of their service
+#: bucket: route -> (record name, source, replaced Pallas function, the
+#: problem whose bucket is timed (None: the route's largest), its counters)
+SVP_KERNELS = {
+    "kernel_tiled": ("sdp_chunked_rank_process", "src/repro_torch/csrc/sdp_chunked.cu",
+                     "src/repro/kernels/sdp_pipeline.py:288", None, SERVICE_KERNELS["K3"]),
+    "kernel_grid": ("grid_pipeline_spandiag_rank_process", "src/repro_torch/csrc/grid_pipeline.cu",
+                    "src/repro/kernels/grid_pipeline.py:259", "cky",
+                    SERVICE_KERNELS["K6 spandiag"]),
+}
+
+
+def service_requests(tight: bool) -> list:
+    """The service path's 256 requests (``service_traffic``) as
+    ``ranks.serve_dp`` takes them, each with a seeded priority 0-2 and,
+    where ``tight``, the path's 5 ms start-by deadline on a share
+    ``SERVICE_TIGHT`` of them (the same draws either way)."""
+    rng = np.random.default_rng(SEED + 5)
+    traffic = service_traffic(rng)
+    out = []
+    for name, kw, recon, _ in traffic:
+        short = rng.random() < SERVICE_TIGHT
+        out.append((name, kw, recon, int(rng.integers(3)), 5.0 if short and tight else None))
+    return out
+
+
+def timed_bucket(requests: list, records: list, route: str, problem) -> tuple:
+    """(problem, reconstruct, the distinct instances of the largest group of
+    one shape that ``route`` solved in ``records`` (those of ``problem``
+    where given), at most ``SERVICE_BATCH``)."""
+    groups: dict = {}
+    for (name, kw, recon, _, _), rec in zip(requests, records):
+        if rec["backend"] == route and not rec["cached"] and problem in (None, name):
+            spec = dp.get_problem(name).encode(**kw)
+            group = groups.setdefault((name, spec.shape_key(), recon), {})
+            group[id(kw)] = kw
+    if not groups:
+        return None
+    (name, _, recon), got = max(groups.items(), key=lambda g: len(g[1]))
+    return name, recon, list(got.values())[:SERVICE_BATCH]
+
+
+def same_service(a: dict, b: dict) -> bool:
+    """Two ``ranks.serve_dp`` results' tickets (records) and sessions equal."""
+    return a["records"] == b["records"] and a["sessions"] == b["sessions"]
+
+
+def phase_service_processes(cuda) -> list:
+    """``DPService`` one process a rank: the service path's 256 requests
+    (``SERVICE_BATCH`` 32, priorities 0-2) and its three sessions through a
+    ``DPService(comm=comm)`` in each of four rank processes of the card
+    over gloo. Run A (no deadlines) is bit-equal on every rank to the
+    threaded ``DPService(mesh=...)`` on ``SHARD_SLOTS`` slots of the card
+    and to the single-engine service, the kernels' launches summed over the
+    ranks equal to the threads'; run B (5 ms deadlines on a share
+    ``SERVICE_TIGHT``) is equal on every rank, expires tickets, and answers
+    each done ticket as the single engine does. K3 and K6 spandiag are
+    timed in rank 0 at a rank's share of their service buckets. Returns
+    their records."""
+    from repro_torch.dp import autotune
+
+    print(card_line())
+    t0 = time.perf_counter()
+    plain, tight, sessions = service_requests(False), service_requests(True), session_traffic()
+    mesh = rt_sharding.Mesh([cuda] * SHARD_SLOTS, (dp.sharding.BATCH_AXIS,))
+    autotune.reset()
+    reset_launches()
+    threads = ranks.serve_dp(dp.DPService(mesh=mesh, max_batch=SERVICE_BATCH, feedback=False),
+                             plain, sessions, digest_out=True)
+    thread_counts = launches()
+    autotune.reset()
+    single = ranks.serve_dp(dp.DPService(mesh=None, max_batch=SERVICE_BATCH, feedback=False,
+                                         device=cuda), plain, sessions, digest_out=True)
+    del mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"service processes run A, threads and single: {threads['seconds']:.3f} s and "
+          f"{single['seconds']:.3f} s, {single['stats']['cache_hits']} cache hits, routes "
+          f"{ {f'{k[0]} {k[1]}': v for k, v in sorted(single['routes'].items())} }")
+    n = len(plain)
+    jobs = [(ranks.dp_service, {"requests": plain, "sessions": sessions,
+                                "max_batch": SERVICE_BATCH, "timing": True, "digest_out": True}),
+            (ranks.dp_service, {"requests": tight, "max_batch": SERVICE_BATCH,
+                                "digest_out": True})]
+    timed = {}
+    for route, (_, _, _, problem, _) in SVP_KERNELS.items():
+        bucket = timed_bucket(plain, single["records"][:n], route, problem)
+        require(bucket is not None, f"service processes: {route} served a bucket of the "
+                "single engine's traffic")
+        if bucket is not None:
+            name, recon, instances = bucket
+            kw = instances[0]
+            size = len(kw.get("x", kw.get("tokens", kw.get("dims", []))))
+            print(f"service processes: {route} timed in rank 0 at its share of the {name} "
+                  f"{size} bucket of {len(instances)}{' reconstruct' if recon else ''}")
+            timed[route] = (len(jobs), name, recon, instances)
+            jobs.append((ranks.dp_kernel_ms, {"problem": name, "route": route,
+                                              "instances": instances, "reconstruct": recon}))
+    t1 = time.perf_counter()
+    done = distributed.launch(ranks.sequence, (SHARD_SLOTS,), (dp.sharding.BATCH_AXIS,),
+                              [cuda] * SHARD_SLOTS, args=(jobs,), timeout=SVP_TIMEOUT_S)
+    procs_s = time.perf_counter() - t1
+    require(done.backend == "gloo" and not any(r.foreign for r in done.reports)
+            and all(r.contexts == [cuda.index] for r in done.reports),
+            f"service processes: four ranks on one card over {done.backend} (gloo), none "
+            f"loading jax or repro, each holding a context on card {cuda.index} alone")
+    runs_a = [r.result[0]["result"] for r in done.reports]
+    runs_b = [r.result[1]["result"] for r in done.reports]
+    print(f"service processes run A: wall s by rank {fmt([g['seconds'] for g in runs_a], 3)} "
+          f"(sessions {fmt([g['sessions_seconds'] for g in runs_a], 3)}), threads "
+          f"{threads['seconds']:.3f} (sessions {threads['sessions_seconds']:.3f}), single "
+          f"{single['seconds']:.3f} (sessions {single['sessions_seconds']:.3f}); {card_line()}")
+    print("service processes, each rank's encode and digest s of the traffic's distinct "
+          "instances: " + "; ".join(f"rank {r} encode {g['host']['encode']:.3f}, digest "
+                                    f"{g['host']['digest']:.3f}" for r, g in enumerate(runs_a)))
+    print(f"service processes run B: wall s by rank {fmt([g['seconds'] for g in runs_b], 3)}; "
+          f"expired by rank {[g['stats']['expired'] for g in runs_b]} of {n}; {card_line()}")
+    first = runs_a[0]
+    require(all(same_service(g, first) and g["stats"] == first["stats"]
+                and g["engine"] == first["engine"] and g["routes"] == first["routes"]
+                for g in runs_a[1:]),
+            f"service processes run A: every rank's {len(first['records'])} tickets (answers, "
+            "decoded solutions, routes, statuses), sessions and counters equal rank 0's")
+    require(same_service(first, threads) and first["stats"] == threads["stats"]
+            and first["engine"] == threads["engine"] and first["routes"] == threads["routes"],
+            f"service processes run A: rank 0's tickets, sessions and counters bit-equal to the "
+            f"threaded DPService over {SHARD_SLOTS} slots of the card "
+            f"({first['engine']['sharded_drains']} sharded drains)")
+    require(same_service(first, single) and first["stats"] == single["stats"]
+            and first["routes"] == single["routes"],
+            "service processes run A: rank 0's tickets and sessions bit-equal to the "
+            "single-engine DPService on the card")
+    done_a = sum(r["status"] == "done" for r in first["records"])
+    require(done_a == len(first["records"]) and first["stats"]["cache_hits"] > 0
+            and first["engine"]["dedup_hits"] > 0,
+            f"service processes run A: every ticket done ({done_a}), cache hits "
+            f"{first['stats']['cache_hits']} and dedup {first['engine']['dedup_hits']} > 0")
+    summed = {}
+    for r in done.reports:
+        for k, v in r.result[0]["launches"].items():
+            summed[k] = summed.get(k, 0) + v
+    names = [k for ks in SERVICE_KERNELS.values() for k in ks]
+    got_counts = {k: summed.get(k, 0) for k in names}
+    want_counts = {k: thread_counts[k] for k in names}
+    require(got_counts == want_counts and all(sum(got_counts[k] for k in ks) > 0
+                                              for ks in SERVICE_KERNELS.values()),
+            f"service processes run A: launches summed over the ranks {got_counts} equal the "
+            f"threads' {want_counts}, every kernel of {sorted(SERVICE_KERNELS)} launched")
+    first_b = runs_b[0]
+    expired = first_b["stats"]["expired"]
+    require(all(g["records"] == first_b["records"] and g["stats"] == first_b["stats"]
+                for g in runs_b[1:]) and expired > 0,
+            f"service processes run B: every rank's statuses and tickets equal rank 0's, "
+            f"{expired} expired")
+    same_b = all(rb["status"] == "expired"
+                 or (rb["answer"], rb["solution"]) == (ra["answer"], ra["solution"])
+                 for rb, ra in zip(first_b["records"], single["records"][:n]))
+    require(len(first_b["records"]) == n and same_b,
+            f"service processes run B: each of {n - expired} done answers equals the single "
+            "engine's for the same request")
+
+    records = []
+    for route, (j, name, recon, instances) in timed.items():
+        rec_name, source, replaces, _, counters = SVP_KERNELS[route]
+        t = done.reports[0].result[j]["result"]
+        spec = dp.get_problem(name).encode(**instances[0])
+        nbytes, ops_ = dpp_work(spec, t["lanes"], recon)
+        require(t["equal"], f"{rec_name}: rank 0's {t['lanes']} lanes of a {name} bucket of "
+                f"{len(instances)}{' reconstruct' if recon else ''} bit-equal to the plain "
+                "version on the card")
+        rec = kernel_record(rec_name, source, replaces, t["max_abs_err"], t["ms"],
+                            t["plain_ms"], nbytes, ops_)
+        rec["launches"] = sum(got_counts[k] for k in counters)
+        require(rec["launches"] > 0, f"{rec_name}: launched in the rank processes' run A")
+        records.append(rec)
+    took = time.perf_counter() - t0
+    print(f"service processes phase: threads and single {t1 - t0:.2f} s, processes "
+          f"{procs_s:.2f} s (spawn, both runs and the timings); {card_line()}")
+    require(took <= SVP_LIMIT_S, f"service processes phase took {took:.1f} s "
+            f"(limit {SVP_LIMIT_S:.0f} s)")
+    return records
+
+
+def dp_over_ranks(devices: list, cuda) -> None:
+    """One sharded DP bucket (``SHARD_BUCKETS``' MCM 512 on K4 with
+    reconstruct, ``DPP_ROUNDS`` drains) and the service path's run A
+    traffic in one rank a device of ``devices`` (NCCL where each holds a
+    card of its own), bit-equal to the threaded ``ShardedDPEngine`` and
+    ``DPService`` over the same devices."""
+    from repro_torch.dp import autotune
+
+    n = len(devices)
+    mesh = rt_sharding.Mesh(devices, (dp.sharding.BATCH_AXIS,))
+    _, name, size, route, _ = SHARD_BUCKETS[0]
+    bucket = (name, route, shard_instances(np.random.default_rng(SEED + 11), name, size), True)
+    autotune.reset()
+    drains = threaded_drains([bucket], mesh, cuda)[0]
+    requests, sessions = service_requests(False), session_traffic()
+    autotune.reset()
+    t0 = time.perf_counter()
+    service = ranks.serve_dp(dp.DPService(mesh=mesh, max_batch=SERVICE_BATCH, feedback=False),
+                             requests, sessions, digest_out=True)
+    threads_s = time.perf_counter() - t0
+    del mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    jobs = [(ranks.dp_drains, {"buckets": [bucket], "rounds": DPP_ROUNDS, "digest_out": True}),
+            (ranks.dp_service, {"requests": requests, "sessions": sessions,
+                                "max_batch": SERVICE_BATCH, "digest_out": True})]
+    t0 = time.perf_counter()
+    done = distributed.launch(ranks.sequence, (n,), (dp.sharding.BATCH_AXIS,), devices,
+                              args=(jobs,), timeout=SVP_TIMEOUT_S)
+    launch_s = time.perf_counter() - t0
+    label = f"dp over {n} ranks ({done.backend})"
+    require(not any(r.foreign for r in done.reports),
+            f"{label}: no rank loading jax or repro")
+    got = [r.result[0]["result"][0] for r in done.reports]
+    records, seconds = drains["sharded"]
+    procs = [max(g["seconds"][i] for g in got) for i in range(DPP_ROUNDS)]
+    print(f"{label} MCM {size} (K4) reconstruct: drain s processes (slowest rank) "
+          f"{fmt(procs, 4)}, threads {fmt(seconds, 4)}, single engine "
+          f"{fmt(drains['single'][1], 4)} (cold, warm); {card_line()}")
+    require(all(g["responses"] == records for g in got) and records == drains["single"][0],
+            f"{label}: every rank's MCM {size} answers, tables, args and paths of {DPP_ROUNDS} "
+            "drains bit-equal to the threaded sharded engine's and the single engine's")
+    runs = [r.result[1]["result"] for r in done.reports]
+    print(f"{label} service: wall s by rank {fmt([g['seconds'] for g in runs], 3)}, threads "
+          f"{service['seconds']:.3f} ({threads_s:.2f} with the service's build); launch "
+          f"{launch_s:.2f} s; {card_line()}")
+    require(all(same_service(g, service) and g["stats"] == service["stats"]
+                and g["engine"] == service["engine"] and g["routes"] == service["routes"]
+                for g in runs),
+            f"{label} service: every rank's {len(service['records'])} tickets, sessions and "
+            "counters bit-equal to the threaded DPService over the same devices")
+
+
+def service_nccl(cuda) -> None:
+    """:func:`dp_over_ranks` over NCCL, one rank a card on up to four cards
+    (``--processes-nccl``); where the host has one card, a line saying so
+    (not a check)."""
+    n = min(SHARD_SLOTS, torch.cuda.device_count())
+    if n < 2:
+        print(f"dp and service over NCCL: not run, {torch.cuda.device_count()} card on this "
+              "host (NCCL takes one rank a card)")
+        return
+    dp_over_ranks([torch.device("cuda", i) for i in range(n)], cuda)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5024,6 +5273,9 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         print(card_line())
         processes_nccl(cuda, process_jobs(cuda)[0])
+        gc.collect()
+        torch.cuda.empty_cache()
+        service_nccl(cuda)
         return 1 if _failures else 0
     if sys.argv[1:] == ["--processes"]:
         phase_build()
@@ -5034,6 +5286,11 @@ def main() -> int:
         phase_build()
         torch.backends.cuda.matmul.allow_tf32 = False
         print(json.dumps(phase_dp_processes(cuda)))
+        return 1 if _failures else 0
+    if sys.argv[1:] == ["--service-processes"]:
+        phase_build()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(json.dumps(phase_service_processes(cuda)))
         return 1 if _failures else 0
     if sys.argv[1:] == ["--sharded-lm"]:
         phase_build()
@@ -5165,6 +5422,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     records += phase_dp_processes(cuda)
+    gc.collect()
+    torch.cuda.empty_cache()
+    records += phase_service_processes(cuda)
 
     if _failures:
         print(f"chip_smoke: {len(_failures)} check(s) failed", file=sys.stderr)

@@ -30,6 +30,13 @@ each drain over every visible card where there is more than one (a
 otherwise; ``mesh=None`` forces the one engine; an explicit
 :class:`repro_torch.runtime.sharding.Mesh` of slots (one card may be listed
 several times) builds the sharded engine over it.
+
+One process a rank: ``DPService(comm=comm)`` in every rank of
+``runtime.sharding.run`` or ``runtime.distributed.launch`` serves over that
+rank's ``ShardedDPEngine(comm=comm)``. Every rank makes the same calls in
+the same order, solves its share of each sharded drain and resolves the
+same tickets with the same answers, because every decision that reads a
+clock reads one clock agreed by the ranks (:meth:`DPService._now`).
 """
 from __future__ import annotations
 
@@ -37,6 +44,8 @@ import dataclasses
 import time
 from collections import OrderedDict
 from typing import Any, Optional
+
+import torch
 
 from repro_torch.dp import backends as _backends
 from repro_torch.dp import reconstruct as _reconstruct
@@ -69,7 +78,7 @@ class Ticket:
     digest: str
     reconstruct: bool
     priority: int
-    deadline: Optional[float]      # absolute time.monotonic() start-by bound
+    deadline: Optional[float]      # absolute start-by bound on the service's clock
     submitted_at: float
     #: telemetry timestamps on the ``telemetry.clock`` timebase (set in
     #: ``basic`` mode and above; 0.0 when telemetry is off)
@@ -91,7 +100,9 @@ class Ticket:
 class ServiceResult:
     """Resolution of one ticket. ``status`` is ``"done"`` or ``"expired"``;
     ``cached`` marks answers served from the digest cache without a
-    solve; ``latency_ms`` is submit→resolve wall time. In ``spans``
+    solve; ``latency_ms`` is submit→resolve wall time (a drained ticket
+    resolves after its drain; one rank of a per-rank service measures
+    from the agreed submit reading, its drain on its own clock). In ``spans``
     telemetry mode ``span`` carries the request's full timestamped
     lifecycle (:class:`repro_torch.dp.telemetry.Span`)."""
 
@@ -154,7 +165,15 @@ class DPService:
     ``engine=`` injects a ready-made (empty) engine and takes precedence:
     ``max_batch``, ``mesh``, ``feedback``, ``explore_every`` and ``device``
     then configure nothing. ``session_ttl_ms``, ``session_max`` and
-    ``prefix_index_capacity`` bound the streaming sessions."""
+    ``prefix_index_capacity`` bound the streaming sessions.
+
+    ``comm=`` (a rank's ``runtime.sharding.Comm``) makes this service one
+    rank of a per-rank program: it builds ``ShardedDPEngine(comm=comm)``
+    (on the comm's slot; ``device`` configures nothing) and agrees its
+    clock with the other ranks along the engine's axis. ``comm`` with a
+    ``mesh`` other than "auto" raises ``ValueError``. An injected rank
+    engine (``ShardedDPEngine(comm=...)``, along any axis) brings its comm;
+    one whose comm is not ``comm`` raises ``ValueError``."""
 
     def __init__(self, max_batch: int = 64, max_pending: int = 4096,
                  max_inflight: Optional[int] = None, cache_size: int = 1024,
@@ -163,8 +182,17 @@ class DPService:
                  engine: Optional[DPEngine] = None, device=None,
                  session_ttl_ms: int = SESSION_TTL_MS,
                  session_max: int = SESSION_MAX,
-                 prefix_index_capacity: int = _streaming.PREFIX_INDEX_CAPACITY):
+                 prefix_index_capacity: int = _streaming.PREFIX_INDEX_CAPACITY,
+                 comm: Optional[_sharding.Comm] = None):
+        if comm is not None and not (isinstance(mesh, str) and mesh == "auto"):
+            raise ValueError("pass comm= or mesh=, not both: a rank's service "
+                             "shards over its comm's mesh")
         if engine is not None:
+            ctx = getattr(engine, "ctx", None)
+            own = None if ctx is None else ctx.comm
+            if comm is not None and own is not comm:
+                raise ValueError("the injected engine's comm is not the comm= given")
+            comm = own
             if engine.pending():
                 # the service owns its engine's request lifecycle: rids
                 # submitted behind its back would drain into responses no
@@ -175,17 +203,23 @@ class DPService:
         else:
             knobs = dict(max_batch=max_batch, feedback=feedback,
                          explore_every=explore_every)
-            if mesh == "auto":
+            if comm is not None:
+                mesh = comm.mesh
+            elif mesh == "auto":
                 shard = (_backends.resolve_device(device).type == "cuda"
                          and _sharding.device_count() > 1)
                 mesh = _sharding.default_mesh() if shard else None
-            if mesh is None:
+            if comm is not None:
+                self.engine = _sharding.ShardedDPEngine(comm=comm, **knobs)
+            elif mesh is None:
                 self.engine = DPEngine(device=device, **knobs)
             elif isinstance(mesh, _sharding.Mesh):
                 self.engine = _sharding.ShardedDPEngine(mesh=mesh, **knobs)
             else:
                 raise TypeError(f"mesh must be 'auto', None or a "
                                 f"repro_torch.runtime.sharding.Mesh, not {mesh!r}")
+        #: the rank's communicator (None: one process serves alone)
+        self.comm = comm
         if session_ttl_ms < 1 or session_max < 1:
             raise ValueError("session_ttl_ms and session_max must be >= 1")
         if max_pending < 1:
@@ -240,6 +274,26 @@ class DPService:
         self.prefix_index = _streaming.PrefixIndex(prefix_index_capacity)
         _telemetry.REGISTRY.register_source("dp_service", self)
 
+    def _now(self) -> float:
+        """The service's clock, read once a public call (``submit``,
+        ``append``, ``open_session``, ``step``; ``close_session`` and
+        ``poll`` decide nothing by it): deadlines, expiry, the EDF order
+        and so the drain target, and session sweeps all come from these
+        readings, as does the submit end of ``latency_ms`` (its resolve
+        end is read after the drain, see :meth:`step`). Alone,
+        ``time.monotonic()``. Given a
+        comm, the largest of the ranks' readings along the engine's axis
+        (``comm.all_max``, one collective a call): every rank gets the
+        same value, so every rank expires the same tickets and drains the
+        same bucket (ranks that disagreed would enter different gathers),
+        and that value is the moment the last rank reached the call, when
+        the decision is taken on every rank. Telemetry's clock stays per
+        rank: it decides nothing."""
+        if self.comm is None:
+            return time.monotonic()
+        reading = torch.tensor(time.monotonic(), dtype=torch.float64)
+        return float(self.comm.all_max(reading, self.engine.ctx.axis))
+
     # -- admission ---------------------------------------------------------
     def backlog(self) -> int:
         return sum(len(v) for v in self._backlog.values())
@@ -263,19 +317,19 @@ class DPService:
         ``status="expired"``."""
         prob = _registry.get(problem)
         spec = prob.encode(**payload)
-        return self._submit(prob, spec, priority, deadline_ms, reconstruct)
+        return self._submit(prob, spec, priority, deadline_ms, reconstruct, self._now())
 
     def _submit(self, prob, spec: Spec, priority: int,
-                deadline_ms: Optional[float], reconstruct: bool,
+                deadline_ms: Optional[float], reconstruct: bool, now: float,
                 resume: Optional[_streaming.ResumeToken] = None,
                 sid: Optional[int] = None, keep_table: bool = False,
                 chain_full: Optional[bytes] = None,
                 serve: Optional[tuple] = None) -> int:
-        """Shared admission path for ``submit`` and session ``append``.
-        ``serve`` is a precomputed ``(answer, solution, backend,
-        extended)`` resolution (a full prefix-index hit) that bypasses the
-        cache and the backlog; ``resume`` routes the ticket into an engine
-        extend bucket."""
+        """Shared admission path for ``submit`` and session ``append``, at
+        the call's clock reading ``now``. ``serve`` is a precomputed
+        ``(answer, solution, backend, extended)`` resolution (a full
+        prefix-index hit) that bypasses the cache and the backlog;
+        ``resume`` routes the ticket into an engine extend bucket."""
         if reconstruct:
             _reconstruct.check_reconstructable(prob, spec)
         # A session append already carries its chain digest at full
@@ -283,7 +337,6 @@ class DPService:
         # every step payload — the same content commitment spec_digest
         # makes, minus an O(n) hash pass over the instance.
         digest = chain_full if chain_full is not None else spec_digest(spec)
-        now = time.monotonic()
         hit = strip_solution = None
         if serve is None:
             ckey = (prob.name, digest, reconstruct)
@@ -372,10 +425,10 @@ class DPService:
         prefix index. Idle sessions are reclaimed past ``session_ttl_ms``;
         the LRU session evicts past ``session_max``."""
         prob = _registry.get(problem)       # validates the name
-        self._sweep_sessions()
+        now = self._now()
+        self._sweep_sessions(now)
         sid = self._next_sid
         self._next_sid += 1
-        now = time.monotonic()
         self._sessions[sid] = Session(sid=sid, problem=prob.name,
                                       opened_at=now, last_seen=now)
         while len(self._sessions) > self.session_max:
@@ -393,10 +446,10 @@ class DPService:
         self._sessions.move_to_end(sid)
         return s
 
-    def _sweep_sessions(self) -> None:
+    def _sweep_sessions(self, now: float) -> None:
         if not self._sessions:
             return
-        cutoff = time.monotonic() - self.session_ttl_ms / 1e3
+        cutoff = now - self.session_ttl_ms / 1e3
         for sid in [k for k, s in self._sessions.items()
                     if s.last_seen < cutoff]:
             del self._sessions[sid]
@@ -422,7 +475,8 @@ class DPService:
         the *next* append — from this session or any other — warm-starts
         off it."""
         s = self._session(sid)
-        s.last_seen = time.monotonic()
+        now = self._now()
+        s.last_seen = now
         s.appends += 1
         self.stats["session_appends"] += 1
         _telemetry.count("dp_service_session_appends_total")
@@ -460,7 +514,7 @@ class DPService:
         else:
             self.stats["prefix_misses"] += 1
             _telemetry.count("dp_service_prefix_misses_total")
-        return self._submit(prob, spec, priority, deadline_ms, reconstruct,
+        return self._submit(prob, spec, priority, deadline_ms, reconstruct, now,
                             resume=resume, sid=sid,
                             keep_table=serve is None and streamable,
                             chain_full=chain.get(n), serve=serve)
@@ -496,10 +550,9 @@ class DPService:
         raise KeyError(f"unknown ticket {tid}")
 
     # -- scheduling loop ---------------------------------------------------
-    def _expire(self) -> list:
-        """Resolve backlog tickets past their start-by deadline; returns
-        the expired tids."""
-        now = time.monotonic()
+    def _expire(self, now: float) -> list:
+        """Resolve backlog tickets past their start-by deadline at ``now``;
+        returns the expired tids."""
         expired = []
         for key in list(self._backlog):
             queue = self._backlog[key]
@@ -605,8 +658,15 @@ class DPService:
         """One service step: expire stale tickets, refill the engine, drain
         one bucket. Returns the tids resolved this step (drained + newly
         expired)."""
-        resolved = self._expire()
-        self._sweep_sessions()
+        now = self._now()
+        # A drained ticket resolves after its drain, as ``latency_ms`` says.
+        # Alone the clock is read again then. A rank adds its own drain
+        # time to the agreed reading (latency decides nothing, so it need
+        # not agree); its sessions' ``last_seen`` decides sweeps, so it
+        # stays at the agreed reading every rank shares.
+        skew = 0.0 if self.comm is None else now - time.monotonic()
+        resolved = self._expire(now)
+        self._sweep_sessions(now)
         self._admit()
         responses = self.engine.step(backend=backend,
                                      bucket=self._drain_target())
@@ -620,7 +680,7 @@ class DPService:
                 tid=t.tid, problem=t.problem, status="done",
                 answer=resp.answer, solution=resp.solution,
                 backend=resp.backend,
-                latency_ms=(time.monotonic() - t.submitted_at) * 1e3,
+                latency_ms=(time.monotonic() + skew - t.submitted_at) * 1e3,
                 span=span, extended=resp.extended, sid=t.sid)
             if drain is not None:
                 self._observe_phases(t, resp, drain, span, t_done)
@@ -638,7 +698,7 @@ class DPService:
                     if s.affinity is None or resp.extended:
                         s.affinity = resp.backend
                     s.length = max(s.length, t.spec.extend_length())
-                    s.last_seen = time.monotonic()
+                    s.last_seen = time.monotonic() if self.comm is None else now
             _backends.lru_put(self._results, t.tid, res, self.results_max)
             resolved.append(t.tid)
             self.stats["completed"] += 1

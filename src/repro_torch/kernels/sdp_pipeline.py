@@ -109,6 +109,65 @@ def sdp_pipeline_plain(init, offsets, op: str, n: int, block: int = 512,
     return (st, ar) if with_args else st
 
 
+def grid_rows_plain(init, offsets, op: str, n: int, weights, with_args: bool = False):
+    """:func:`sdp_pipeline_plain`'s table (and args) for specs whose offsets
+    are ``(w + 1, w, 1)`` (an alignment grid of rows of ``w`` cells,
+    linearized; ``init`` (batch, w + 1) or (w + 1,), ``weights`` (batch, n,
+    3) or (n, 3)), a grid
+    row at a time instead of a cell a step: the two lanes from the row
+    above at once, the in-row chain ``t[c] = op(a[c], t[c - 1] + g[c])`` as
+    a running min (max) of ``a - P`` plus ``P``, ``P`` the row's prefix
+    sums of ``g``, and each cell's first best lane read off the exact
+    values. That equals the cell-by-cell fold exactly where every finite
+    value is an integer below 2^24 (edit distance, lcs), which it checks:
+    it raises ``ValueError`` otherwise, and where a row's first cell has
+    an in-row weight other than the op's zero. Returns ``st`` or
+    ``(st, args)``."""
+    w = offsets[1]
+    if tuple(offsets) != (w + 1, w, 1) or op not in ("min", "max") or weights is None:
+        raise ValueError(f"grid_rows_plain: offsets {tuple(offsets)} and op {op!r} are not "
+                         "an alignment grid's (w + 1, w, 1) under min or max, with weights")
+    squeeze = init.dim() == 1
+    if squeeze:
+        init, weights = init[None], weights[None]
+    finite = weights[torch.isfinite(weights)]
+    if not bool((finite == finite.round()).all()) or float(finite.abs().max()) * n >= 2 ** 24:
+        raise ValueError("grid_rows_plain: weights are not small integers")
+    lane, scan = (torch.minimum, torch.cummin) if op == "min" else (torch.maximum, torch.cummax)
+    zero = float("inf") if op == "min" else float("-inf")
+    a1, wt, dev = w + 1, weights.double(), init.device
+    t = torch.empty((init.shape[0], n), dtype=torch.float64, device=dev)
+    t[:, :a1] = init
+    ar = torch.full((init.shape[0], n), -1, dtype=torch.int32, device=dev)
+    s = a1
+    while s < n:
+        e = min((s // w + 1) * w, n)
+        c = torch.arange(s, e, device=dev)
+        v0, v1 = t[:, c - w - 1] + wt[:, c, 0], t[:, c - w] + wt[:, c, 1]
+        a = lane(v0, v1)
+        if s % w:   # a1's row: its first cell's in-row lane reads the preset before it
+            base = torch.cat([t[:, s - 1:s], a], dim=1)
+            g = torch.cat([torch.zeros_like(a[:, :1]), wt[:, s:e, 2]], dim=1)
+        else:       # a grid row's first cell has no in-row lane (its weight is the zero)
+            if not bool((wt[:, s, 2] == zero).all()):
+                raise ValueError("grid_rows_plain: the in-row weight of a row's first "
+                                 f"cell is not {zero}: not an alignment grid's layout")
+            base, g = a, torch.cat([torch.zeros_like(a[:, :1]), wt[:, s + 1:e, 2]], dim=1)
+        if not bool(torch.isfinite(g).all()):
+            raise ValueError("grid_rows_plain: an in-row weight past a row's first cell "
+                             "is not finite")
+        prefix = g.cumsum(dim=1)
+        row = (scan(base - prefix, dim=1).values + prefix)[:, -(e - s):]
+        t[:, s:e] = row
+        if with_args:
+            ar[:, s:e] = torch.where(v0 == row, 0, torch.where(v1 == row, 1, 2)).to(torch.int32)
+        s = e
+    st = t.float()
+    if squeeze:
+        st, ar = st[0], ar[0]
+    return (st, ar) if with_args else st
+
+
 def _launch(init, offsets, op, n, block, weights, with_args):
     name = "sdp_pipeline_with_args" if with_args else "sdp_pipeline"
     offsets = _check_args(op, offsets, with_args)

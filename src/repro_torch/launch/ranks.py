@@ -12,11 +12,15 @@ come back as :func:`digest`\\ s).
 * :func:`dp_drains`: buckets of DP instances through a ``ShardedDPEngine``
   rank, each rank solving its share (:func:`response_record` of each
   response, which the threaded engine's responses give too);
+* :func:`dp_service`: DP traffic, with priorities, deadlines and streaming
+  sessions, through a ``DPService(comm=comm)`` rank (:func:`serve_dp`, which
+  the threaded and the single-engine service run too);
 * :func:`pipeline`: ``pipeline_apply_rank`` over a model's blocks, each rank
   one stage (``stage_params``);
 * :func:`compressed`: ``compressed_psum_rank`` of each rank's shard;
 * :func:`attention_ms` and :func:`dp_kernel_ms`: K7 or K7b, or a DP route's
-  kernel, timed in rank 0 at a rank's shapes beside its plain version;
+  kernel (K1–K4, K6 by either schedule), timed in rank 0 at a rank's shapes
+  beside its plain version;
 * :func:`sequence`: several programs in one launch, each timed, with the
   kernel launches and the peak memory it took in the rank.
 
@@ -310,25 +314,131 @@ def dp_drains(comm, buckets: Sequence, *, rounds: int = 1, max_batch: int = 8,
     return out
 
 
+def ticket_record(res, digest_out: bool = False) -> dict:
+    """A ``ServiceResult`` as plain data: its tid, problem, status, answer
+    (its numpy value, or with ``digest_out`` the digest of its dtype and
+    bytes), decoded solution, route, ``cached``, ``extended`` and session."""
+    answer = None if res.answer is None else np.asarray(res.answer)
+    if digest_out and answer is not None:
+        answer = _np_digest(answer)
+    return {"tid": res.tid, "problem": res.problem, "status": res.status, "answer": answer,
+            "solution": None if res.solution is None else res.solution.solution,
+            "backend": res.backend, "cached": res.cached, "extended": res.extended,
+            "sid": res.sid}
+
+
+def host_seconds(requests: Sequence, sessions: Sequence = ()) -> dict:
+    """{"encode", "digest"}: the host seconds of encoding and digesting
+    each distinct instance of ``requests`` and ``sessions`` (as
+    :func:`serve_dp` takes them) once, the work every rank of a
+    ``DPService(comm=...)`` repeats for every request it admits."""
+    from repro_torch import dp
+    from repro_torch.dp.problem import spec_digest
+
+    seen, out = set(), {"encode": 0.0, "digest": 0.0}
+    items = [(r[0], r[1]) for r in requests] + [(name, kw) for name, steps in sessions
+                                                for kw in steps]
+    for name, kw in items:
+        if id(kw) in seen:
+            continue
+        seen.add(id(kw))
+        t0 = time.perf_counter()
+        spec = dp.get_problem(name).encode(**kw)
+        t1 = time.perf_counter()
+        spec_digest(spec)
+        out["encode"] += t1 - t0
+        out["digest"] += time.perf_counter() - t1
+    return out
+
+
+def serve_dp(svc, requests: Sequence, sessions: Sequence = (), *, step_every: int = 32,
+             steps: int = 2, digest_out: bool = False) -> dict:
+    """``requests`` through the service ``svc``: each ``(problem, payload,
+    reconstruct, priority, deadline_ms)`` submitted in order, ``steps``
+    ``svc.step()`` calls after every ``step_every`` submits, then steps
+    until nothing is pending; then each ``(problem, payloads)`` of
+    ``sessions`` as a streaming session, one ``append`` and ``run`` a
+    payload. Returns {"records": each ticket's :func:`ticket_record` in tid
+    order, "sessions": each session's summary, "stats", "engine": the
+    engine's stats, "routes", "seconds": on the host clock with the
+    engine's device synchronised, "sessions_seconds" of that}."""
+    dev = svc.engine.device
+    got, summaries = {}, []
+    _sync(dev)
+    t0 = time.perf_counter()
+    for i, (name, kw, recon, priority, deadline_ms) in enumerate(requests):
+        svc.submit(name, reconstruct=recon, priority=priority, deadline_ms=deadline_ms, **kw)
+        if i % step_every == step_every - 1:
+            for _ in range(steps):
+                svc.step()
+    got.update(svc.run())
+    _sync(dev)
+    t1 = time.perf_counter()
+    for name, payloads in sessions:
+        sid = svc.open_session(name)
+        for kw in payloads:
+            svc.append(sid, **kw)
+            got.update(svc.run())
+        summaries.append(svc.close_session(sid))
+    _sync(dev)
+    t2 = time.perf_counter()
+    return {"records": [ticket_record(got[t], digest_out) for t in sorted(got)],
+            "sessions": summaries, "stats": dict(svc.stats), "engine": dict(svc.engine.stats),
+            "routes": dict(svc.routes), "seconds": t2 - t0, "sessions_seconds": t2 - t1}
+
+
+def dp_service(comm, requests: Sequence, sessions: Sequence = (), *, max_batch: int = 32,
+               timing: bool = False, digest_out: bool = False, **service) -> dict:
+    """:func:`serve_dp` through a ``DPService(comm=comm, max_batch=...,
+    feedback=False, **service)`` rank (requests and sessions as numpy
+    payloads); with ``timing``, {"host": :func:`host_seconds`} of the same
+    traffic beside, measured first."""
+    from repro_torch import dp
+
+    host = host_seconds(requests, sessions) if timing else None
+    svc = dp.DPService(comm=comm, max_batch=max_batch, **{"feedback": False, **service})
+    out = serve_dp(svc, requests, sessions, digest_out=digest_out)
+    out["host"] = host
+    return out
+
+
+#: plain steps past which an S-DP kernel of a grid-shaped spec is held
+#: against ``sdp_pipeline.grid_rows_plain`` instead (its plain version takes
+#: a step of ``min(offsets)`` cells: one a cell on an alignment grid)
+PLAIN_STEPS_MAX = 1 << 16
+
+
 def _dp_calls(route: str, specs: list, reconstruct: bool, device) -> tuple:
     """(the route's kernel, its plain version), each a call with no
     arguments on ``specs`` stacked on ``device``, returning the table first
-    (and, under ``reconstruct``, the args, and K4's fused nodes)."""
+    (and, under ``reconstruct``, the args, and K4's fused nodes). An S-DP
+    table whose plain version would take more than
+    :data:`PLAIN_STEPS_MAX` steps is held against
+    ``sdp_pipeline.grid_rows_plain``."""
     from repro_torch.dp.backends import _stack
     from repro_torch.kernels import grid_pipeline as k6
     from repro_torch.kernels import mcm_pipeline as k2
     from repro_torch.kernels import mcm_tiled as k4
     from repro_torch.kernels import ops
+    from repro_torch.kernels import sdp_chunked as k3
     from repro_torch.kernels import sdp_pipeline as k1
 
     s0 = specs[0]
-    if route == "kernel_blocked":
+    if route in ("kernel_blocked", "kernel_tiled"):
         init = _stack([s.init for s in specs], device)
         w = None if s0.weights is None else _stack([s.weights for s in specs], device)
-        kern = ops.sdp_blocked_with_args if reconstruct else ops.sdp_blocked
-        return (lambda: kern(init, s0.offsets, s0.op, s0.n, weights=w),
-                lambda: k1.sdp_pipeline_plain(init, s0.offsets, s0.op, s0.n, weights=w,
-                                              with_args=reconstruct))
+        if route == "kernel_blocked":
+            kern = ops.sdp_blocked_with_args if reconstruct else ops.sdp_blocked
+            plain = k1.sdp_pipeline_plain
+        else:
+            kern = ops.sdp_chunked_with_args if reconstruct else ops.sdp_chunked
+            plain = k3.sdp_chunked_plain
+        run = lambda: kern(init, s0.offsets, s0.op, s0.n, weights=w)   # noqa: E731
+        if (s0.n - s0.offsets[0]) // min(s0.offsets) > PLAIN_STEPS_MAX:
+            return run, lambda: k1.grid_rows_plain(init, s0.offsets, s0.op, s0.n, w,
+                                                   with_args=reconstruct)
+        return run, lambda: plain(init, s0.offsets, s0.op, s0.n, weights=w,
+                                  with_args=reconstruct)
     if route == "kernel_grid":
         arrs = tuple(_stack(a, device) for a in zip(*(s.device_arrays() for s in specs)))
         meta = s0.static_meta()

@@ -102,8 +102,8 @@ def _pack(ts: Sequence[torch.Tensor], device, size: Optional[int] = None) -> tup
     multiple of :data:`ALIGN`, zero-padded to ``size`` bytes where given;
     each tensor's (shape, dtype, offset, bytes))."""
     metas, pieces, off = [], [], 0
-    for t in ts:
-        b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    for t in ts:   # a tensor elsewhere (a host scalar under NCCL) is moved to ``device``
+        b = t.detach().contiguous().reshape(-1).view(torch.uint8).to(device)
         n = b.numel()
         metas.append((tuple(t.shape), t.dtype, off, n))
         pieces.append(b)

@@ -1528,6 +1528,76 @@ def test_sharded_drain_on_four_slots_equals_the_single_engine(cuda, route, name,
                 assert g.solution.solution == sol.solution
 
 
+#: (route, problem, reconstruct): one bucket of each kernel route, K1-K4 and
+#: K6 by both schedules, through the service over the card's slots
+SERVICE_RANK_CASES = [("kernel_blocked", "sdp", False), ("kernel_tiled", "sdp", True),
+                      ("kernel_wavefront", "mcm", True), ("kernel_tiled_wavefront", "mcm", True),
+                      ("kernel_grid", "needleman_wunsch", False), ("kernel_grid", "cky", True)]
+
+
+def _route_buckets() -> list:
+    """For each of :data:`SERVICE_RANK_CASES`, ``(route, requests)``: six
+    instances of one shape (a repeat among them), as ``(problem,
+    payload, reconstruct)``."""
+    out = []
+    for route, name, reconstruct in SERVICE_RANK_CASES:
+        rng = np.random.default_rng(zlib.crc32(f"service {route}{name}".encode()))
+        base = dp.get_problem(name).sample(rng, 24)
+        fresh = {"sdp": lambda: {"init": rng.normal(size=np.shape(base["init"]))},
+                 "mcm": lambda: {"dims": rng.integers(1, 20, len(base["dims"])).astype(float)},
+                 "cky": lambda: {"tokens": rng.integers(0, np.shape(base["lex"])[1],
+                                                        len(base["tokens"]))},
+                 "needleman_wunsch": lambda: {"x": rng.integers(0, 4, len(base["x"])),
+                                              "y": rng.integers(0, 4, len(base["y"]))}}[name]
+        kws = [base] + [dict(base, **fresh()) for _ in range(4)] + [base]
+        out.append((route, [(name, kw, reconstruct) for kw in kws]))
+    return out
+
+
+def _serve_route_buckets(svc, buckets: list) -> list:
+    """Each bucket's requests submitted to ``svc`` and run with its route
+    forced: every ticket's ``ranks.ticket_record``, in tid order."""
+    from repro_torch.launch import ranks
+
+    got = {}
+    for route, requests in buckets:
+        for name, kw, reconstruct in requests:
+            svc.submit(name, reconstruct=reconstruct, **kw)
+        got.update(svc.run(backend=route))
+    return [ranks.ticket_record(got[t]) for t in sorted(got)]
+
+
+def test_service_over_four_slots_of_the_card_equals_the_single_engine(cuda):
+    """``DPService(comm=comm)`` in each of four threaded slots of the card
+    (``runtime.sharding.run``), one bucket of each kernel route: every
+    slot's tickets (statuses, routes, answers bit for bit, decoded
+    solutions) equal every other slot's and the single-engine service's,
+    each bucket's kernel launched once a slot."""
+    from repro_torch.dp.sharding import default_mesh
+    from repro_torch.runtime import sharding as rt
+
+    buckets = _route_buckets()
+    counters = {"kernel_blocked": k1.LAUNCHES, "kernel_tiled": k3.LAUNCHES,
+                "kernel_wavefront": k2.LAUNCHES, "kernel_tiled_wavefront": k4.LAUNCHES,
+                "kernel_grid": k6.LAUNCHES}
+    before = {r: sum(c.values()) for r, c in counters.items()}
+    got = rt.run(default_mesh(devices=[cuda] * 4), lambda comm: _serve_route_buckets(
+        dp.DPService(comm=comm, max_batch=8, feedback=False), buckets))
+    launched = {r: sum(c.values()) - before[r] for r, c in counters.items()}
+    assert launched == {r: 4 * sum(b == r for b, _, _ in SERVICE_RANK_CASES) for r in counters}
+    want = _serve_route_buckets(dp.DPService(mesh=None, device=cuda, max_batch=8,
+                                             feedback=False), buckets)
+    routes = [route for route, requests in buckets for _ in requests]
+    assert [w["backend"] for w in want] == routes
+    for r, records in enumerate(got):
+        assert len(records) == len(want), r
+        for g, w in zip(records, want):
+            assert {k: v for k, v in g.items() if k != "answer"} == \
+                {k: v for k, v in w.items() if k != "answer"}, (r, w["tid"])
+            assert g["answer"].dtype == w["answer"].dtype, (r, w["tid"])
+            assert g["answer"].tobytes() == w["answer"].tobytes(), (r, w["tid"])
+
+
 def test_compressed_psum_joins_the_slots_streams(cuda):
     """Shards made late on their slots' streams (each stream held back by a
     spin before the kernel that writes its shard): the sum equals the CPU

@@ -243,3 +243,35 @@ def test_rank_programs_of_the_dp_engine_pipeline_and_psum_are_scanned_on_their_o
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+
+
+def test_service_rank_form_is_scanned_on_its_own():
+    """The service one process a rank (``DPService(comm=...)``) and its rank
+    program (``launch/ranks.py::dp_service``) import no JAX and no
+    ``repro`` (nor load them when imported, nor when two threaded ranks
+    serve a request and a session with it), and read no environment
+    variable."""
+    files = [PORT / p for p in ("dp/service.py", "dp/sharding.py", "launch/ranks.py")]
+    env = re.compile(r"os\.environ|getenv")
+    for f in files:
+        text = f.read_text()
+        assert not FORBIDDEN.findall(text), f"{f.relative_to(ROOT)} imports JAX or repro"
+        assert not env.search(text), f.relative_to(ROOT)
+    code = ("import sys, numpy as np; "
+            "from repro_torch.dp import DPService; "
+            "from repro_torch.launch.ranks import dp_service, serve_dp, host_seconds; "
+            "from repro_torch.runtime import sharding as rt; "
+            "mesh = rt.Mesh(['cpu'] * 2, ('shard',)); "
+            "req = [('mcm', {'dims': np.arange(1.0, 6.0)}, True, 1, 50.0)]; "
+            "ses = [('unbounded_knapsack', [dict(item_weights=np.array([2, 3]), "
+            "item_values=np.array([1.0, 2.0]), capacity=c) for c in (7, 9)])]; "
+            "got = rt.run(mesh, lambda c: dp_service(c, req, ses, max_batch=4, timing=True)); "
+            "assert got[0]['records'] == got[1]['records'] and len(got[0]['records']) == 3; "
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "assert not bad, bad; print('clean')")
+    env_vars = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env_vars, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"

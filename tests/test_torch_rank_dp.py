@@ -63,6 +63,14 @@ def _fresh_tables():
     tautotune.reset()
 
 
+def _zero_case() -> tuple:
+    """(each stage's positive ``p`` (S, d), the microbatches (M, mb, d)) of
+    the -0.0 pipeline."""
+    rng = np.random.default_rng(1)
+    return (rng.uniform(0.5, 2.0, size=(S, D)).astype(np.float32),
+            rng.normal(size=(M, MB, D)).astype(np.float32))
+
+
 def _pipeline_case() -> tuple:
     rng = np.random.default_rng(0)
     Ws = (rng.normal(size=(S, D, D)) * 0.3).astype(np.float32)
@@ -98,6 +106,7 @@ def _jobs() -> dict:
                                          "feedback": True, "explore_every": 2}),
         "permutes": (programs.permutes, {"inputs": _collective_inputs(5), "mesh": (2, 2)}),
         "pipeline": (programs.pipeline_tanh, {"Ws": Ws, "bs": bs, "x": x}),
+        "pipeline zero": (programs.pipeline_negzero, dict(zip(("ps", "x"), _zero_case()))),
         "psum 4": (ranks.compressed, {"shards": _psum_shards(4), "axis": "model"}),
         "psum 2": (ranks.compressed, {"shards": _psum_shards(2), "axis": "data",
                                       "mesh": (2, 2)}),
@@ -266,6 +275,32 @@ def test_pipeline_rank_bit_equal_to_slots_and_within_the_reference(launched):
         assert got.dtype == want.dtype and got.shape == (M, MB, D), r
         assert torch.equal(got, want), r
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-5, atol=2e-5)
+
+
+def test_pipeline_keeps_negative_zero_bit_equal_to_the_sequence(launched):
+    """The stages ``-|h|·0·p`` (S 4, M 6, mb 3, d 8): every output element
+    is -0.0. Every rank's ``pipeline_apply_rank`` and the slots'
+    ``pipeline_apply`` are bit-equal to the stages applied in sequence, all
+    144 sign bits set (the outputs are summed over the stages as integers).
+    The reference closes with a float ``psum`` over the stages' outputs,
+    zeros but the last stage's, which turns -0.0 into +0.0: it is compared
+    by values only (a difference on purpose, ``ROADMAP.md`` queue 3)."""
+    ps, x = _zero_case()
+    seq = torch.from_numpy(x)
+    for s in range(S):
+        seq = programs.negzero_stage(torch.from_numpy(ps[s]), seq)
+    assert int(torch.signbit(seq).sum()) == M * MB * D == 144
+    slots = pipeline_apply(programs.negzero_stage, [torch.from_numpy(p) for p in ps],
+                           torch.from_numpy(x), rt.Mesh(["cpu"] * S, ("stage",)))
+    ref_seq = jnp.asarray(x)
+    for s in range(S):
+        ref_seq = -jnp.abs(ref_seq) * 0.0 * jnp.asarray(ps[s])
+    outs = jnp.stack([jnp.zeros_like(ref_seq)] * (S - 1) + [ref_seq])
+    ref = np.asarray(jax.vmap(lambda o: jax.lax.psum(o, "i"), axis_name="i")(outs)[0])
+    for r, got in enumerate([slots] + list(launched["pipeline zero"])):
+        assert got.dtype == torch.float32 and got.shape == (M, MB, D), r
+        assert torch.equal(got.view(torch.int32), seq.view(torch.int32)), r
+        np.testing.assert_array_equal(got.numpy(), ref)
 
 
 # ---------------------------------------------------------------------------

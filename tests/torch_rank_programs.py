@@ -19,7 +19,9 @@ only: no ``jax``, no ``repro``, nothing of a test file.
 * :func:`skipped_permute`: a pipeline's permutes with one rank skipping
   one (the call must fail);
 * :func:`pipeline_tanh`: ``pipeline_apply_rank`` of the reference's
-  ``tanh(x @ W + b)`` stages.
+  ``tanh(x @ W + b)`` stages;
+* :func:`pipeline_negzero`: ``pipeline_apply_rank`` of stages whose every
+  output is -0.0 (:func:`negzero_stage`).
 """
 from __future__ import annotations
 
@@ -209,3 +211,18 @@ def pipeline_tanh(comm, Ws, bs, x, *, axis: str = "model") -> torch.Tensor:
     dev = comm.device
     params = (torch.as_tensor(Ws[j]).to(dev), torch.as_tensor(bs[j]).to(dev))
     return pipeline_apply_rank(tanh_stage, params, torch.as_tensor(x).to(dev), comm, axis)
+
+
+def negzero_stage(p, h):
+    """``-|h| * 0 * p``: -0.0 in every element for a positive ``p``."""
+    return -h.abs() * 0.0 * p
+
+
+def pipeline_negzero(comm, ps, x, *, axis: str = "model") -> torch.Tensor:
+    """``pipeline_apply_rank`` of :func:`negzero_stage` over the ranks along
+    ``axis``: rank j's stage holds ``ps[j]`` (numpy, positive); ``x``
+    (M, mb, d) numpy microbatches."""
+    j = comm.group(axis).index(comm.rank)
+    dev = comm.device
+    return pipeline_apply_rank(negzero_stage, torch.as_tensor(ps[j]).to(dev),
+                               torch.as_tensor(x).to(dev), comm, axis)
